@@ -1,0 +1,620 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (zkp2p_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py        # from the root of a checkout, one CUDA card
+
+Phases, each of which raises on failure (the script then exits nonzero
+and prints no result line):
+
+1. Build: every kernel source under zkp2p_tpu_torch/csrc/ with nvcc for
+   sm_90a, one process per source, timed as set-up.
+2. Kernels against plain: each of the seven launchers (K1 mont_mul; K2
+   add, K3 add_mixed, K4 double for G1 and G2) on random canonical inputs
+   with the special cases (zero, one, p-1; P+P, P+(-P), infinity, the
+   (0, 0) affine sentinel) at batches 1, 257 and one large batch, held
+   bitwise against its plain torch version on the card; a sample against
+   Python ints and the host curve.  Then each at the main path's shape:
+   timed, its plain version timed on the same inputs, and the two
+   outputs held bitwise.
+3. Test vector: prove_gpu on zkp2p_tpu_torch/data/port_vector.npz gives
+   the committed proof byte for byte.
+4. Real size: a seeded synthetic key and witness of the flagship
+   circuit's shape (venmo 1024/6400: the counts in VENMO below), one
+   warm-up and three timed proofs through prove_gpu.  Every base is
+   t_j*G from a small host table, so each of the five MSMs is checked
+   against (sum_i s_i t_idx(i) mod r)*G computed from the scalars the
+   prover used.  h_evals is held against the plain path (CPU) at 2^16.
+
+Before the last line it prints the card's name and power limit, a
+profile of one more proof (the device's busy share and the ops with the
+most device time, from torch.profiler), one JSON line with the seven
+kernels (checks, launches on the main path, times and bounds), and one
+with the per-stage times and the peak device memory.  The last
+line is {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import random
+import statistics
+import subprocess
+import sys
+import time
+from types import SimpleNamespace
+
+# The flagship circuit's prover shape, read once from
+# zkp2p_tpu.models.venmo.build_venmo_circuit(VenmoParams()) (see PERF.md
+# for the command).  Narrow = wires with width bound <= 11 bits.
+VENMO = dict(
+    constraints=4939112, n_public=26, n_wires=4916778, rows=4939139, log_m=23,
+    nnz_a=11736979, nnz_b=9823884,
+    b_narrow=1594332, b_wide=9155, c_narrow=4883364, c_wide=33387,
+)
+SEED = 20261017
+K1_BATCHES = (1, 257, 1 << 20)
+POINT_BATCHES = (1, 257, 1 << 18)
+G1_TABLE = 1024
+G2_TABLE = 256
+HOLES = 16  # (0, 0) infinity bases placed in the a and h queries
+H_CHECK_LOG_M = 16
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
+INT_MULS_PER_SM_CLK = 64  # 32-bit integer multiply-adds per SM per clock (Hopper: 64 INT32 lanes per SM)
+# 32-bit multiplies of one 8x32-bit CIOS Montgomery product: 64 + 64
+# wide products (lo and hi halves) and 8 low products
+MULS_PER_MONT = 2 * 64 + 2 * 64 + 8
+# Montgomery products per point op on a generic lane (Fq2 product = 3)
+MONTS = {"add": 16, "add_mixed": 11, "double": 7}
+# limb bytes read + written per element: operands in, three coordinates out
+COORDS = {"add": (6, 3), "add_mixed": (5, 3), "double": (3, 3)}
+
+REPLACES = {
+    "mont_mul": "zkp2p_tpu/ops/pallas_mont.py:201",
+    "g1_add": "zkp2p_tpu/ops/pallas_curve.py:351",
+    "g1_add_mixed": "zkp2p_tpu/ops/pallas_curve.py:358",
+    "g1_double": "zkp2p_tpu/ops/pallas_curve.py:364",
+    "g2_add": "zkp2p_tpu/ops/pallas_curve.py:369",
+    "g2_add_mixed": "zkp2p_tpu/ops/pallas_curve.py:375",
+    "g2_double": "zkp2p_tpu/ops/pallas_curve.py:380",
+}
+
+
+def log(msg: str) -> None:
+    print(f"[{time.strftime('%H:%M:%S')}] {msg}", file=sys.stderr, flush=True)
+
+
+def smi(query: str) -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------------ inputs
+
+
+def rand_canon(torch, gen, shape, device):
+    """Random limbs below both BN254 moduli (top limb < 0x3064)."""
+    x = torch.randint(0, 1 << 16, tuple(shape) + (16,), generator=gen, device=device, dtype=torch.int32)
+    x[..., 15] = torch.randint(0, 0x3064, tuple(shape), generator=gen, device=device, dtype=torch.int32)
+    return x
+
+
+def k1_inputs(torch, gen, n, mod, device):
+    """Random canonical operands for K1, with 0, 1 and p-1 in the first lanes."""
+    from zkp2p_tpu_torch.ops import cuda_mont
+
+    a = rand_canon(torch, gen, (n,), device)
+    b = rand_canon(torch, gen, (n,), device)
+    if n >= 3:
+        for k, (x, y) in enumerate(((0, mod - 1), (1, 0), (mod - 1, 1))):
+            a[k] = torch.tensor(cuda_mont.limbs_of(x), device=device)
+            b[k] = torch.tensor(cuda_mont.limbs_of(y), device=device)
+    return a, b
+
+
+def point_inputs(torch, gen, op, g2, n, device):
+    """Random coordinates for one point op, with the special lanes."""
+    from zkp2p_tpu_torch.field.tfield import FQ
+
+    elem = (n, 2) if g2 else (n,)
+    p = [rand_canon(torch, gen, elem, device) for _ in range(3)]
+    if op == "double":
+        if n >= 2:
+            p[2][0] = 0  # infinity
+        return p
+    one = FQ.const("one", device).int()
+    if op == "add":
+        q = [rand_canon(torch, gen, elem, device) for _ in range(3)]
+        if n >= 5:
+            for c in range(3):
+                p[c][0] = 0  # inf + q
+                q[c][1] = p[c][1]  # P + P
+                q[c][3] = 0  # p + inf
+                p[c][4] = q[c][4] = 0  # inf + inf
+            q[0][2], q[2][2] = p[0][2], p[2][2]
+            q[1][2] = FQ.neg(p[1][2])  # P + (-P)
+        return p + q
+    a = [rand_canon(torch, gen, elem, device) for _ in range(2)]
+    if n >= 5:
+        for c in range(3):
+            p[c][0] = 0  # inf + a
+        if g2:
+            one = torch.stack([one, torch.zeros_like(one)])
+        p[2][1] = p[2][2] = one  # Z = 1 so that a = (X, Y) and (X, -Y) meet p
+        a[0][1], a[1][1] = p[0][1], p[1][1]  # P + P
+        a[0][2], a[1][2] = p[0][2], FQ.neg(p[1][2])  # P + (-P)
+        a[0][3] = a[1][3] = 0  # (0, 0) sentinel
+        a[0][4] = a[1][4] = 0
+        for c in range(3):
+            p[c][4] = 0  # inf + (0, 0)
+    return p + a
+
+
+# ------------------------------------------------------------------ timing
+
+
+def cuda_ms(torch, fn, reps: int):
+    """(ms per call of fn, the last call's result), after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def chunked(torch, fn, args, chunk):
+    """fn over the leading axis in chunks (bounds the plain versions'
+    int64 temporaries on large batches)."""
+    n = args[0].shape[0]
+    outs = [fn(*(a[i:i + chunk] for a in args)) for i in range(0, n, chunk)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat([o[k] for o in outs]) for k in range(len(outs[0])))
+    return torch.cat(outs)
+
+
+def max_abs_err(torch, got, want) -> int:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0 for g, w in zip(got, want))
+
+
+# --------------------------------------------------------------- phase 2
+
+
+def check_kernels(torch, geometry, peak_muls_per_s, device):
+    """Every launcher against its plain version (bitwise), a sample
+    against the host, and its time at the main path's shape."""
+    from zkp2p_tpu_torch.curve import host
+    from zkp2p_tpu_torch.curve.tcurve import G1C, G2C, g1_jac_to_host, g1_to_affine_arrays, g2_jac_to_host, g2_to_affine_arrays
+    from zkp2p_tpu_torch.field.bn254 import MONT_R, P, R
+    from zkp2p_tpu_torch.field.tfield import FQ, FR, limbs_to_int
+    from zkp2p_tpu_torch.ops import cuda_curve, cuda_mont
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rows = {}
+
+    # K1 on Fr and Fq
+    for field, mod in ((FR, R), (FQ, P)):
+        for n in K1_BATCHES:
+            a, b = k1_inputs(torch, gen, n, mod, device)
+            got = cuda_mont.mont_mul(field, a, b)
+            want = chunked(torch, lambda x, y: cuda_mont.mont_mul_plain(field, x, y), (a, b), 1 << 18)
+            err = max_abs_err(torch, got, want)
+            if err:
+                raise AssertionError(f"mont_mul ({field.name}, n={n}) differs from its plain version")
+            rinv = pow(MONT_R, -1, mod)
+            ga, gb, gg = (t[:64].cpu().numpy() for t in (a, b, got))
+            for i in range(len(gg)):
+                if limbs_to_int(gg[i]) != limbs_to_int(ga[i]) * limbs_to_int(gb[i]) * rinv % mod:
+                    raise AssertionError(f"mont_mul ({field.name}) lane {i} differs from Python ints")
+        # a broadcast (stride-0) operand, as to_mont multiplies by R^2
+        a = rand_canon(torch, gen, (257,), device)
+        r2 = FR.const("r2", device).int()
+        if max_abs_err(torch, cuda_mont.mont_mul(field, a, r2), cuda_mont.mont_mul_plain(field, a, r2)):
+            raise AssertionError(f"mont_mul ({field.name}) broadcast operand differs from its plain version")
+    rows["mont_mul"] = dict(max_abs_err=0)
+    log("K1 mont_mul: bitwise equal to plain on Fr and Fq")
+
+    # K2-K4 on G1 and G2
+    wrappers = {
+        (False, "add"): cuda_curve.g1_add, (False, "add_mixed"): cuda_curve.g1_add_mixed,
+        (False, "double"): cuda_curve.g1_double, (True, "add"): cuda_curve.g2_add,
+        (True, "add_mixed"): cuda_curve.g2_add_mixed, (True, "double"): cuda_curve.g2_double,
+    }
+
+    def call(g2, op, coords):
+        fn = wrappers[(g2, op)]
+        if op == "double":
+            return fn(coords)
+        k = 3
+        return fn(tuple(coords[:k]), tuple(coords[k:]))
+
+    for (g2, op) in wrappers:
+        name = f"{'g2' if g2 else 'g1'}_{op}"
+        for n in POINT_BATCHES:
+            coords = point_inputs(torch, gen, op, g2, n, device)
+            got = call(g2, op, coords)
+            want = chunked(torch, lambda *c: cuda_curve.point_op_plain(op, g2, *c), coords, 1 << 15)
+            if max_abs_err(torch, got, want):
+                raise AssertionError(f"{name} (n={n}) differs from its plain version")
+        rows[name] = dict(max_abs_err=0)
+
+    # sample against the host curve on points of the group
+    ks = [random.Random(SEED + i).randrange(1, R) for i in range(8)]
+    for g2, curve, to_arr, to_host, gmul, gadd, gneg, G in (
+        (False, G1C, g1_to_affine_arrays, g1_jac_to_host, host.g1_mul, host.g1_add, host.g1_neg, host.G1_GENERATOR),
+        (True, G2C, g2_to_affine_arrays, g2_jac_to_host, host.g2_mul, host.g2_add, host.g2_neg, host.G2_GENERATOR),
+    ):
+        ps = [gmul(G, k) for k in ks[:6]] + [None, gmul(G, ks[6])]
+        qs = [gmul(G, k) for k in ks[2:8]] + [gmul(G, ks[7]), None]
+        qs[0], qs[1] = ps[0], gneg(ps[1])  # P + P, P + (-P)
+        pa, qa = to_arr(ps, device), to_arr(qs, device)
+        pj, qj = curve.from_affine(pa), curve.from_affine(qa)
+        want_add = [gadd(x, y) for x, y in zip(ps, qs)]
+        checks = (
+            ("add", to_host(curve.add(pj, qj)), want_add),
+            ("add_mixed", to_host(curve.add_mixed(pj, qa)), want_add),
+            ("double", to_host(curve.double(pj)), [gadd(x, x) for x in ps]),
+        )
+        for op, got, want in checks:
+            if got != want:
+                raise AssertionError(f"{'g2' if g2 else 'g1'}_{op} differs from the host curve")
+    log("K2-K4: bitwise equal to plain on G1 and G2; sample equal to the host curve")
+
+    # at the main path's shapes: each launcher timed, its plain version
+    # timed on the same inputs, and the two outputs held bitwise
+    n_k1 = geometry["mont_mul"]
+    for field, mod in ((FR, R), (FQ, P)):
+        a, b = k1_inputs(torch, gen, n_k1, mod, device)
+        ms, got = cuda_ms(torch, lambda: cuda_mont.mont_mul(field, a, b), 20)
+        plain_ms, want = cuda_ms(torch, lambda: chunked(
+            torch, lambda x, y: cuda_mont.mont_mul_plain(field, x, y), (a, b), 1 << 20), 2)
+        if max_abs_err(torch, got, want):
+            raise AssertionError(f"mont_mul ({field.name}, n={n_k1}) differs from its plain version")
+        if field is FR:  # the NTT's products, the shape the main path gives K1
+            rows["mont_mul"].update(shape=[n_k1], ms=ms, plain_ms=plain_ms, **bound(n_k1, 1, 192, peak_muls_per_s))
+    for (g2, op) in wrappers:
+        name = f"{'g2' if g2 else 'g1'}_{op}"
+        n = geometry[name]
+        coords = point_inputs(torch, gen, op, g2, n, device)
+        ms, got = cuda_ms(torch, lambda: call(g2, op, coords), 10)
+        plain_ms, want = cuda_ms(torch, lambda: chunked(
+            torch, lambda *c: cuda_curve.point_op_plain(op, g2, *c), coords, 1 << 15), 1)
+        if max_abs_err(torch, got, want):
+            raise AssertionError(f"{name} (n={n}) differs from its plain version")
+        monts = MONTS[op] * (3 if g2 else 1)
+        nbytes = sum(COORDS[op]) * 64 * (2 if g2 else 1)
+        rows[name].update(shape=[n], ms=ms, plain_ms=plain_ms, **bound(n, monts, nbytes, peak_muls_per_s))
+    log("all seven launchers: bitwise equal to plain at the main path's shapes")
+    return rows
+
+
+def bound(n, monts_per_elem, bytes_per_elem, peak_muls_per_s):
+    t_bytes = n * bytes_per_elem / HBM_BYTES_PER_S
+    t_ops = n * monts_per_elem * MULS_PER_MONT / peak_muls_per_s
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes > t_ops else "operations")
+
+
+# --------------------------------------------------------------- profile
+
+
+def profile_proof(torch, prove, top: int = 15):
+    """One more proof under torch.profiler: the device's busy share (the
+    device activities' time over the wall clock) and where the device
+    time goes, by kernel and by torch op."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prove()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = prof.key_averages()
+
+    def dev_ms(e):
+        return (getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    # device activities (kernels, copies); "Command Buffer Full" marks the
+    # host waiting on a full launch queue, not device work
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.key != "Command Buffer Full"]
+    ops = [e for e in events if e.device_type == DeviceType.CPU and dev_ms(e) > 0]
+    busy = sum(dev_ms(e) for e in kernels) / 1e3
+
+    def rank(evs):
+        return [[e.key[:70], dev_ms(e), e.count] for e in sorted(evs, key=dev_ms, reverse=True)[:top]]
+
+    return {"wall_s": wall, "device_busy_s": busy, "busy_share": busy / wall,
+            "top_kernels_ms": rank(kernels), "top_ops_ms": rank(ops)}
+
+
+# --------------------------------------------------------------- phase 4
+
+
+def synthetic_key(torch, device):
+    """A key and witness of the flagship shape: random QAP rows, bases
+    t_j*G from small host tables, width classes with the measured counts.
+    Returns (key, witness u64 rows, base-index map, host tables)."""
+    import numpy as np
+
+    from zkp2p_tpu_torch.curve import host
+    from zkp2p_tpu_torch.curve.tcurve import g1_to_affine_arrays, g2_to_affine_arrays
+    from zkp2p_tpu_torch.field.bn254 import R
+    from zkp2p_tpu_torch.prover.groth16_gpu import DeviceProvingKey
+    from zkp2p_tpu_torch.snark.groth16 import domain_size_for
+
+    V = VENMO
+    n, n_pub, m = V["n_wires"], V["n_public"], 1 << V["log_m"]
+    if domain_size_for(V["rows"]) != m:
+        raise AssertionError("VENMO rows and log_m disagree")
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    rng = np.random.default_rng(SEED + 2)
+    pyr = random.Random(SEED + 3)
+
+    def randint(hi, size):
+        return torch.randint(0, hi, (size,), generator=gen, device=device)
+
+    # width classes: wire 0 (the constant one) narrow, the public wires
+    # wide, the rest split with the measured counts
+    perm = torch.randperm(n - n_pub - 1, generator=gen, device=device) + n_pub + 1
+    wide_ids, narrow_ids = perm[: V["c_wide"]], perm[V["c_wide"]:]
+    is_narrow = torch.zeros(n, dtype=torch.bool, device=device)
+    is_narrow[0] = True
+    is_narrow[narrow_ids] = True
+    c_sel = torch.arange(n_pub + 1, n, device=device)
+    b_sel = torch.cat([
+        narrow_ids[torch.randperm(len(narrow_ids), generator=gen, device=device)[: V["b_narrow"]]],
+        wide_ids[torch.randperm(len(wide_ids), generator=gen, device=device)[: V["b_wide"]]],
+    ]).sort().values
+
+    def classes(sel):
+        nar = is_narrow[sel]
+        return torch.nonzero(nar).flatten(), torch.nonzero(~nar).flatten()
+
+    a_nsel, a_wsel = classes(torch.arange(n, device=device))
+    b_nsel, b_wsel = classes(b_sel)
+    c_nsel, c_wsel = classes(c_sel)
+
+    # host tables of t_j * G (row G1_TABLE / G2_TABLE is the (0, 0) hole)
+    t1 = [pyr.randrange(1, R) for _ in range(G1_TABLE)]
+    t2 = [pyr.randrange(1, R) for _ in range(G2_TABLE)]
+    T1 = g1_to_affine_arrays([host.g1_mul(host.G1_GENERATOR, t) for t in t1] + [None], device)
+    T2 = g2_to_affine_arrays([host.g2_mul(host.G2_GENERATOR, t) for t in t2] + [None], device)
+
+    def idx(count, table, holes):
+        i = randint(table, count)
+        if holes:
+            i[randint(count, holes)] = table
+        return i
+
+    ix = dict(a=idx(n, G1_TABLE, HOLES), b1=idx(len(b_sel), G1_TABLE, 0), b2=idx(len(b_sel), G2_TABLE, 0),
+              c=idx(len(c_sel), G1_TABLE, 0), h=idx(m, G1_TABLE, HOLES))
+
+    def rows(nnz):
+        from zkp2p_tpu_torch.field.tfield import FR
+
+        return FR.to_mont(rand_canon(torch, gen, (nnz,), device)), randint(n, nnz), randint(V["rows"], nnz)
+
+    a_coeff, a_wire, a_row = rows(V["nnz_a"])
+    b_coeff, b_wire, b_row = rows(V["nnz_b"])
+    blind = [host.g1_mul(host.G1_GENERATOR, pyr.randrange(1, R)) for _ in range(3)]
+    blind2 = [host.g2_mul(host.G2_GENERATOR, pyr.randrange(1, R)) for _ in range(2)]
+    key = DeviceProvingKey(
+        n_public=n_pub, n_wires=n, log_m=V["log_m"],
+        a_coeff=a_coeff, a_wire=a_wire, a_row=a_row, b_coeff=b_coeff, b_wire=b_wire, b_row=b_row,
+        a_bases=tuple(c[ix["a"]] for c in T1), b1_bases=tuple(c[ix["b1"]] for c in T1),
+        b2_bases=tuple(c[ix["b2"]] for c in T2), c_bases=tuple(c[ix["c"]] for c in T1),
+        h_bases=tuple(c[ix["h"]] for c in T1),
+        b_sel=b_sel, c_sel=c_sel, a_nsel=a_nsel, a_wsel=a_wsel, b_nsel=b_nsel, b_wsel=b_wsel,
+        c_nsel=c_nsel, c_wsel=c_wsel,
+        alpha_1=blind[0], beta_1=blind[1], delta_1=blind[2], beta_2=blind2[0], delta_2=blind2[1],
+    )
+    assert len(a_nsel) == V["c_narrow"] + 1 and len(a_wsel) == V["c_wide"] + n_pub
+    assert (len(b_nsel), len(b_wsel)) == (V["b_narrow"], V["b_wide"])
+    assert (len(c_nsel), len(c_wsel)) == (V["c_narrow"], V["c_wide"])
+
+    # witness: narrow wires below 2^11 (the width guard), wide below R
+    limbs = rng.integers(0, 1 << 16, size=(n, 16), dtype=np.uint16)
+    limbs[:, 15] = rng.integers(0, 0x3064, size=n, dtype=np.uint16)
+    nar = is_narrow.cpu().numpy()
+    limbs[nar, 1:] = 0
+    limbs[nar, 0] &= (1 << 11) - 1
+    limbs[0] = 0
+    limbs[0, 0] = 1
+    witness = np.ascontiguousarray(limbs).view("<u8").reshape(n, 4).copy()
+    return key, witness, ix, (t1, t2)
+
+
+def expected_msm(torch, scalars_std, idx, table, rows):
+    """(sum_i s_i * t_idx(i) mod r): per-table-row sums of the scalars'
+    limbs on the device (exact in int64), combined on the host."""
+    from zkp2p_tpu_torch.field.bn254 import R
+    from zkp2p_tpu_torch.field.tfield import limbs_to_int
+
+    acc = torch.zeros(rows + 1, 16, dtype=torch.int64, device=scalars_std.device)
+    acc.index_add_(0, idx, scalars_std.long())
+    sums = acc[:rows].cpu().numpy()
+    return sum(limbs_to_int(sums[j]) % R * table[j] for j in range(rows)) % R
+
+
+def check_msms(torch, key, witness, ix, tables, stages):
+    from zkp2p_tpu_torch.curve import host
+    from zkp2p_tpu_torch.field.tfield import FR
+
+    t1, t2 = tables
+    w = torch.from_numpy(witness.view("<u2").astype("int32").reshape(-1, 16)).to(key.device)
+    h_std = FR.from_mont(stages["h"])
+    a_acc, b1_acc, b2_acc, c_acc, h_acc = stages["acc"]
+    wb, wc = w[key.b_sel], w[key.c_sel]
+    want = (
+        ("a", a_acc, host.g1_mul(host.G1_GENERATOR, expected_msm(torch, w, ix["a"], t1, G1_TABLE))),
+        ("b1", b1_acc, host.g1_mul(host.G1_GENERATOR, expected_msm(torch, wb, ix["b1"], t1, G1_TABLE))),
+        ("b2", b2_acc, host.g2_mul(host.G2_GENERATOR, expected_msm(torch, wb, ix["b2"], t2, G2_TABLE))),
+        ("c", c_acc, host.g1_mul(host.G1_GENERATOR, expected_msm(torch, wc, ix["c"], t1, G1_TABLE))),
+        ("h", h_acc, host.g1_mul(host.G1_GENERATOR, expected_msm(torch, h_std, ix["h"], t1, G1_TABLE))),
+    )
+    for name, got, exp in want:
+        if got != exp:
+            raise AssertionError(f"msm {name} at real size differs from the host discrete-log value")
+
+
+def check_h_evals(torch, device):
+    """h_evals on the card against the plain path (the CPU) at 2^16."""
+    from zkp2p_tpu_torch.field.tfield import FR
+    from zkp2p_tpu_torch.prover.groth16_gpu import h_evals
+
+    log_m = H_CHECK_LOG_M
+    m = 1 << log_m
+    n_wires, rows = m, m - 200
+    nnz_a, nnz_b = (rows * VENMO[k] // VENMO["rows"] for k in ("nnz_a", "nnz_b"))
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 4)
+    w = FR.to_mont(rand_canon(torch, gen, (n_wires,), "cpu"))
+
+    def mat(nnz):
+        return (FR.to_mont(rand_canon(torch, gen, (nnz,), "cpu")),
+                torch.randint(0, n_wires, (nnz,), generator=gen), torch.randint(0, rows, (nnz,), generator=gen))
+
+    (ac, aw, ar), (bc, bw, br) = mat(nnz_a), mat(nnz_b)
+    cpu = SimpleNamespace(log_m=log_m, a_coeff=ac, a_wire=aw, a_row=ar, b_coeff=bc, b_wire=bw, b_row=br)
+    gpu = SimpleNamespace(**{k: (v.to(device) if hasattr(v, "to") else v) for k, v in vars(cpu).items()})
+    got = h_evals(gpu, w.to(device)).cpu()
+    want = h_evals(cpu, w)
+    if not torch.equal(got, want):
+        raise AssertionError("h_evals on the card differs from the plain path at 2^16")
+
+
+# -------------------------------------------------------------------- main
+
+
+def run(torch, device, peak_muls):
+    """Phases 1-4 on `device`; returns what main prints."""
+    from zkp2p_tpu_torch.ops import cuda_build
+    from zkp2p_tpu_torch.ops.msm import default_lanes
+    from zkp2p_tpu_torch.prover.groth16_gpu import key_from_numpy, prove_gpu
+    from zkp2p_tpu_torch.prover.vector import load_vector
+    from zkp2p_tpu_torch.snark.groth16 import proof_bytes
+
+    # phase 1
+    t0 = time.perf_counter()
+    libs = cuda_build.build_all()
+    build_s = time.perf_counter() - t0
+    for stem, path in libs.items():
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"ptxas {stem}: {line.strip()}")
+    log(f"build: {build_s:.1f} s")
+
+    # the main path's shapes: NTT stage products; the h MSM's accumulate
+    # (64 planes x lanes), table and Horner steps; the b2 narrow MSM's
+    V = VENMO
+    h_lanes = default_lanes(1 << V["log_m"])
+    b2_lanes = default_lanes(V["b_narrow"], cap=4096)
+    geometry = {
+        "mont_mul": 1 << (V["log_m"] - 1),
+        "g1_add": 64 * h_lanes, "g1_add_mixed": h_lanes, "g1_double": h_lanes,
+        "g2_add": 3 * b2_lanes, "g2_add_mixed": b2_lanes, "g2_double": b2_lanes,
+    }
+
+    # phase 2
+    t0 = time.perf_counter()
+    rows = check_kernels(torch, geometry, peak_muls, device)
+    log(f"kernels against plain: {time.perf_counter() - t0:.1f} s")
+
+    # phase 3
+    t0 = time.perf_counter()
+    arrays, meta, witness, r, s, expected = load_vector()
+    vkey = key_from_numpy(arrays, meta, device=device)
+    got = prove_gpu(vkey, witness, r=r, s=s, device=device)
+    if proof_bytes(got) != proof_bytes(expected):
+        raise AssertionError("the test vector's proof differs from the committed one")
+    log(f"test vector: proof equal to the committed one ({time.perf_counter() - t0:.1f} s)")
+
+    # phase 4
+    t0 = time.perf_counter()
+    check_h_evals(torch, device)
+    log(f"h_evals at 2^{H_CHECK_LOG_M}: equal to the plain path ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    key, witness, ix, tables = synthetic_key(torch, device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    log(f"real-size synthetic key: {setup_s:.1f} s")
+    rs = random.Random(SEED + 5)
+    t0 = time.perf_counter()
+    prove_gpu(key, witness, r=rs.randrange(1, 1 << 250), s=rs.randrange(1, 1 << 250), device=device)
+    torch.cuda.synchronize()
+    log(f"warm-up proof: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for i in range(3):
+        stages = {}
+        if i == 0:
+            cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        prove_gpu(key, witness, r=rs.randrange(1, 1 << 250), s=rs.randrange(1, 1 << 250), device=device, stages=stages)
+        torch.cuda.synchronize()
+        stages["s_total"] = time.perf_counter() - t0
+        if i == 0:
+            launches = dict(cuda_build.LAUNCHES)
+            check_msms(torch, key, witness, ix, tables, stages)
+            log("real size: all five MSMs equal their host discrete-log values")
+        runs.append({k: v for k, v in stages.items() if k.startswith("s_")})
+        log(f"proof {i}: {stages['s_total']:.2f} s")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    profile = profile_proof(torch, lambda: prove_gpu(
+        key, witness, r=rs.randrange(1, 1 << 250), s=rs.randrange(1, 1 << 250), device=device))
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"launchers never launched on the main path: {missing}")
+
+    kernels = []
+    for launcher in cuda_build.LAUNCHERS:
+        name = launcher[len("zk_"):]
+        row = rows[name]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="zkp2p_tpu_torch/csrc/" + ("mont_mul.cu" if name == "mont_mul" else "point_ops.cu"),
+            replaces=REPLACES[name], launches=launches[launcher], max_abs_err=row["max_abs_err"],
+            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=None, check="bitwise equal to plain at batches 1, 257, 2^20 (K1) or 2^18 and at shape; sample equal to host",
+            shape=row["shape"],
+        ))
+    real = {"shape": "venmo 1024/6400", "log_m": V["log_m"], "n_wires": V["n_wires"],
+            "build_s": build_s, "key_setup_s": setup_s,
+            "stage_s_median_of_3": {k[2:]: statistics.median(r[k] for r in runs) for k in runs[0]},
+            "prove_s": [r["s_total"] for r in runs], "peak_device_gib": peak_gib}
+    return kernels, real, profile
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
+        return 2
+    import zkp2p_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    card = smi("name,power.limit")
+    props = torch.cuda.get_device_properties(0)
+    sm_clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    peak_muls = props.multi_processor_count * INT_MULS_PER_SM_CLK * sm_clock_hz
+    log(f"{card}; {props.multi_processor_count} SMs, max SM clock {sm_clock_hz / 1e6:.0f} MHz")
+    kernels, real, profile = run(torch, torch.device("cuda", 0), peak_muls)
+    print(card)
+    print(json.dumps({"profile": profile}))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"real_size": real}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

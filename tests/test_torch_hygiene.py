@@ -1,0 +1,128 @@
+"""Boundaries of the port (zkp2p_tpu_torch) and of chip_smoke.py: neither
+imports JAX or the reference package; an entry point asked for CUDA where
+there is none raises instead of falling back; a kernel wrapper takes its
+plain version only for CPU tensors and then counts no launch; a kernel
+build that fails raises."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from zkp2p_tpu_torch.curve import tcurve
+from zkp2p_tpu_torch.field.tfield import FQ, FR
+from zkp2p_tpu_torch.ops import cuda_build, cuda_curve, cuda_mont
+from zkp2p_tpu_torch.prover.groth16_gpu import key_from_numpy, prove_gpu
+from zkp2p_tpu_torch.prover.vector import VECTOR_PATH, load_vector
+from zkp2p_tpu_torch.utils.device import resolve_device
+
+# the test runner runs one process per core: torch's own intra-op threads
+# would oversubscribe them (and these tensors are small)
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "zkp2p_tpu_torch"
+
+
+def _forbidden(mod: str) -> bool:
+    top = mod.split(".")[0]
+    return top == "jax" or top == "jaxlib" or top == "zkp2p_tpu"
+
+
+def test_import_loads_no_jax_and_no_reference_package():
+    mods = sorted(
+        "zkp2p_tpu_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
+        for p in PKG.rglob("*.py") if p.name != "__init__.py"
+    )
+    code = (
+        "import sys, importlib\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'zkp2p_tpu')]\n"
+        "print(bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHONPATH")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_ast_scan_finds_no_forbidden_import():
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    bad = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Import):
+                bad += [(f.name, a.name) for a in node.names if _forbidden(a.name)]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                if _forbidden(node.module):
+                    bad.append((f.name, node.module))
+    assert len(files) > 10 and bad == []
+
+
+def test_entry_points_without_cuda_raise(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    arrays, meta, witness, r, s, _ = load_vector(VECTOR_PATH)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        key_from_numpy(arrays, meta)
+    key = key_from_numpy(arrays, meta, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prove_gpu(key, witness, r=r, s=s)
+
+
+def test_chip_smoke_without_cuda_exits_nonzero_and_prints_nothing():
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0 and out.stdout == ""
+
+
+def _rand(shape, seed):
+    g = np.random.default_rng(seed)
+    x = g.integers(0, 1 << 16, size=shape + (16,), dtype=np.int64)
+    x[..., 15] = g.integers(0, 0x3064, size=shape)
+    return torch.from_numpy(x.astype(np.int32))
+
+
+def test_wrappers_on_cpu_take_the_plain_path_and_count_nothing():
+    cuda_build.reset_launches()
+    a, b = _rand((5,), 1), _rand((5,), 2)
+    assert torch.equal(cuda_mont.mont_mul(FR, a, b), cuda_mont.mont_mul_plain(FR, a, b))
+    for g2, C in ((False, tcurve.G1C), (True, tcurve.G2C)):
+        shape = (5, 2) if g2 else (5,)
+        p = tuple(_rand(shape, 10 + k) for k in range(3))
+        q = tuple(_rand(shape, 20 + k) for k in range(3))
+        assert all(torch.equal(x, y) for x, y in zip(C.add(p, q), cuda_curve.point_op_plain("add", g2, *p, *q)))
+        assert all(torch.equal(x, y) for x, y in zip(C.add_mixed(p, q[:2]),
+                                                      cuda_curve.point_op_plain("add_mixed", g2, *p, *q[:2])))
+        assert all(torch.equal(x, y) for x, y in zip(C.double(p), cuda_curve.point_op_plain("double", g2, *p)))
+    assert set(cuda_build.LAUNCHES) == set(cuda_build.LAUNCHERS) and len(cuda_build.LAUNCHERS) == 7
+    assert all(v == 0 for v in cuda_build.LAUNCHES.values())
+
+
+def test_wrappers_refuse_other_devices():
+    a = torch.zeros(3, 16, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        cuda_mont.mont_mul(FQ, a, a)
+    with pytest.raises(ValueError):
+        tcurve.G1C.double((a, a, a))
+
+
+def test_failed_build_raises(tmp_path, monkeypatch):
+    (tmp_path / "broken.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: "false")
+    with pytest.raises(RuntimeError, match="CUDA kernel build failed"):
+        cuda_build.build_all(["broken"])
+    assert not list((tmp_path / "_build").glob("*.so"))

@@ -1,0 +1,144 @@
+"""Multi-scalar multiplication on limb tensors (port of the signed
+windowed path of the reference's ``ops/msm.py``).
+
+Signed base-2^w digit planes (most significant first) select from a
+per-chunk multiples table [inf, 1P, ..., 2^(w-1)P]; a negative digit
+takes the table entry with Y negated.  The base axis is consumed `lanes`
+points per step, accumulating into an (n_digits, lanes) batch of
+Jacobian partials; a Horner fold (acc = 2^w * acc + plane) then reduces
+the planes and a pairwise tree the lanes.  The reference's `lax.scan`s
+are Python loops over kernel launches here."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..curve.tcurve import AffPoint, JacPoint, TCurve
+
+
+def tree_reduce(curve: TCurve, pts: JacPoint, axis_len: int) -> JacPoint:
+    """Sum `axis_len` points along the last batch axis by pairwise
+    halving; an odd count pads one infinity (zero) lane."""
+    n = axis_len
+    ax = pts[0].dim() - 1 - len(curve.elem)
+    while n > 1:
+        if n % 2:
+            pad = [0, 0] * len(curve.elem) + [0, 1]
+            pts = tuple(F.pad(c, pad) for c in pts)
+            n += 1
+        lo = tuple(c.narrow(ax, 0, n // 2) for c in pts)
+        hi = tuple(c.narrow(ax, n // 2, n // 2) for c in pts)
+        pts = curve.add(lo, hi)
+        n //= 2
+    return tuple(c.squeeze(ax) for c in pts)
+
+
+def horner_fold_planes(curve: TCurve, init: JacPoint, planes_stacked: JacPoint, window: int) -> JacPoint:
+    """MSB-first Horner fold over stacked plane partials (leading axis =
+    planes): acc = 2^window * acc + plane."""
+    acc = init
+    for p in range(planes_stacked[0].shape[0]):
+        for _ in range(window):
+            acc = curve.double(acc)
+        acc = curve.add(acc, tuple(c[p] for c in planes_stacked))
+    return acc
+
+
+def digit_planes_from_limbs(limbs: torch.Tensor, window: int = 4) -> torch.Tensor:
+    """Standard-form scalar limbs (..., n, 16) -> (256/window, ..., n)
+    base-2^window digit planes, most significant first (int32)."""
+    assert 16 % window == 0
+    per_limb = 16 // window
+    shifts = torch.arange(per_limb, dtype=torch.int32, device=limbs.device) * window
+    digits = (limbs.int().unsqueeze(-1) >> shifts) & ((1 << window) - 1)
+    flat = digits.reshape(*limbs.shape[:-1], 16 * per_limb).flip(-1)
+    return flat.movedim(-1, 0)
+
+
+def signed_digit_planes_from_limbs(limbs: torch.Tensor, window: int = 4):
+    """Standard-form scalar limbs (..., n, 16) -> (mags, negs), signed
+    base-2^window digits most significant first: mags
+    (256/window, ..., n) int32 in [0, 2^(window-1)], negs a bool mask of
+    negated digits.
+
+    Recoding (LSB first): a digit d + carry above 2^(w-1) becomes
+    d + carry - 2^w and carries one into the next digit.  The carries
+    resolve by a Kogge-Stone pass over the digit axis (generate
+    d > half, propagate d == half).  The top digit absorbs the last carry
+    because Fr scalars are < 2^254."""
+    assert 16 % window == 0
+    n_digits = 256 // window
+    half = 1 << (window - 1)
+    full = 1 << window
+    d = digit_planes_from_limbs(limbs, window).flip(0)  # LSB first
+    gg = d > half
+    pp = d == half
+    k = 1
+    while k < n_digits:
+        gg = gg | (pp & F.pad(gg, [0, 0] * (gg.dim() - 1) + [k, 0])[:n_digits])
+        pp = pp & F.pad(pp, [0, 0] * (pp.dim() - 1) + [k, 0])[:n_digits]
+        k *= 2
+    carry_in = F.pad(gg, [0, 0] * (gg.dim() - 1) + [1, 0])[:n_digits]
+    e = d + carry_in.int()
+    neg = e > half
+    mag = torch.where(neg, full - e, e)
+    return mag.flip(0), neg.flip(0)
+
+
+def default_lanes(n: int, cap: int = 4096) -> int:
+    """Lane width for an n-point MSM: wide steps, but at least 16 steps
+    to amortise the per-step multiples table."""
+    return max(64, min(cap, n // 16))
+
+
+def msm_windowed_signed(
+    curve: TCurve,
+    bases: AffPoint,
+    mags: torch.Tensor,
+    negs: torch.Tensor,
+    lanes: int = 64,
+    window: int = 4,
+) -> JacPoint:
+    """sum_i k_i * P_i for affine bases ((0, 0) = infinity) and signed
+    digit planes (mags, negs) of shape (n_digits, n): one Jacobian point.
+    The lanes fold by the pairwise tree, for G1 and G2 alike (the
+    reference's fold_lanes_per_curve takes the tree whenever its point
+    kernels are in use)."""
+    n_digits = mags.shape[0]
+    n = bases[0].shape[0]
+    device = bases[0].device
+    lanes = min(lanes, n)
+    pad = (-n) % lanes
+    elem_pad = [0, 0] * len(curve.elem)
+    if pad:
+        bases = tuple(F.pad(c, elem_pad + [0, pad]) for c in bases)
+        mags = F.pad(mags, [0, pad])
+        negs = F.pad(negs, [0, pad])
+    steps = (n + pad) // lanes
+    pts = tuple(c.reshape((steps, lanes) + curve.elem) for c in bases)
+    planes = mags.reshape(n_digits, steps, lanes)
+    neg_t = negs.reshape(n_digits, steps, lanes)
+
+    n_table = 1 << (window - 1)  # signed digits reach 2^(w-1)
+    lane_ix = torch.arange(lanes, device=device)[None, :]
+    acc = curve.infinity((n_digits, lanes), device)
+    for s in range(steps):
+        pt = (pts[0][s], pts[1][s])
+        entry = curve.from_affine(pt)
+        table = [entry]
+        for _ in range(n_table - 1):
+            entry = curve.add_mixed(entry, pt)
+            table.append(entry)
+        # rows 0..n_table: infinity (Z = 0), 1P .. n_table*P; rows
+        # n_table+1.. repeat them with Y negated (F.neg keeps -0 = 0, so
+        # the infinity row stays (0, 0, 0))
+        inf = torch.zeros_like(pt[0])
+        xs, ys, zs = (torch.stack([inf] + [e[i] for e in table]) for i in range(3))
+        signed = (torch.cat([xs, xs]), torch.cat([ys, curve.F.neg(ys)]), torch.cat([zs, zs]))
+        idx = planes[:, s, :].long() + neg_t[:, s, :].long() * (n_table + 1)
+        sel = tuple(c[idx, lane_ix] for c in signed)
+        acc = curve.add(acc, sel)
+
+    per_lane = horner_fold_planes(curve, curve.infinity((lanes,), device), acc, window)
+    return tree_reduce(curve, per_lane, lanes)
