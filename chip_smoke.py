@@ -7,30 +7,41 @@ Phases, each of which raises on failure (the script then exits nonzero
 and prints no result line):
 
 1. Build: every kernel source under zkp2p_tpu_torch/csrc/ with nvcc for
-   sm_90a, one process per source, timed as set-up.
-2. Kernels against plain: each of the seven launchers (K1 mont_mul; K2
-   add, K3 add_mixed, K4 double for G1 and G2) on random canonical inputs
-   with the special cases (zero, one, p-1; P+P, P+(-P), infinity, the
-   (0, 0) affine sentinel) at batches 1, 257 and one large batch, held
-   bitwise against its plain torch version on the card; a sample against
-   Python ints and the host curve.  Then each at the main path's shape:
-   timed, its plain version timed on the same inputs, and the two
-   outputs held bitwise.
+   sm_90a, one process per source, all started together, timed as
+   set-up.
+2. Kernels against plain: each of the eight launchers (K1 mont_mul; K2
+   add, K3 add_mixed, K4 double for G1 and G2; K5 mont_pow) on random
+   canonical inputs with the special cases (zero, one, p-1; P+P, P+(-P),
+   infinity, the (0, 0) affine sentinel) at batches 1, 257 and one large
+   batch, held bitwise against its plain torch version on the card; a
+   sample against Python ints and the host curve.  Then each at the main
+   path's shape (K5 also at 2^16): timed, its plain version timed on the
+   same inputs, and the two outputs held bitwise.
 3. Test vector: prove_gpu on zkp2p_tpu_torch/data/port_vector.npz gives
-   the committed proof byte for byte.
-4. Real size: a seeded synthetic key and witness of the flagship
-   circuit's shape (venmo 1024/6400: the counts in VENMO below), one
-   warm-up and three timed proofs through prove_gpu.  Every base is
+   the committed proof byte for byte, with the default (Jacobian) MSM
+   arms and with the affine ones (msm_affine=True, msm_h="bucket").
+4. Real size, Jacobian path: a seeded synthetic key and witness of the
+   flagship circuit's shape (venmo 1024/6400: the counts in VENMO below),
+   one warm-up and three timed proofs through prove_gpu.  Every base is
    t_j*G from a small host table, so each of the five MSMs is checked
    against (sum_i s_i t_idx(i) mod r)*G computed from the scalars the
    prover used.  h_evals is held against the plain path (CPU) at 2^16.
+5. Real size, affine path: the same key and witness, one warm-up and one
+   timed proof with msm_affine=True, msm_h="bucket" (the batch-affine
+   accumulate and the w=16 sorted-prefix bucket h MSM), its five MSMs
+   checked the same way.
+
+The launch counts are reset just before the first timed proof of each
+path and read just after it; every kernel of a path must have launched in
+its run (K1-K4 on the Jacobian path, all eight on the affine path).
 
 Before the last line it prints the card's name and power limit, a
-profile of one more proof (the device's busy share and the ops with the
-most device time, from torch.profiler), one JSON line with the seven
-kernels (checks, launches on the main path, times and bounds), and one
-with the per-stage times and the peak device memory.  The last
-line is {"ok": true, "device": {...}}.
+profile of one more Jacobian proof, run after every timed proof (the
+device's busy share and the ops with the most device time, from
+torch.profiler), one JSON line with the
+eight kernels (checks, launches on each path, times and bounds), and one
+each with the two paths' per-stage times and peak device memory.  The
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -54,9 +65,15 @@ VENMO = dict(
 SEED = 20261017
 K1_BATCHES = (1, 257, 1 << 20)
 POINT_BATCHES = (1, 257, 1 << 18)
+K5_BATCHES = (1, 257, 1 << 16)
+# K5 at the main path's shape (one element: the total of a batch
+# inversion) and at a batch that fills the card
+K5_TIMED = (1, 1 << 16)
 G1_TABLE = 1024
 G2_TABLE = 256
 HOLES = 16  # (0, 0) infinity bases placed in the a and h queries
+JACOBIAN_TIMED = 3  # timed real-size proofs of the Jacobian path
+AFFINE_ARMS = {"msm_affine": True, "msm_h": "bucket"}
 H_CHECK_LOG_M = 16
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 INT_MULS_PER_SM_CLK = 64  # 32-bit integer multiply-adds per SM per clock (Hopper: 64 INT32 lanes per SM)
@@ -67,9 +84,15 @@ MULS_PER_MONT = 2 * 64 + 2 * 64 + 8
 MONTS = {"add": 16, "add_mixed": 11, "double": 7}
 # limb bytes read + written per element: operands in, three coordinates out
 COORDS = {"add": (6, 3), "add_mixed": (5, 3), "double": (3, 3)}
+# The dependent chain of one CIOS product (mont.cuh): 8 outer steps, each
+# 8 multiply-adds for a*b[i], one for m and 8 for m*N, each step waiting
+# on the last; at an assumed 4-clock latency of a 32-bit multiply-add
+CHAIN_MADS_PER_MONT = 8 * (8 + 1 + 8)
+MAD_LATENCY_CLK = 4
 
 REPLACES = {
     "mont_mul": "zkp2p_tpu/ops/pallas_mont.py:201",
+    "mont_pow": "zkp2p_tpu/ops/pallas_mont.py:155",
     "g1_add": "zkp2p_tpu/ops/pallas_curve.py:351",
     "g1_add_mixed": "zkp2p_tpu/ops/pallas_curve.py:358",
     "g1_double": "zkp2p_tpu/ops/pallas_curve.py:364",
@@ -77,6 +100,10 @@ REPLACES = {
     "g2_add_mixed": "zkp2p_tpu/ops/pallas_curve.py:375",
     "g2_double": "zkp2p_tpu/ops/pallas_curve.py:380",
 }
+SOURCE = {"mont_mul": "mont_mul.cu", "mont_pow": "mont_pow.cu"}  # the rest: point_ops.cu
+# the launchers each real-size path must have launched
+_JACOBIAN_KERNELS = ("mont_mul", "g1_add", "g1_add_mixed", "g1_double", "g2_add", "g2_add_mixed", "g2_double")
+PATH_KERNELS = {"jacobian": _JACOBIAN_KERNELS, "affine": _JACOBIAN_KERNELS + ("mont_pow",)}
 
 
 def log(msg: str) -> None:
@@ -296,6 +323,61 @@ def check_kernels(torch, geometry, peak_muls_per_s, device):
     return rows
 
 
+def check_mont_pow(torch, peak_muls_per_s, sm_clock_hz, device):
+    """K5 against its plain version (bitwise) on Fq with e = p - 2 and on
+    Fr with e = 5 and e = 1, lanes 0, 1 and p - 1 included; a sample
+    against Python pow; timed at batch 1 (the main path's shape) and
+    2^16, each time held bitwise against its plain version."""
+    from zkp2p_tpu_torch.field.bn254 import MONT_R, P, R
+    from zkp2p_tpu_torch.field.tfield import FQ, FR, limbs_to_int
+    from zkp2p_tpu_torch.ops import cuda_mont
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+
+    def inputs(n, mod):
+        a = rand_canon(torch, gen, (n,), device)
+        if n >= 3:
+            for k, x in enumerate((0, 1, mod - 1)):
+                a[k] = torch.tensor(cuda_mont.limbs_of(x), device=device)
+        return a
+
+    for field, mod, e in ((FQ, P, P - 2), (FR, R, 5), (FR, R, 1)):
+        rinv = pow(MONT_R, -1, mod)
+        for n in K5_BATCHES:
+            a = inputs(n, mod)
+            got = cuda_mont.mont_pow(field, a, e)
+            if max_abs_err(torch, got, cuda_mont.mont_pow_plain(field, a, e)):
+                raise AssertionError(f"mont_pow ({field.name}, e={e}, n={n}) differs from its plain version")
+            ga, gg = (t[:64].cpu().numpy() for t in (a, got))
+            for i in range(len(gg)):
+                # Montgomery in and out: from_mont(out) = from_mont(a)^e
+                if limbs_to_int(gg[i]) * rinv % mod != pow(limbs_to_int(ga[i]) * rinv % mod, e, mod):
+                    raise AssertionError(f"mont_pow ({field.name}, e={e}) lane {i} differs from Python pow")
+    log("K5 mont_pow: bitwise equal to plain on Fq (e = p-2) and Fr (e = 5, 1); sample equal to Python pow")
+
+    # timed on the path's case, a Fermat inversion in Fq
+    e = P - 2
+    products = (e.bit_length() - 1) + bin(e).count("1")  # squarings + multiplies
+    row = dict(max_abs_err=0, shape=[K5_TIMED[0]], exponent="p-2 (Fq)", products_per_element=products)
+    for n in K5_TIMED:
+        a = inputs(n, P)
+        ms, got = cuda_ms(torch, lambda: cuda_mont.mont_pow(FQ, a, e), 50 if n == 1 else 10)
+        plain_ms, want = cuda_ms(torch, lambda: cuda_mont.mont_pow_plain(FQ, a, e), 1)
+        if max_abs_err(torch, got, want):
+            raise AssertionError(f"mont_pow (n={n}) differs from its plain version at its timed shape")
+        b = bound(n, products, 128, peak_muls_per_s)
+        if n == K5_TIMED[0]:
+            # one element: the squarings form one dependent chain of products
+            chain_ms = (e.bit_length() - 1) * CHAIN_MADS_PER_MONT * MAD_LATENCY_CLK / sm_clock_hz * 1e3
+            row.update(ms=ms, plain_ms=plain_ms, chain_floor_ms=chain_ms, **b)
+        else:
+            row.update({f"ms_{n}": ms, f"plain_ms_{n}": plain_ms, f"bound_ms_{n}": b["bound_ms"],
+                        f"bound_by_{n}": b["bound_by"]})
+    log(f"K5 mont_pow: {row['ms']:.4f} ms at batch 1, {row[f'ms_{K5_TIMED[1]}']:.4f} ms at {K5_TIMED[1]}; "
+        "bitwise equal to plain at both")
+    return row
+
+
 def bound(n, monts_per_elem, bytes_per_elem, peak_muls_per_s):
     t_bytes = n * bytes_per_elem / HBM_BYTES_PER_S
     t_ops = n * monts_per_elem * MULS_PER_MONT / peak_muls_per_s
@@ -494,8 +576,44 @@ def check_h_evals(torch, device):
 # -------------------------------------------------------------------- main
 
 
-def run(torch, device, peak_muls):
-    """Phases 1-4 on `device`; returns what main prints."""
+def real_size_proofs(torch, key, witness, ix, tables, rs, device, timed, **arms):
+    """One warm-up and `timed` proofs of the real-size key under `arms`.
+    The launch counts are reset just before the first timed proof and
+    read just after it, whose five MSMs are checked against their
+    discrete-log values.  Returns (stage seconds of each timed proof,
+    launches, peak device GiB of the timed proofs)."""
+    from zkp2p_tpu_torch.ops import cuda_build
+    from zkp2p_tpu_torch.prover.groth16_gpu import prove_gpu
+
+    def prove(stages=None):
+        return prove_gpu(key, witness, r=rs.randrange(1, 1 << 250), s=rs.randrange(1, 1 << 250), device=device,
+                         stages=stages, **arms)
+
+    t0 = time.perf_counter()
+    prove()
+    torch.cuda.synchronize()
+    log(f"warm-up proof {arms}: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for i in range(timed):
+        stages = {}
+        if i == 0:
+            cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        prove(stages)
+        torch.cuda.synchronize()
+        stages["s_total"] = time.perf_counter() - t0
+        if i == 0:
+            launches = dict(cuda_build.LAUNCHES)
+            check_msms(torch, key, witness, ix, tables, stages)
+            log(f"real size {arms}: all five MSMs equal their host discrete-log values")
+        runs.append({k: v for k, v in stages.items() if k.startswith("s_")})
+        log(f"proof {i} {arms}: {stages['s_total']:.2f} s")
+    return runs, launches, torch.cuda.max_memory_allocated() / 2**30
+
+
+def run(torch, device, peak_muls, sm_clock_hz):
+    """Phases 1-5 on `device`; returns what main prints."""
     from zkp2p_tpu_torch.ops import cuda_build
     from zkp2p_tpu_torch.ops.msm import default_lanes
     from zkp2p_tpu_torch.prover.groth16_gpu import key_from_numpy, prove_gpu
@@ -526,16 +644,18 @@ def run(torch, device, peak_muls):
     # phase 2
     t0 = time.perf_counter()
     rows = check_kernels(torch, geometry, peak_muls, device)
+    rows["mont_pow"] = check_mont_pow(torch, peak_muls, sm_clock_hz, device)
     log(f"kernels against plain: {time.perf_counter() - t0:.1f} s")
 
     # phase 3
     t0 = time.perf_counter()
     arrays, meta, witness, r, s, expected = load_vector()
     vkey = key_from_numpy(arrays, meta, device=device)
-    got = prove_gpu(vkey, witness, r=r, s=s, device=device)
-    if proof_bytes(got) != proof_bytes(expected):
-        raise AssertionError("the test vector's proof differs from the committed one")
-    log(f"test vector: proof equal to the committed one ({time.perf_counter() - t0:.1f} s)")
+    for arms in ({}, AFFINE_ARMS):
+        got = prove_gpu(vkey, witness, r=r, s=s, device=device, **arms)
+        if proof_bytes(got) != proof_bytes(expected):
+            raise AssertionError(f"the test vector's proof {arms} differs from the committed one")
+        log(f"test vector {arms}: proof equal to the committed one ({time.perf_counter() - t0:.1f} s)")
 
     # phase 4
     t0 = time.perf_counter()
@@ -547,50 +667,46 @@ def run(torch, device, peak_muls):
     setup_s = time.perf_counter() - t0
     log(f"real-size synthetic key: {setup_s:.1f} s")
     rs = random.Random(SEED + 5)
-    t0 = time.perf_counter()
-    prove_gpu(key, witness, r=rs.randrange(1, 1 << 250), s=rs.randrange(1, 1 << 250), device=device)
-    torch.cuda.synchronize()
-    log(f"warm-up proof: {time.perf_counter() - t0:.1f} s")
-    torch.cuda.reset_peak_memory_stats()
-    runs = []
-    for i in range(3):
-        stages = {}
-        if i == 0:
-            cuda_build.reset_launches()
-        t0 = time.perf_counter()
-        prove_gpu(key, witness, r=rs.randrange(1, 1 << 250), s=rs.randrange(1, 1 << 250), device=device, stages=stages)
-        torch.cuda.synchronize()
-        stages["s_total"] = time.perf_counter() - t0
-        if i == 0:
-            launches = dict(cuda_build.LAUNCHES)
-            check_msms(torch, key, witness, ix, tables, stages)
-            log("real size: all five MSMs equal their host discrete-log values")
-        runs.append({k: v for k, v in stages.items() if k.startswith("s_")})
-        log(f"proof {i}: {stages['s_total']:.2f} s")
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    runs, jac_launches, peak_gib = real_size_proofs(torch, key, witness, ix, tables, rs, device, JACOBIAN_TIMED)
+
+    # phase 5
+    aff_runs, aff_launches, aff_peak_gib = real_size_proofs(torch, key, witness, ix, tables, rs, device, 1,
+                                                            **AFFINE_ARMS)
+    # last, so that no timed proof runs after the profiler
     profile = profile_proof(torch, lambda: prove_gpu(
         key, witness, r=rs.randrange(1, 1 << 250), s=rs.randrange(1, 1 << 250), device=device))
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"launchers never launched on the main path: {missing}")
+    by_path = {"jacobian": jac_launches, "affine": aff_launches}
+    for path, names in PATH_KERNELS.items():
+        missing = [k for k in names if by_path[path]["zk_" + k] == 0]
+        if missing:
+            raise AssertionError(f"launchers never launched on the {path} path: {missing}")
+    unused = [k for k in cuda_build.LAUNCHERS if not any(v[k] for v in by_path.values())]
+    if unused:
+        raise AssertionError(f"launchers launched on no path: {unused}")
 
     kernels = []
     for launcher in cuda_build.LAUNCHERS:
         name = launcher[len("zk_"):]
         row = rows[name]
+        extra = {k: v for k, v in row.items() if k not in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+        big = {"mont_mul": "2^20", "mont_pow": "2^16"}.get(name, "2^18")
         kernels.append(dict(
-            name=name, route="cuda",
-            source="zkp2p_tpu_torch/csrc/" + ("mont_mul.cu" if name == "mont_mul" else "point_ops.cu"),
-            replaces=REPLACES[name], launches=launches[launcher], max_abs_err=row["max_abs_err"],
+            name=name, route="cuda", source="zkp2p_tpu_torch/csrc/" + SOURCE.get(name, "point_ops.cu"),
+            replaces=REPLACES[name], launches=sum(v[launcher] for v in by_path.values()),
+            launches_by_path={p: v[launcher] for p, v in by_path.items()}, max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=None, check="bitwise equal to plain at batches 1, 257, 2^20 (K1) or 2^18 and at shape; sample equal to host",
-            shape=row["shape"],
+            library_ms=None, check=f"bitwise equal to plain at batches 1, 257, {big} and at shape; sample equal to host",
+            **extra,
         ))
-    real = {"shape": "venmo 1024/6400", "log_m": V["log_m"], "n_wires": V["n_wires"],
-            "build_s": build_s, "key_setup_s": setup_s,
-            "stage_s_median_of_3": {k[2:]: statistics.median(r[k] for r in runs) for k in runs[0]},
-            "prove_s": [r["s_total"] for r in runs], "peak_device_gib": peak_gib}
-    return kernels, real, profile
+
+    def summary(runs, peak):
+        return {"stage_s_median": {k[2:]: statistics.median(r[k] for r in runs) for k in runs[0]},
+                "prove_s": [r["s_total"] for r in runs], "peak_device_gib": peak}
+
+    shape = {"shape": "venmo 1024/6400", "log_m": V["log_m"], "n_wires": V["n_wires"]}
+    real = dict(shape, path="jacobian", build_s=build_s, key_setup_s=setup_s, **summary(runs, peak_gib))
+    real_affine = dict(shape, path="affine", arms=AFFINE_ARMS, **summary(aff_runs, aff_peak_gib))
+    return kernels, real, real_affine, profile
 
 
 def main() -> int:
@@ -606,11 +722,14 @@ def main() -> int:
     sm_clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
     peak_muls = props.multi_processor_count * INT_MULS_PER_SM_CLK * sm_clock_hz
     log(f"{card}; {props.multi_processor_count} SMs, max SM clock {sm_clock_hz / 1e6:.0f} MHz")
-    kernels, real, profile = run(torch, torch.device("cuda", 0), peak_muls)
+    t0 = time.perf_counter()
+    kernels, real, real_affine, profile = run(torch, torch.device("cuda", 0), peak_muls, sm_clock_hz)
+    log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"profile": profile}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"real_size": real}))
+    print(json.dumps({"real_size_affine": real_affine}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

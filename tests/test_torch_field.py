@@ -1,8 +1,8 @@
 """The port's field layer (zkp2p_tpu_torch.field, ops.cuda_mont) against
-the reference: the plain version of kernel K1 against the Pallas kernel
-in interpret mode, the XLA field layer and Python ints; the plain field
-ops against zkp2p_tpu.field.jfield.  Integer math: every comparison is
-exact."""
+the reference: the plain versions of kernels K1 (mont_mul) and K5
+(mont_pow) against the Pallas kernels in interpret mode, the XLA field
+layer and Python ints; the plain field ops against
+zkp2p_tpu.field.jfield.  Integer math: every comparison is exact."""
 
 import random
 
@@ -14,6 +14,7 @@ import torch
 from zkp2p_tpu.field import jfield
 from zkp2p_tpu.field.bn254 import MONT_R, P, R
 from zkp2p_tpu.ops.pallas_mont import mont_mul as pallas_mont_mul
+from zkp2p_tpu.ops.pallas_mont import mont_pow as pallas_mont_pow
 
 from zkp2p_tpu_torch.field import tfield
 from zkp2p_tpu_torch.ops import cuda_mont
@@ -138,3 +139,44 @@ def test_limb_helpers_and_constants():
     for k in (1, 5, 11, 23, 28):
         assert bn254.fr_domain_root(k) == ref.fr_domain_root(k)
     assert bn254.fr_inv(12345) == ref.fr_inv(12345)
+
+
+# the exponents of the reference's own mont_pow tests: Fermat inversion
+# on Fq, small exponents on Fr
+POW_CASES = [(jfield.FQ, tfield.FQ, P, P - 2), (jfield.FR, tfield.FR, R, 5), (jfield.FR, tfield.FR, R, 1)]
+POW_IDS = ["fq-inv", "fr-e5", "fr-e1"]
+
+
+@pytest.mark.parametrize("jf,tf,mod,e", POW_CASES, ids=POW_IDS)
+def test_mont_pow_plain_matches_pallas_and_ints(jf, tf, mod, e):
+    xs, a = mont_batch(jf, mod, 4)  # lanes 0, 1 and p - 1 included
+    got = cuda_mont.mont_pow_plain(tf, to_t(a), e)
+    assert same(got, pallas_mont_pow(jf, jnp.asarray(a), e, interpret=True))
+    for i, x in enumerate(xs):
+        assert tf.from_mont_host(got[i].numpy()) == pow(x, e, mod)
+    # the wrapper on CPU tensors is the plain version
+    assert torch.equal(cuda_mont.mont_pow(tf, to_t(a), e), got)
+
+
+@pytest.mark.parametrize("jf,tf,mod", FIELDS, ids=IDS)
+def test_inv_fused_matches_jax_inv_and_ints(jf, tf, mod):
+    xs, a = mont_batch(jf, mod, 3)
+    got = tf.inv_fused(to_t(a))
+    assert same(got, jf.inv(jnp.asarray(a)))
+    assert torch.equal(got, tf.inv(to_t(a)))
+    for i, x in enumerate(xs):
+        assert tf.from_mont_host(got[i].numpy()) == (pow(x, mod - 2, mod) if x else 0)
+
+
+def test_mont_pow_batch_dims_and_exponent_range():
+    """A 2-D batch (the reference's vmap case) keeps its shape; e = 0
+    and e >= 2^256 are refused, as the reference asserts e >= 1."""
+    xs, a = mont_batch(jfield.FQ, P, 3)
+    a2 = to_t(a).reshape(2, 3, 16)
+    got = cuda_mont.mont_pow_plain(tfield.FQ, a2, P - 2)
+    assert got.shape == (2, 3, 16)
+    assert same(got, pallas_mont_pow(jfield.FQ, jnp.asarray(a.reshape(2, 3, 16)), P - 2, interpret=True))
+    assert same(got.reshape(6, 16), jfield.FQ.inv(jnp.asarray(a)))
+    for bad in (0, -3, 1 << 256):
+        with pytest.raises(ValueError):
+            cuda_mont.mont_pow(tfield.FQ, a2, bad)

@@ -98,6 +98,7 @@ def test_wrappers_on_cpu_take_the_plain_path_and_count_nothing():
     cuda_build.reset_launches()
     a, b = _rand((5,), 1), _rand((5,), 2)
     assert torch.equal(cuda_mont.mont_mul(FR, a, b), cuda_mont.mont_mul_plain(FR, a, b))
+    assert torch.equal(FQ.inv_fused(a), cuda_mont.mont_pow_plain(FQ, a, FQ.modulus - 2))
     for g2, C in ((False, tcurve.G1C), (True, tcurve.G2C)):
         shape = (5, 2) if g2 else (5,)
         p = tuple(_rand(shape, 10 + k) for k in range(3))
@@ -106,7 +107,7 @@ def test_wrappers_on_cpu_take_the_plain_path_and_count_nothing():
         assert all(torch.equal(x, y) for x, y in zip(C.add_mixed(p, q[:2]),
                                                       cuda_curve.point_op_plain("add_mixed", g2, *p, *q[:2])))
         assert all(torch.equal(x, y) for x, y in zip(C.double(p), cuda_curve.point_op_plain("double", g2, *p)))
-    assert set(cuda_build.LAUNCHES) == set(cuda_build.LAUNCHERS) and len(cuda_build.LAUNCHERS) == 7
+    assert set(cuda_build.LAUNCHES) == set(cuda_build.LAUNCHERS) and len(cuda_build.LAUNCHERS) == 8
     assert all(v == 0 for v in cuda_build.LAUNCHES.values())
 
 
@@ -114,6 +115,8 @@ def test_wrappers_refuse_other_devices():
     a = torch.zeros(3, 16, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         cuda_mont.mont_mul(FQ, a, a)
+    with pytest.raises(ValueError):
+        FQ.inv_fused(a)
     with pytest.raises(ValueError):
         tcurve.G1C.double((a, a, a))
 

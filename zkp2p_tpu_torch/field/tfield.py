@@ -8,9 +8,10 @@ Fq2 elements are ``(..., 2, 16)``.  Elements are in Montgomery form
 (R = 2^256) unless a function says otherwise.
 
 ``mul`` is kernel K1 on a CUDA tensor (``ops.cuda_mont``) and its plain
-version on a CPU tensor.  add/sub/neg, the carry ladders and the partial
-products inside ``reduce_wide`` are plain torch, as they are plain XLA in
-the reference; they compute in ``int64`` internally.
+version on a CPU tensor, and so is ``inv_fused`` with kernel K5.
+add/sub/neg, the carry ladders and the partial products inside
+``reduce_wide`` are plain torch, as they are plain XLA in the reference;
+they compute in ``int64`` internally.
 """
 
 from __future__ import annotations
@@ -41,6 +42,8 @@ class TPrimeField:
     """A prime field over torch limb tensors.  Two instances exist: ``FQ``
     (base field, curve coordinates) and ``FR`` (scalar field, witness and
     NTT)."""
+
+    elem = (NUM_LIMBS,)
 
     def __init__(self, modulus: int, name: str):
         self.modulus = modulus
@@ -134,6 +137,12 @@ class TPrimeField:
         """Fermat inverse a^(N-2); 0 maps to 0."""
         return self.pow_const(a, self.modulus - 2)
 
+    def inv_fused(self, a: torch.Tensor) -> torch.Tensor:
+        """`inv` in one launch: kernel K5 runs the whole ladder on a CUDA
+        tensor (pow_const issues 363 K1 launches on Fq, 380 on Fr); the
+        plain ladder on a CPU tensor."""
+        return cuda_mont.mont_pow(self, a, self.modulus - 2)
+
 
 FQ = TPrimeField(P, "fq")
 FR = TPrimeField(R, "fr")
@@ -141,6 +150,8 @@ FR = TPrimeField(R, "fr")
 
 class TFq2Ops:
     """Fq2 = Fq[u]/(u^2 + 1) on stacked limb pairs (..., 2, 16)."""
+
+    elem = (2, NUM_LIMBS)
 
     def __init__(self, fq: TPrimeField = FQ):
         self.fq = fq

@@ -45,6 +45,10 @@ SOURCES = {
         # a, b, out, n, a_stride, b_stride, field consts (host), stream
         "zk_mont_mul": (_VP, _VP, _VP, _I64, _I32, _I32, _VP, _VP),
     },
+    "mont_pow": {
+        # a, out, n, exponent words (host), nbits, field consts (host), stream
+        "zk_mont_pow": (_VP, _VP, _I64, _VP, _I32, _VP, _VP),
+    },
     "point_ops": {
         # inputs..., outputs x/y/z, n, field consts (host), stream
         "zk_g1_add": (_VP,) * 9 + (_I64, _VP, _VP),

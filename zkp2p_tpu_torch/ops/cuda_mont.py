@@ -1,15 +1,18 @@
-"""Montgomery multiplication: the CUDA kernel K1 and its plain version.
+"""Montgomery multiplication and powers: the CUDA kernels K1 and K5 and
+their plain versions.
 
-Replaces the reference's fused Pallas kernel (``ops/pallas_mont.py``,
-``mont_mul``), which computes the SOS Montgomery product a*b*2^-256 mod N
-for Fr and for Fq.  At the boundary a field element is 16 little-endian
-16-bit limbs in an ``int32`` tensor, shaped ``(..., 16)``.
+Replaces the reference's fused Pallas kernels (``ops/pallas_mont.py``):
+``mont_mul``, the SOS Montgomery product a*b*2^-256 mod N for Fr and for
+Fq, and ``mont_pow``, the whole square-and-multiply ladder of a^e in one
+launch.  At the boundary a field element is 16 little-endian 16-bit limbs
+in an ``int32`` tensor, shaped ``(..., 16)``.
 
-``mont_mul`` launches the kernel (``csrc/mont_mul.cu``) for CUDA tensors
-and runs ``mont_mul_plain`` for CPU tensors; nothing else.  The plain
-version is the same limb math in ``int64`` torch ops (torch has no
-unsigned 32-bit shifts on the CPU), and is also what ``chip_smoke.py``
-holds the kernel against on the card.
+``mont_mul`` and ``mont_pow`` launch their kernels (``csrc/mont_mul.cu``,
+``csrc/mont_pow.cu``) for CUDA tensors and run ``mont_mul_plain`` and
+``mont_pow_plain`` for CPU tensors; nothing else.  The plain versions are
+the same limb math in ``int64`` torch ops (torch has no unsigned 32-bit
+shifts on the CPU), and are also what ``chip_smoke.py`` holds the kernels
+against on the card.
 
 The limb helpers below (carry, schoolbook columns, add and subtract mod
 N) are shared with the field layer, whose add/sub/neg and
@@ -42,10 +45,11 @@ def carry(x: torch.Tensor, out_limbs: int) -> torch.Tensor:
     L = x.shape[-1]
     if L < out_limbs:
         x = F.pad(x, (0, out_limbs - L))
+    cols = x.unbind(-1)
     c = None
     out = []
     for i in range(out_limbs):
-        v = x[..., i] if c is None else x[..., i] + c
+        v = cols[i] if c is None else cols[i] + c
         c = v >> LIMB_BITS
         out.append(v & MASK)
     return torch.stack(out, dim=-1)
@@ -97,9 +101,11 @@ def mont_mul_plain64(a: torch.Tensor, b: torch.Tensor, n: torch.Tensor, nprime: 
     dims): t = a*b, m = (t mod 2^256)*N' mod 2^256, (t + m*N) / 2^256,
     then one conditional subtract, as the reference kernel does for
     canonical inputs (the subtracted candidate carries beside the sum:
-    + (2^256 - N) * 2^256 sets bit 512 iff the quotient is >= N)."""
+    + (2^256 - N) * 2^256 sets bit 512 iff the quotient is >= N).  m
+    takes t's low 16 columns uncarried (below 2^37 each, so their
+    columns against N' stay below 2^57): mod 2^256 they are t."""
     tc = mul_cols(a, b)
-    t_lo = carry(tc[..., :NUM_LIMBS], NUM_LIMBS)
+    t_lo = tc[..., :NUM_LIMBS]
     m = carry(mul_cols(t_lo, nprime.expand_as(t_lo))[..., :NUM_LIMBS], NUM_LIMBS)
     s = tc + mul_cols(m, n.expand_as(m))
     negn_hi = F.pad(negn, (NUM_LIMBS, 0))
@@ -163,6 +169,48 @@ def mont_mul(field, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         cuda_build.launch(
             "mont_mul", "zk_mont_mul",
             a_c.data_ptr(), b_c.data_ptr(), out.data_ptr(), n, sa, sb,
+            field_consts(field).ctypes.data,
+        )
+    return out
+
+
+def mont_pow_plain(field, a: torch.Tensor, e: int) -> torch.Tensor:
+    """Plain torch version of K5 on int32 limbs, any device: the
+    reference's LSB-first ladder over mont_mul_plain (acc = one; per bit,
+    acc *= base where the bit is set, then base *= base)."""
+    if e < 1:
+        raise ValueError("mont_pow: the exponent must be >= 1")
+    acc = field.const("one", a.device).int().expand_as(a)
+    base = a
+    while e:
+        if e & 1:
+            acc = mont_mul_plain(field, acc, base)
+        e >>= 1
+        if e:
+            base = mont_mul_plain(field, base, base)
+    return acc
+
+
+def mont_pow(field, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e for a host exponent e >= 1, Montgomery form in and out, of
+    (..., 16) int32 canonical limbs; 0 maps to 0.  CUDA tensors launch
+    K5 (one launch for the whole ladder); CPU tensors take the plain
+    version."""
+    if e < 1 or e >= 1 << 256:
+        raise ValueError(f"mont_pow: the exponent must be in [1, 2^256), got {e}")
+    if a.device.type == "cpu":
+        return mont_pow_plain(field, a, e)
+    if a.device.type != "cuda":
+        raise ValueError(f"mont_pow: operand on {a.device}")
+    a_c = a if a.is_contiguous() else a.contiguous()
+    check_cuda_operand(a_c, "a")
+    out = torch.empty_like(a_c)
+    n = a_c.numel() // NUM_LIMBS
+    if n:
+        words = np.array([(e >> (32 * i)) & 0xFFFFFFFF for i in range(8)], dtype=np.uint32)
+        cuda_build.launch(
+            "mont_pow", "zk_mont_pow",
+            a_c.data_ptr(), out.data_ptr(), n, words.ctypes.data, e.bit_length(),
             field_consts(field).ctypes.data,
         )
     return out

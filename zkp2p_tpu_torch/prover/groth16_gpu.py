@@ -1,16 +1,23 @@
 """The Groth16 prover of the port: witness in, proof out, on one GPU
 (port of the reference's ``prover/groth16_tpu.py``, single proof).
 
-Dataflow, the reference's default configuration hard-wired (signed w=4
-digits, Jacobian accumulate, windowed h MSM, no GLV):
+Dataflow, signed digits and no GLV as in the reference; its two
+accumulate arms are keyword arguments of ``prove_gpu`` with the
+reference's defaults:
 
   witness -> Montgomery limbs (n_wires, 16)
     |- Az/Bz: gathered coefficient products (K1), segment sums
     |- H: 3 iNTT -> coset shift -> 3 NTT -> a*b - c
-    |- signed w=4 digit planes of the witness and of H
+    |- signed w=4 digit planes of the witness; of H, w=4 (or w=16 for
+    |  the bucket h MSM)
     '- 4 G1 MSMs (a, b1, c, h) + 1 G2 MSM (b2); with width metadata each
        witness MSM splits into a narrow class (3 planes) and a wide class
   host: blinding with (r, s) and assembly of (A, B, C)
+
+``msm_affine=True`` (the reference's ZKP2P_MSM_AFFINE=1) runs the
+windowed MSMs with the batch-affine accumulate (``ops.msm_affine``);
+``msm_h="bucket"`` (ZKP2P_MSM_H=bucket) runs the h MSM as the
+sorted-prefix bucket MSM (``ops.msm_bucket``) over w=16 planes.
 
 Given the same (witness, r, s) the proof equals the reference's
 ``prove_host`` and ``prove_tpu`` byte for byte.
@@ -32,6 +39,8 @@ from ..field.bn254 import R
 from ..field.tfield import FR, NUM_LIMBS, lazy_segment_sum_mod
 from ..field.tower import Fq2
 from ..ops.msm import default_lanes, msm_windowed_signed, signed_digit_planes_from_limbs
+from ..ops.msm_affine import msm_windowed_affine
+from ..ops.msm_bucket import msm_bucket_affine
 from ..ops.ntt import coset_shift, intt, ntt
 from ..snark.groth16 import Proof, coset_gen
 from ..utils.device import resolve_device
@@ -41,6 +50,9 @@ WINDOW = 4
 # 11 bits) needs only the last NARROW_PLANES signed w=4 digit planes
 # (k planes hold v < 2^(4k-1)); valid only under the width guard.
 NARROW_PLANES = 3
+# the window of the h MSM's digit planes under msm_h="bucket"
+H_BUCKET_WINDOW = 16
+MSM_H_ARMS = ("windowed", "bucket")
 
 
 @dataclass
@@ -254,14 +266,15 @@ def h_evals(dpk: DeviceProvingKey, w_mont: torch.Tensor, stages=None) -> torch.T
     return FR.sub(FR.mul(a_cos, b_cos), c_cos)
 
 
-def _h_and_planes(dpk: DeviceProvingKey, w_mont: torch.Tensor, stages=None):
-    """H evaluations and the signed w=4 digit planes of the witness and
-    of H; the narrow class takes the last NARROW_PLANES witness planes."""
+def _h_and_planes(dpk: DeviceProvingKey, w_mont: torch.Tensor, h_window: int, stages=None):
+    """H evaluations, the signed w=4 digit planes of the witness and the
+    signed w=h_window planes of H; the narrow class takes the last
+    NARROW_PLANES witness planes."""
     h = _timed(stages, "h_evals", lambda: h_evals(dpk, w_mont, stages))
 
     def planes():
         w_planes = signed_digit_planes_from_limbs(FR.from_mont(w_mont), WINDOW)
-        h_planes = signed_digit_planes_from_limbs(FR.from_mont(h), WINDOW)
+        h_planes = signed_digit_planes_from_limbs(FR.from_mont(h), h_window)
         narrow = tuple(p[-NARROW_PLANES:] for p in w_planes) if dpk.a_nsel.numel() else ()
         return (w_planes, narrow), h_planes
 
@@ -289,20 +302,35 @@ def _timed(stages, name: str, fn):
 # ---------------------------------------------------------------------- MSMs
 
 
-def _msm_g1(bases, planes):
-    return msm_windowed_signed(G1C, bases, *planes, lanes=default_lanes(bases[0].shape[0]), window=WINDOW)
+def _windowed(curve, bases, planes, lanes, window, affine):
+    """The signed windowed MSM with the accumulate arm: batch affine when
+    `affine`, Jacobian otherwise."""
+    msm = msm_windowed_affine if affine else msm_windowed_signed
+    return msm(curve, bases, *planes, lanes=lanes, window=window)
 
 
-def _msm_g1_narrow(bases, planes):
-    return msm_windowed_signed(G1C, bases, *planes, lanes=default_lanes(bases[0].shape[0], cap=16384), window=4)
+def _msm_g1(bases, planes, affine):
+    return _windowed(G1C, bases, planes, default_lanes(bases[0].shape[0]), WINDOW, affine)
 
 
-def _msm_g2(bases, planes):
-    return msm_windowed_signed(G2C, bases, *planes, lanes=default_lanes(bases[0].shape[0], cap=2048), window=WINDOW)
+def _msm_g1_narrow(bases, planes, affine):
+    return _windowed(G1C, bases, planes, default_lanes(bases[0].shape[0], cap=16384), 4, affine)
 
 
-def _msm_g2_narrow(bases, planes):
-    return msm_windowed_signed(G2C, bases, *planes, lanes=default_lanes(bases[0].shape[0], cap=4096), window=4)
+def _msm_g2(bases, planes, affine):
+    return _windowed(G2C, bases, planes, default_lanes(bases[0].shape[0], cap=2048), WINDOW, affine)
+
+
+def _msm_g2_narrow(bases, planes, affine):
+    return _windowed(G2C, bases, planes, default_lanes(bases[0].shape[0], cap=4096), 4, affine)
+
+
+def _msm_h(bases, planes, affine, h_bucket):
+    """The h MSM: the sorted-prefix bucket MSM when `h_bucket`, else the
+    windowed G1 MSM."""
+    if h_bucket:
+        return msm_bucket_affine(G1C, bases, *planes, window=H_BUCKET_WINDOW)
+    return _msm_g1(bases, planes, affine)
 
 
 def _take_planes(planes, sel):
@@ -313,11 +341,13 @@ def _take_bases(bases, pos):
     return tuple(c.index_select(0, pos) for c in bases)
 
 
-def _prove_device(dpk: DeviceProvingKey, w_mont: torch.Tensor, stages=None):
+def _prove_device(dpk: DeviceProvingKey, w_mont: torch.Tensor, msm_affine: bool, msm_h: str, stages=None):
     """The five MSMs -> (a, b1, b2, c, h) Jacobian accumulators.  b1/b2/c
     run over their pruned lanes; with width metadata each witness MSM is
     a narrow-class and a wide-class MSM joined by one add."""
-    (w_planes, w_narrow), h_planes = _h_and_planes(dpk, w_mont, stages)
+    h_bucket = msm_h == "bucket"
+    h_window = H_BUCKET_WINDOW if h_bucket else WINDOW
+    (w_planes, w_narrow), h_planes = _h_and_planes(dpk, w_mont, h_window, stages)
 
     def key_split(name, bases, sel, wires_of):
         got = dpk._split.get(name)
@@ -329,14 +359,14 @@ def _prove_device(dpk: DeviceProvingKey, w_mont: torch.Tensor, stages=None):
     def query(curve, msm, msm_narrow, name, bases, nsel, wsel, wires_of):
         if not dpk.a_nsel.numel():  # unclassed key: one MSM over all lanes
             cols = w_planes if wires_of is None else _take_planes(w_planes, wires_of)
-            return msm(bases, cols)
+            return msm(bases, cols, msm_affine)
         accs = []
         if nsel.numel():
             nb, nw = key_split(name + ".n", bases, nsel, wires_of)
-            accs.append(msm_narrow(nb, _take_planes(w_narrow, nw)))
+            accs.append(msm_narrow(nb, _take_planes(w_narrow, nw), msm_affine))
         if wsel.numel():
             wb, ww = key_split(name + ".w", bases, wsel, wires_of)
-            accs.append(msm(wb, _take_planes(w_planes, ww)))
+            accs.append(msm(wb, _take_planes(w_planes, ww), msm_affine))
         return accs[0] if len(accs) == 1 else curve.add(accs[0], accs[1])
 
     g1 = (G1C, _msm_g1, _msm_g1_narrow)
@@ -346,7 +376,7 @@ def _prove_device(dpk: DeviceProvingKey, w_mont: torch.Tensor, stages=None):
         _timed(stages, "msm_b1", lambda: query(*g1, "b1", dpk.b1_bases, dpk.b_nsel, dpk.b_wsel, dpk.b_sel)),
         _timed(stages, "msm_b2", lambda: query(*g2, "b2", dpk.b2_bases, dpk.b_nsel, dpk.b_wsel, dpk.b_sel)),
         _timed(stages, "msm_c", lambda: query(*g1, "c", dpk.c_bases, dpk.c_nsel, dpk.c_wsel, dpk.c_sel)),
-        _timed(stages, "msm_h", lambda: _msm_g1(dpk.h_bases, h_planes)),
+        _timed(stages, "msm_h", lambda: _msm_h(dpk.h_bases, h_planes, msm_affine, h_bucket)),
     )
 
 
@@ -375,13 +405,24 @@ def prove_gpu(
     s: Optional[int] = None,
     device=None,
     stages: Optional[dict] = None,
+    msm_affine: bool = False,
+    msm_h: str = "windowed",
 ) -> Proof:
     """One Groth16 proof.  `witness` is a sequence of ints or (n, 4)
     uint64 standard-form rows; r, s are the blinding scalars (random when
     None).  Runs on CUDA unless device="cpu"; the key must be on that
     device.  When `stages` is a dict it receives per-stage seconds
     ("s_<stage>", synchronised at each boundary), the five host
-    accumulators ("acc") and the H evaluations ("h")."""
+    accumulators ("acc") and the H evaluations ("h").
+
+    msm_affine: the windowed MSMs accumulate in batch affine (the
+    reference's ZKP2P_MSM_AFFINE=1); msm_h: "windowed" or "bucket" (the
+    sorted-prefix bucket h MSM, ZKP2P_MSM_H=bucket).  The defaults are
+    the reference's; the proof is the same under every arm."""
+    if not isinstance(msm_affine, bool):
+        raise ValueError(f"msm_affine must be True or False, got {msm_affine!r}")
+    if msm_h not in MSM_H_ARMS:
+        raise ValueError(f"msm_h must be one of {MSM_H_ARMS}, got {msm_h!r}")
     dev = resolve_device(device)
     if dpk.device != dev:
         raise ValueError(f"key is on {dpk.device}, prover asked to run on {dev}")
@@ -391,7 +432,7 @@ def prove_gpu(
         s = 1 + secrets.randbelow(R - 1)
     _check_inferred_widths(dpk, witness, w_std=witness if _is_u64_witness(witness) else None)
     w_mont = _timed(stages, "witness", lambda: witness_to_device(witness, dev))
-    acc = _prove_device(dpk, w_mont, stages)
+    acc = _prove_device(dpk, w_mont, msm_affine, msm_h, stages)
     host = _timed(stages, "assemble", lambda: accumulators_to_host(acc))
     proof = _timed(stages, "assemble", lambda: _assemble(dpk, host, r, s))
     if stages is not None:
