@@ -9,14 +9,22 @@ and prints no result line):
 1. Build: every kernel source under zkp2p_tpu_torch/csrc/ with nvcc for
    sm_90a, one process per source, all started together, timed as
    set-up.
-2. Kernels against plain: each of the eight launchers (K1 mont_mul; K2
-   add, K3 add_mixed, K4 double for G1 and G2; K5 mont_pow) on random
-   canonical inputs with the special cases (zero, one, p-1; P+P, P+(-P),
-   infinity, the (0, 0) affine sentinel) at batches 1, 257 and one large
-   batch, held bitwise against its plain torch version on the card; a
-   sample against Python ints and the host curve.  Then each at the main
-   path's shape (K5 also at 2^16): timed, its plain version timed on the
-   same inputs, and the two outputs held bitwise.
+2. Kernels against plain: each of the ten launchers (K1 mont_mul; K2
+   add, K3 add_mixed, K4 double for G1 and G2; K5 mont_pow; K6 G1 window
+   table, K7 G1 window accumulate) on random canonical inputs with the
+   special cases (zero, one, p-1; P+P, P+(-P), infinity, the (0, 0)
+   affine sentinel; for K7 also acc equal to its entry and to its
+   negation, and e = 16 digits) at batches 1, 257 and one large batch,
+   held bitwise against its plain torch version on the card; a sample
+   against Python ints and the host curve.  Then each at the main path's
+   shape (K5 also at 2^16; K6/K7 at each chunk shape the path gives
+   them: the h MSM's 64 planes x 4,096 lanes x 170 steps, the narrow
+   classes' 3 x 16,384 x 42 and the wide classes' 64 x 2,088 x 17, with
+   the special lanes): timed, its plain version timed on the same
+   inputs, and the two outputs held bitwise.  The whole G1 MSM through
+   K6/K7, at 2^16 points with 64 digit planes and at 2^18 with the
+   narrow class's 3 (16,384 lanes), is held bitwise against the step
+   loop over K2/K3 and against host discrete logs.
 3. Test vector: prove_gpu on zkp2p_tpu_torch/data/port_vector.npz gives
    the committed proof byte for byte, with the default (Jacobian) MSM
    arms and with the affine ones (msm_affine=True, msm_h="bucket").
@@ -26,6 +34,12 @@ and prints no result line):
    t_j*G from a small host table, so each of the five MSMs is checked
    against (sum_i s_i t_idx(i) mod r)*G computed from the scalars the
    prover used.  h_evals is held against the plain path (CPU) at 2^16.
+   Then the h MSM at real size (2^23 bases, 64 planes) once each way in
+   turns (step loop, K6/K7, K6/K7, step loop), the four results held
+   bitwise equal, and one more through K6/K7 split into its accumulate,
+   Horner fold and lane tree; then one proof with the G1 MSMs
+   accumulated by the step loop and one by K6/K7, the same r and s,
+   their proofs held byte for byte equal.
 5. Real size, affine path: the same key and witness, one warm-up and one
    timed proof with msm_affine=True, msm_h="bucket" (the batch-affine
    accumulate and the w=16 sorted-prefix bucket h MSM), its five MSMs
@@ -33,15 +47,17 @@ and prints no result line):
 
 The launch counts are reset just before the first timed proof of each
 path and read just after it; every kernel of a path must have launched in
-its run (K1-K4 on the Jacobian path, all eight on the affine path).
+its run (on the Jacobian path K1, K2, K4, K6, K7 and G2's K3, and G1's K3
+not at all; on the affine path K1-K5).
 
 Before the last line it prints the card's name and power limit, a
 profile of one more Jacobian proof, run after every timed proof (the
 device's busy share and the ops with the most device time, from
 torch.profiler), one JSON line with the
-eight kernels (checks, launches on each path, times and bounds), and one
-each with the two paths' per-stage times and peak device memory.  The
-last line is {"ok": true, "device": {...}}.
+ten kernels (checks, launches on each path, times and bounds), one each
+with the two paths' per-stage times and peak device memory, and one
+each with the same-run comparisons of the h MSM and of the proof.  The last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -99,11 +115,25 @@ REPLACES = {
     "g2_add": "zkp2p_tpu/ops/pallas_curve.py:369",
     "g2_add_mixed": "zkp2p_tpu/ops/pallas_curve.py:375",
     "g2_double": "zkp2p_tpu/ops/pallas_curve.py:380",
+    "g1_window_table": "zkp2p_tpu/ops/pallas_curve.py:358",
+    "g1_window_accumulate": "zkp2p_tpu/ops/pallas_curve.py:351",
 }
-SOURCE = {"mont_mul": "mont_mul.cu", "mont_pow": "mont_pow.cu"}  # the rest: point_ops.cu
-# the launchers each real-size path must have launched
-_JACOBIAN_KERNELS = ("mont_mul", "g1_add", "g1_add_mixed", "g1_double", "g2_add", "g2_add_mixed", "g2_double")
-PATH_KERNELS = {"jacobian": _JACOBIAN_KERNELS, "affine": _JACOBIAN_KERNELS + ("mont_pow",)}
+SOURCE = {"mont_mul": "mont_mul.cu", "mont_pow": "mont_pow.cu",
+          "g1_window_table": "msm_window.cu", "g1_window_accumulate": "msm_window.cu"}  # the rest: point_ops.cu
+# the launchers each real-size path must have launched, and must not have
+_POINT_KERNELS = ("g1_add", "g1_double", "g2_add", "g2_add_mixed", "g2_double")
+PATH_KERNELS = {
+    "jacobian": ("mont_mul",) + _POINT_KERNELS + ("g1_window_table", "g1_window_accumulate"),
+    "affine": ("mont_mul",) + _POINT_KERNELS + ("g1_add_mixed", "mont_pow"),
+}
+NOT_ON_JACOBIAN = ("g1_add_mixed",)  # K6 builds the windowed path's G1 tables
+# K6/K7: (lanes, digit planes, steps) held bitwise against plain, before
+# the path's chunk shapes
+WINDOW_BATCHES = ((1, 64, 3), (257, 64, 3), (257, 3, 3))
+N_TABLE = 8  # window 4
+# the whole G1 MSM through K6/K7 against the step loop: (name, log2 of
+# the points, digit planes, lane cap as the prover sets it)
+WINDOW_MSMS = (("64 planes", 16, 64, 4096), ("3 planes", 18, 3, 16384))
 
 
 def log(msg: str) -> None:
@@ -182,9 +212,11 @@ def point_inputs(torch, gen, op, g2, n, device):
 # ------------------------------------------------------------------ timing
 
 
-def cuda_ms(torch, fn, reps: int):
-    """(ms per call of fn, the last call's result), after one warm-up."""
-    fn()
+def cuda_ms(torch, fn, reps: int, warmup: bool = True):
+    """(ms per call of fn, the last call's result), after one warm-up
+    call unless warmup is False."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -194,6 +226,16 @@ def cuda_ms(torch, fn, reps: int):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def wall_s(torch, fn):
+    """(host seconds of fn, its result), around work that ends in a
+    synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
 
 
 def chunked(torch, fn, args, chunk):
@@ -376,6 +418,224 @@ def check_mont_pow(torch, peak_muls_per_s, sm_clock_hz, device):
     log(f"K5 mont_pow: {row['ms']:.4f} ms at batch 1, {row[f'ms_{K5_TIMED[1]}']:.4f} ms at {K5_TIMED[1]}; "
         "bitwise equal to plain at both")
     return row
+
+
+def digit_planes(torch, gen, n_digits, steps, lanes, device):
+    """Random signed digits (n_digits, steps, lanes): magnitudes in
+    [0, N_TABLE] and signs, laid out digit-minor (a lane's digits
+    adjacent) as signed_digit_planes_from_limbs gives them."""
+    mags = torch.randint(0, N_TABLE + 1, (steps, lanes, n_digits), generator=gen, device=device, dtype=torch.int32)
+    negs = torch.randint(0, 2, (steps, lanes, n_digits), generator=gen, device=device).bool()
+    return mags.permute(2, 0, 1), negs.permute(2, 0, 1)
+
+
+def window_case(torch, gen, steps, lanes, n_digits, device):
+    """K6/K7 inputs: random bases (steps, lanes) and partials, digit-minor
+    digit planes of steps + 2 steps read from step 1, and, from 5 lanes
+    up, the special lanes: a (0, 0) base (lane 2), acc equal to the entry
+    its digit picks (lane 0, the doubling) and to that entry negated
+    (lane 1, infinity), acc at infinity (lane 3), e = 16 digits (lane 4)."""
+    from zkp2p_tpu_torch.field.tfield import FQ
+    from zkp2p_tpu_torch.ops import cuda_msm_window
+
+    bases = [rand_canon(torch, gen, (steps, lanes), device) for _ in range(2)]
+    mags, negs = digit_planes(torch, gen, n_digits, steps + 2, lanes, device)
+    acc = [rand_canon(torch, gen, (n_digits, lanes), device) for _ in range(3)]
+    s0 = 1
+    if lanes >= 5 and n_digits >= 2:
+        bases[0][:, 2] = bases[1][:, 2] = 0
+        table = cuda_msm_window.g1_window_table_plain(tuple(b[:1] for b in bases), N_TABLE)
+        mags[0, s0, 0], negs[0, s0, 0] = 3, False
+        mags[1, s0, 1], negs[1, s0, 1] = 5, False
+        for c in range(3):
+            acc[c][0, 0] = table[c][0, 2, 0]
+            acc[c][1, 1] = FQ.neg(table[c][0, 4, 1]) if c == 1 else table[c][0, 4, 1]
+            acc[c][:, 3] = 0
+        mags[:, :, 4], negs[:, :, 4] = 0, True
+    return tuple(bases), tuple(acc), mags, negs, s0
+
+
+def check_window_kernels(torch, shapes, peak_muls_per_s, device):
+    """K6 and K7 against their plain versions (bitwise) at WINDOW_BATCHES
+    and at each chunk shape the main path gives them (`shapes`: name ->
+    (digit planes, steps, lanes); "h" is the row's own), where each and
+    its plain version are timed on the same inputs."""
+    from zkp2p_tpu_torch.ops import cuda_msm_window as W
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+
+    def table_plain(bases):
+        # a step at a time in chunks of steps (bounds the int64 temporaries)
+        return chunked(torch, lambda x, y: W.g1_window_table_plain((x, y), N_TABLE), bases, 16)
+
+    def check(steps, lanes, n_digits, timed=False):
+        bases, acc, mags, negs, s0 = window_case(torch, gen, steps, lanes, n_digits, device)
+        times = {}
+        if timed:
+            times["table"], table = cuda_ms(torch, lambda: W.g1_window_table(bases, N_TABLE), 5)
+            times["table_plain"], want = cuda_ms(torch, lambda: table_plain(bases), 1, warmup=False)
+        else:
+            table, want = W.g1_window_table(bases, N_TABLE), table_plain(bases)
+        err6 = max_abs_err(torch, table, want)
+        if err6:
+            raise AssertionError(f"g1_window_table ({steps} x {lanes}) differs from its plain version")
+        if timed:
+            times["acc"], got = cuda_ms(torch, lambda: W.g1_window_accumulate(acc, table, mags, negs, s0), 3)
+            times["acc_plain"], want = cuda_ms(
+                torch, lambda: W.g1_window_accumulate_plain(acc, table, mags, negs, s0), 1, warmup=False)
+        else:
+            got = W.g1_window_accumulate(acc, table, mags, negs, s0)
+            want = W.g1_window_accumulate_plain(acc, table, mags, negs, s0)
+        # the same digits laid out contiguously
+        got_c = W.g1_window_accumulate(acc, table, mags.contiguous(), negs.contiguous(), s0)
+        err7 = max(max_abs_err(torch, got, want), max_abs_err(torch, got_c, want))
+        if err7:
+            raise AssertionError(f"g1_window_accumulate ({n_digits} x {lanes}, {steps} steps) differs from its plain version")
+        return times, (err6, err7), mags[:, s0:s0 + steps]
+
+    for steps, n, n_digits in WINDOW_BATCHES:
+        check(steps, n, n_digits)
+    log(f"K6/K7: bitwise equal to plain at {WINDOW_BATCHES} (lanes, planes, steps), special lanes included")
+
+    def bounds(steps, lanes, mags):
+        n = steps * lanes
+        table_bytes = 3 * N_TABLE * 64 * n
+        t6 = bound(n, (N_TABLE - 1) * MONTS["add_mixed"], 2 * 64 + 3 * N_TABLE * 64, peak_muls_per_s)
+        # K7 adds only where the digit is nonzero
+        adds = int(torch.count_nonzero(mags))
+        n_digits = mags.shape[0]
+        nbytes = 6 * 64 * n_digits * lanes + table_bytes + 5 * n_digits * n
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = adds * MONTS["add"] * MULS_PER_MONT / peak_muls_per_s
+        t7 = dict(bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes > t_ops else "operations")
+        return t6, t7, adds
+
+    rows = {"g1_window_table": {}, "g1_window_accumulate": {}}
+    for name, (n_digits, steps, lanes) in shapes.items():
+        times, (err6, err7), mags = check(steps, lanes, n_digits, timed=True)
+        b6, b7, adds = bounds(steps, lanes, mags)
+        at = {
+            "g1_window_table": dict(shape=[steps, N_TABLE, lanes], max_abs_err=err6, ms=times["table"],
+                                    plain_ms=times["table_plain"], **b6),
+            "g1_window_accumulate": dict(shape=[n_digits, steps, N_TABLE, lanes], max_abs_err=err7, ms=times["acc"],
+                                         plain_ms=times["acc_plain"], adds=adds, **b7),
+        }
+        for kernel, row in at.items():
+            if name == "h":
+                rows[kernel].update(row)
+            else:
+                rows[kernel].setdefault("at_shapes", {})[name] = row
+        log(f"K6/K7 at the {name} chunk ({n_digits} planes x {lanes} lanes x {steps} steps): bitwise equal to plain; "
+            f"K6 {times['table']:.4f} ms (plain {times['table_plain']:.1f}, bound {b6['bound_ms']:.4f}), "
+            f"K7 {times['acc']:.4f} ms (plain {times['acc_plain']:.1f}, bound {b7['bound_ms']:.4f})")
+    for row in rows.values():
+        row["check"] = (f"bitwise equal to plain at (lanes, planes, steps) {list(WINDOW_BATCHES)} and at the "
+                        f"path's chunk shapes (shape, at_shapes), special lanes included; the G1 MSM through it "
+                        f"equal to the step loop")
+    return rows
+
+
+def check_window_msm(torch, device):
+    """The G1 MSM through K6/K7 against the step loop over K2/K3 (bitwise)
+    and against host discrete logs, at each of WINDOW_MSMS: 64 digit
+    planes of full scalars, and the narrow class's 3 at its lane width."""
+    from zkp2p_tpu_torch.curve import host
+    from zkp2p_tpu_torch.curve.tcurve import G1C, g1_jac_to_host, g1_to_affine_arrays
+    from zkp2p_tpu_torch.field.bn254 import R
+    from zkp2p_tpu_torch.ops import msm
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    pyr = random.Random(SEED + 9)
+    rows = 64
+    t = [pyr.randrange(1, R) for _ in range(rows)]
+    T1 = g1_to_affine_arrays([host.g1_mul(host.G1_GENERATOR, v) for v in t] + [None], device)
+    for name, log_n, planes, cap in WINDOW_MSMS:
+        n = 1 << log_n
+        idx = torch.randint(0, rows + 1, (n,), generator=gen, device=device)  # row `rows` is the (0, 0) hole
+        bases = tuple(c[idx] for c in T1)
+        scalars = rand_canon(torch, gen, (n,), device)
+        if planes < 64:  # below 2^(4 planes - 1), as the narrow class's width guard keeps them
+            scalars = torch.zeros_like(scalars)
+            scalars[:, 0] = torch.randint(0, 1 << (4 * planes - 1), (n,), generator=gen, device=device,
+                                          dtype=torch.int32)
+        mags, negs = msm.signed_digit_planes_from_limbs(scalars, 4)
+        mags, negs = mags[-planes:], negs[-planes:]
+        lanes = msm.default_lanes(n, cap=cap)
+        got = msm.msm_windowed_signed(G1C, bases, mags, negs, lanes=lanes, window=4)
+        want = msm._windowed(G1C, bases, mags, negs, lanes, 4, msm._accumulate_steps)
+        if max_abs_err(torch, got, want):
+            raise AssertionError(f"the G1 MSM through K6/K7 ({name}) differs from the step loop")
+        if g1_jac_to_host(got) != [host.g1_mul(host.G1_GENERATOR, expected_msm(torch, scalars, idx, t, rows))]:
+            raise AssertionError(f"the G1 MSM through K6/K7 ({name}) differs from its discrete-log value")
+        log(f"G1 MSM at 2^{log_n} ({name}, {lanes} lanes): K6/K7 bitwise equal to the step loop and to the host")
+
+
+def compare_msm_h(torch, key, device):
+    """The real-size h MSM (the key's 2^23 h bases, random scalars) once
+    each way in turns: the step loop over K2/K3, K6/K7, K6/K7, the step
+    loop; all four held bitwise equal.  Seconds of each, host clock around
+    work that ends in a synchronise."""
+    from zkp2p_tpu_torch.curve.tcurve import G1C
+    from zkp2p_tpu_torch.ops import msm
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    n = key.h_bases[0].shape[0]
+    mags, negs = msm.signed_digit_planes_from_limbs(rand_canon(torch, gen, (n,), device), 4)
+    lanes = msm.default_lanes(n)
+    ways = {
+        "loop": lambda: msm._windowed(G1C, key.h_bases, mags, negs, lanes, 4, msm._accumulate_steps),
+        "fused": lambda: msm.msm_windowed_signed(G1C, key.h_bases, mags, negs, lanes=lanes, window=4),
+    }
+    secs = {"loop": [], "fused": []}
+    outs = []
+    for way in ("loop", "fused", "fused", "loop"):
+        sec, out = wall_s(torch, ways[way])
+        secs[way].append(sec)
+        outs.append(out)
+    # one more through K6/K7, a part at a time
+    steps, planes = n // lanes, mags.shape[0]
+    pts = tuple(c.reshape(steps, lanes, 16) for c in key.h_bases)
+    split = {}
+    split["accumulate"], acc = wall_s(torch, lambda: msm._accumulate_g1(
+        G1C, pts, mags.reshape(planes, steps, lanes), negs.reshape(planes, steps, lanes), 4))
+    split["horner_fold"], per_lane = wall_s(
+        torch, lambda: msm.horner_fold_planes(G1C, G1C.infinity((lanes,), device), acc, 4))
+    split["lane_tree"], out = wall_s(torch, lambda: msm.tree_reduce(G1C, per_lane, lanes))
+    if any(max_abs_err(torch, o, outs[0]) for o in outs[1:] + [out]):
+        raise AssertionError("the real-size h MSM through K6/K7 differs from the step loop")
+    log(f"msm_h at {n} bases: step loop {secs['loop']} s, K6/K7 {secs['fused']} s; bitwise equal; "
+        f"K6/K7 split {split}")
+    return {"n": n, "lanes": lanes, "planes": int(planes), "order": ["loop", "fused", "fused", "loop"],
+            "loop_s": secs["loop"], "fused_s": secs["fused"], "fused_split_s": split, "bitwise_equal": True}
+
+
+def compare_proofs(torch, key, witness, rs, device):
+    """One real-size Jacobian proof with the G1 MSMs accumulated by the
+    step loop over K2/K3 (the accumulate before K6/K7), then one through
+    K6/K7, with the same r and s: the stage seconds of each; the two
+    proofs held byte for byte equal."""
+    import contextlib
+    from unittest import mock
+
+    from zkp2p_tpu_torch.ops import msm
+    from zkp2p_tpu_torch.prover.groth16_gpu import prove_gpu
+    from zkp2p_tpu_torch.snark.groth16 import proof_bytes
+
+    r, s = rs.randrange(1, 1 << 250), rs.randrange(1, 1 << 250)
+    out, proofs = {}, []
+    for way in ("loop", "fused"):
+        stages = {}
+        loop = mock.patch.object(msm, "_accumulate_g1", msm._accumulate_steps)
+        with loop if way == "loop" else contextlib.nullcontext():
+            stages["s_total"], proof = wall_s(
+                torch, lambda: prove_gpu(key, witness, r=r, s=s, device=device, stages=stages))
+        proofs.append(proof_bytes(proof))
+        out[way] = {k[2:]: v for k, v in stages.items() if k.startswith("s_")}
+    if proofs[0] != proofs[1]:
+        raise AssertionError("the real-size proof through K6/K7 differs from the one through the step loop")
+    log(f"real-size proof, same r and s: step loop {out['loop']['total']:.2f} s, "
+        f"K6/K7 {out['fused']['total']:.2f} s; equal bytes")
+    return {"order": ["loop", "fused"], "stage_s": out, "proof_bytes_equal": True}
 
 
 def bound(n, monts_per_elem, bytes_per_elem, peak_muls_per_s):
@@ -615,6 +875,7 @@ def real_size_proofs(torch, key, witness, ix, tables, rs, device, timed, **arms)
 def run(torch, device, peak_muls, sm_clock_hz):
     """Phases 1-5 on `device`; returns what main prints."""
     from zkp2p_tpu_torch.ops import cuda_build
+    from zkp2p_tpu_torch.ops.cuda_msm_window import chunk_steps
     from zkp2p_tpu_torch.ops.msm import default_lanes
     from zkp2p_tpu_torch.prover.groth16_gpu import key_from_numpy, prove_gpu
     from zkp2p_tpu_torch.prover.vector import load_vector
@@ -630,21 +891,36 @@ def run(torch, device, peak_muls, sm_clock_hz):
                 log(f"ptxas {stem}: {line.strip()}")
     log(f"build: {build_s:.1f} s")
 
-    # the main path's shapes: NTT stage products; the h MSM's accumulate
-    # (64 planes x lanes), table and Horner steps; the b2 narrow MSM's
+    # the main path's shapes: NTT stage products; G1's K2 and K4 in the h
+    # MSM's Horner fold (K6/K7 took K2's accumulate); G1's K3 in the
+    # affine arm's narrow tables (lanes capped at 16,384, as the prover
+    # sets them; K6 builds the windowed path's); the b2 narrow MSM's
     V = VENMO
     h_lanes = default_lanes(1 << V["log_m"])
+    narrow_lanes = default_lanes(V["c_narrow"] + 1, cap=16384)
     b2_lanes = default_lanes(V["b_narrow"], cap=4096)
     geometry = {
         "mont_mul": 1 << (V["log_m"] - 1),
-        "g1_add": 64 * h_lanes, "g1_add_mixed": h_lanes, "g1_double": h_lanes,
+        "g1_add": h_lanes, "g1_add_mixed": narrow_lanes, "g1_double": h_lanes,
         "g2_add": 3 * b2_lanes, "g2_add_mixed": b2_lanes, "g2_double": b2_lanes,
+    }
+    # K6/K7's chunks (digit planes, steps, lanes): the h MSM's; the narrow
+    # classes'; the wide classes' (a's, the widest: one chunk of all its
+    # steps)
+    wide_n = V["c_wide"] + V["n_public"]
+    wide_lanes = default_lanes(wide_n)
+    window_shapes = {
+        "h": (64, chunk_steps(h_lanes, N_TABLE), h_lanes),
+        "narrow": (3, chunk_steps(narrow_lanes, N_TABLE), narrow_lanes),
+        "wide": (64, min(chunk_steps(wide_lanes, N_TABLE), -(-wide_n // wide_lanes)), wide_lanes),
     }
 
     # phase 2
     t0 = time.perf_counter()
     rows = check_kernels(torch, geometry, peak_muls, device)
     rows["mont_pow"] = check_mont_pow(torch, peak_muls, sm_clock_hz, device)
+    rows.update(check_window_kernels(torch, window_shapes, peak_muls, device))
+    check_window_msm(torch, device)
     log(f"kernels against plain: {time.perf_counter() - t0:.1f} s")
 
     # phase 3
@@ -668,6 +944,8 @@ def run(torch, device, peak_muls, sm_clock_hz):
     log(f"real-size synthetic key: {setup_s:.1f} s")
     rs = random.Random(SEED + 5)
     runs, jac_launches, peak_gib = real_size_proofs(torch, key, witness, ix, tables, rs, device, JACOBIAN_TIMED)
+    msm_h_same_run = compare_msm_h(torch, key, device)
+    proof_same_run = compare_proofs(torch, key, witness, rs, device)
 
     # phase 5
     aff_runs, aff_launches, aff_peak_gib = real_size_proofs(torch, key, witness, ix, tables, rs, device, 1,
@@ -680,6 +958,9 @@ def run(torch, device, peak_muls, sm_clock_hz):
         missing = [k for k in names if by_path[path]["zk_" + k] == 0]
         if missing:
             raise AssertionError(f"launchers never launched on the {path} path: {missing}")
+    stray = [k for k in NOT_ON_JACOBIAN if by_path["jacobian"]["zk_" + k]]
+    if stray:
+        raise AssertionError(f"launchers launched on the jacobian path, which no longer runs them: {stray}")
     unused = [k for k in cuda_build.LAUNCHERS if not any(v[k] for v in by_path.values())]
     if unused:
         raise AssertionError(f"launchers launched on no path: {unused}")
@@ -688,15 +969,16 @@ def run(torch, device, peak_muls, sm_clock_hz):
     for launcher in cuda_build.LAUNCHERS:
         name = launcher[len("zk_"):]
         row = rows[name]
-        extra = {k: v for k, v in row.items() if k not in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+        extra = {k: v for k, v in row.items()
+                 if k not in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "check")}
         big = {"mont_mul": "2^20", "mont_pow": "2^16"}.get(name, "2^18")
+        check = row.get("check", f"bitwise equal to plain at batches 1, 257, {big} and at shape; sample equal to host")
         kernels.append(dict(
             name=name, route="cuda", source="zkp2p_tpu_torch/csrc/" + SOURCE.get(name, "point_ops.cu"),
             replaces=REPLACES[name], launches=sum(v[launcher] for v in by_path.values()),
             launches_by_path={p: v[launcher] for p, v in by_path.items()}, max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=None, check=f"bitwise equal to plain at batches 1, 257, {big} and at shape; sample equal to host",
-            **extra,
+            library_ms=None, check=check, **extra,
         ))
 
     def summary(runs, peak):
@@ -706,7 +988,7 @@ def run(torch, device, peak_muls, sm_clock_hz):
     shape = {"shape": "venmo 1024/6400", "log_m": V["log_m"], "n_wires": V["n_wires"]}
     real = dict(shape, path="jacobian", build_s=build_s, key_setup_s=setup_s, **summary(runs, peak_gib))
     real_affine = dict(shape, path="affine", arms=AFFINE_ARMS, **summary(aff_runs, aff_peak_gib))
-    return kernels, real, real_affine, profile
+    return kernels, real, real_affine, profile, msm_h_same_run, proof_same_run
 
 
 def main() -> int:
@@ -723,13 +1005,16 @@ def main() -> int:
     peak_muls = props.multi_processor_count * INT_MULS_PER_SM_CLK * sm_clock_hz
     log(f"{card}; {props.multi_processor_count} SMs, max SM clock {sm_clock_hz / 1e6:.0f} MHz")
     t0 = time.perf_counter()
-    kernels, real, real_affine, profile = run(torch, torch.device("cuda", 0), peak_muls, sm_clock_hz)
+    kernels, real, real_affine, profile, msm_h_same_run, proof_same_run = run(
+        torch, torch.device("cuda", 0), peak_muls, sm_clock_hz)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"profile": profile}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"real_size": real}))
     print(json.dumps({"real_size_affine": real_affine}))
+    print(json.dumps({"msm_h_same_run": msm_h_same_run}))
+    print(json.dumps({"proof_same_run": proof_same_run}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

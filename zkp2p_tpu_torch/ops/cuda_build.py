@@ -58,6 +58,13 @@ SOURCES = {
         "zk_g2_add_mixed": (_VP,) * 8 + (_I64, _VP, _VP),
         "zk_g2_double": (_VP,) * 6 + (_I64, _VP, _VP),
     },
+    "msm_window": {
+        # bases x/y, table x/y/z, n, lanes, n_table, field consts (host), stream
+        "zk_g1_window_table": (_VP,) * 5 + (_I64, _I32, _I32, _VP, _VP),
+        # acc x/y/z, table x/y/z, mags, negs, out x/y/z, n_digits, lanes,
+        # lanes_per_block, n_table, steps, s0, plane strides (3 + 3), consts, stream
+        "zk_g1_window_accumulate": (_VP,) * 11 + (_I32,) * 5 + (_I64,) * 7 + (_VP, _VP),
+    },
 }
 
 LAUNCHERS = tuple(name for fns in SOURCES.values() for name in fns)

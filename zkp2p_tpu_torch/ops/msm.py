@@ -6,8 +6,10 @@ per-chunk multiples table [inf, 1P, ..., 2^(w-1)P]; a negative digit
 takes the table entry with Y negated.  The base axis is consumed `lanes`
 points per step, accumulating into an (n_digits, lanes) batch of
 Jacobian partials; a Horner fold (acc = 2^w * acc + plane) then reduces
-the planes and a pairwise tree the lanes.  The reference's `lax.scan`s
-are Python loops over kernel launches here."""
+the planes and a pairwise tree the lanes.  The reference's `lax.scan`
+over lane steps is, for G1, two kernels a chunk of steps (K6 builds the
+chunk's tables, K7 accumulates them: ``ops.cuda_msm_window``) and, for
+G2, a Python loop over point-kernel launches (``_accumulate_steps``)."""
 
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..curve.tcurve import AffPoint, JacPoint, TCurve
+from .cuda_msm_window import chunk_steps, g1_window_accumulate, g1_window_table
 
 
 def tree_reduce(curve: TCurve, pts: JacPoint, axis_len: int) -> JacPoint:
@@ -92,37 +95,16 @@ def default_lanes(n: int, cap: int = 4096) -> int:
     return max(64, min(cap, n // 16))
 
 
-def msm_windowed_signed(
-    curve: TCurve,
-    bases: AffPoint,
-    mags: torch.Tensor,
-    negs: torch.Tensor,
-    lanes: int = 64,
-    window: int = 4,
-) -> JacPoint:
-    """sum_i k_i * P_i for affine bases ((0, 0) = infinity) and signed
-    digit planes (mags, negs) of shape (n_digits, n): one Jacobian point.
-    The lanes fold by the pairwise tree, for G1 and G2 alike (the
-    reference's fold_lanes_per_curve takes the tree whenever its point
-    kernels are in use)."""
-    n_digits = mags.shape[0]
-    n = bases[0].shape[0]
-    device = bases[0].device
-    lanes = min(lanes, n)
-    pad = (-n) % lanes
-    elem_pad = [0, 0] * len(curve.elem)
-    if pad:
-        bases = tuple(F.pad(c, elem_pad + [0, pad]) for c in bases)
-        mags = F.pad(mags, [0, pad])
-        negs = F.pad(negs, [0, pad])
-    steps = (n + pad) // lanes
-    pts = tuple(c.reshape((steps, lanes) + curve.elem) for c in bases)
-    planes = mags.reshape(n_digits, steps, lanes)
-    neg_t = negs.reshape(n_digits, steps, lanes)
-
+def _accumulate_steps(curve: TCurve, pts: AffPoint, planes: torch.Tensor, neg_t: torch.Tensor,
+                      window: int) -> JacPoint:
+    """The (n_digits, lanes) partials, one lane step at a time: the step's
+    multiples table by from_affine and chained add_mixed (K3), its signed
+    entries gathered, one add (K2).  pts (steps, lanes, *elem) x2, planes
+    and neg_t (n_digits, steps, lanes)."""
+    n_digits, steps, lanes = planes.shape
     n_table = 1 << (window - 1)  # signed digits reach 2^(w-1)
-    lane_ix = torch.arange(lanes, device=device)[None, :]
-    acc = curve.infinity((n_digits, lanes), device)
+    lane_ix = torch.arange(lanes, device=planes.device)[None, :]
+    acc = curve.infinity((n_digits, lanes), planes.device)
     for s in range(steps):
         pt = (pts[0][s], pts[1][s])
         entry = curve.from_affine(pt)
@@ -136,9 +118,58 @@ def msm_windowed_signed(
         inf = torch.zeros_like(pt[0])
         xs, ys, zs = (torch.stack([inf] + [e[i] for e in table]) for i in range(3))
         signed = (torch.cat([xs, xs]), torch.cat([ys, curve.F.neg(ys)]), torch.cat([zs, zs]))
-        idx = planes[:, s, :].long() + neg_t[:, s, :].long() * (n_table + 1)
-        sel = tuple(c[idx, lane_ix] for c in signed)
-        acc = curve.add(acc, sel)
+        idx = planes[:, s].long() + neg_t[:, s].long() * (n_table + 1)
+        acc = curve.add(acc, tuple(c[idx, lane_ix] for c in signed))
+    return acc
 
+
+def _accumulate_g1(curve: TCurve, pts: AffPoint, planes: torch.Tensor, neg_t: torch.Tensor,
+                   window: int) -> JacPoint:
+    """_accumulate_steps for G1 in chunks of steps: one K6 launch builds a
+    chunk's tables, one K7 launch adds them into the partials.  The same
+    partials, bit for bit."""
+    n_digits, steps, lanes = planes.shape
+    n_table = 1 << (window - 1)
+    chunk = chunk_steps(lanes, n_table)
+    acc = curve.infinity((n_digits, lanes), planes.device)
+    for s0 in range(0, steps, chunk):
+        table = g1_window_table((pts[0][s0:s0 + chunk], pts[1][s0:s0 + chunk]), n_table)
+        acc = g1_window_accumulate(acc, table, planes, neg_t, s0)
+    return acc
+
+
+def _windowed(curve: TCurve, bases: AffPoint, mags: torch.Tensor, negs: torch.Tensor, lanes: int, window: int,
+              accumulate) -> JacPoint:
+    n_digits = mags.shape[0]
+    n = bases[0].shape[0]
+    device = bases[0].device
+    lanes = min(lanes, n)
+    pad = (-n) % lanes
+    elem_pad = [0, 0] * len(curve.elem)
+    if pad:
+        bases = tuple(F.pad(c, elem_pad + [0, pad]) for c in bases)
+        mags = F.pad(mags, [0, pad])
+        negs = F.pad(negs, [0, pad])
+    steps = (n + pad) // lanes
+    pts = tuple(c.reshape((steps, lanes) + curve.elem) for c in bases)
+    acc = accumulate(curve, pts, mags.reshape(n_digits, steps, lanes), negs.reshape(n_digits, steps, lanes), window)
     per_lane = horner_fold_planes(curve, curve.infinity((lanes,), device), acc, window)
     return tree_reduce(curve, per_lane, lanes)
+
+
+def msm_windowed_signed(
+    curve: TCurve,
+    bases: AffPoint,
+    mags: torch.Tensor,
+    negs: torch.Tensor,
+    lanes: int = 64,
+    window: int = 4,
+) -> JacPoint:
+    """sum_i k_i * P_i for affine bases ((0, 0) = infinity) and signed
+    digit planes (mags, negs) of shape (n_digits, n): one Jacobian point.
+    G1 accumulates by K6/K7 a chunk of steps, G2 a step at a time.  The
+    lanes fold by the pairwise tree, for G1 and G2 alike (the reference's
+    fold_lanes_per_curve takes the tree whenever its point kernels are in
+    use)."""
+    accumulate = _accumulate_steps if curve.g2 else _accumulate_g1
+    return _windowed(curve, bases, mags, negs, lanes, window, accumulate)
