@@ -9,21 +9,24 @@ and prints no result line):
 1. Build: every kernel source under zkp2p_tpu_torch/csrc/ with nvcc for
    sm_90a, one process per source, all started together, timed as
    set-up.
-2. Kernels against plain: each of the ten launchers (K1 mont_mul; K2
-   add, K3 add_mixed, K4 double for G1 and G2; K5 mont_pow; K6 G1 window
-   table, K7 G1 window accumulate) on random canonical inputs with the
-   special cases (zero, one, p-1; P+P, P+(-P), infinity, the (0, 0)
-   affine sentinel; for K7 also acc equal to its entry and to its
-   negation, and e = 16 digits) at batches 1, 257 and one large batch,
-   held bitwise against its plain torch version on the card; a sample
-   against Python ints and the host curve.  Then each at the main path's
-   shape (K5 also at 2^16; K6/K7 at each chunk shape the path gives
-   them: the h MSM's 64 planes x 4,096 lanes x 170 steps, the narrow
-   classes' 3 x 16,384 x 42 and the wide classes' 64 x 2,088 x 17, with
-   the special lanes): timed, its plain version timed on the same
-   inputs, and the two outputs held bitwise.  The whole G1 MSM through
-   K6/K7, at 2^16 points with 64 digit planes and at 2^18 with the
-   narrow class's 3 (16,384 lanes), is held bitwise against the step
+2. Kernels against plain: each of the twelve launchers (K1 mont_mul; K2
+   add, K3 add_mixed, K4 double for G1 and G2; K5 mont_pow; K6/K8 the G1
+   and G2 window tables, K7/K9 the G1 and G2 window accumulates) on
+   random canonical inputs with the special cases (zero, one, p-1; P+P,
+   P+(-P), infinity, the (0, 0) affine sentinel; for K7/K9 also acc
+   equal to its entry and to its negation, and e = 16 digits) at batches
+   1, 257 and one large batch, held bitwise against its plain torch
+   version on the card; a sample against Python ints and the host curve.
+   Then each at the main path's shape (K5 also at 2^16; K6/K7 at each
+   chunk shape the path gives them: the h MSM's 64 planes x 4,096 lanes
+   x 170 steps, the narrow classes' 3 x 16,384 x 42 and the wide
+   classes' 64 x 2,088 x 17; K8/K9 at the b2 MSM's narrow chunk 3 x 4,096
+   x 85 and wide chunk 64 x 572 x 17, with the special lanes): timed, its
+   plain version timed on the same inputs, and the two outputs held
+   bitwise.  The whole G1 MSM through K6/K7, at 2^16 points with 64 digit
+   planes and at 2^18 with the narrow class's 3 (16,384 lanes), and the
+   whole G2 MSM through K8/K9, at 2^16 points with 64 planes (2,048
+   lanes) and with 3 (4,096 lanes), are held bitwise against the step
    loop over K2/K3 and against host discrete logs.
 3. Test vector: prove_gpu on zkp2p_tpu_torch/data/port_vector.npz gives
    the committed proof byte for byte, with the default (Jacobian) MSM
@@ -37,27 +40,29 @@ and prints no result line):
    Then the h MSM at real size (2^23 bases, 64 planes) once each way in
    turns (step loop, K6/K7, K6/K7, step loop), the four results held
    bitwise equal, and one more through K6/K7 split into its accumulate,
-   Horner fold and lane tree; then one proof with the G1 MSMs
-   accumulated by the step loop and one by K6/K7, the same r and s,
-   their proofs held byte for byte equal.
-5. Real size, affine path: the same key and witness, one warm-up and one
-   timed proof with msm_affine=True, msm_h="bucket" (the batch-affine
-   accumulate and the w=16 sorted-prefix bucket h MSM), its five MSMs
-   checked the same way.
+   Horner fold and lane tree; the b2 MSM at real size (its narrow and
+   wide classes and their join) the same way (step loop, K8/K9, K8/K9,
+   step loop); then one proof with the G1 and G2 MSMs accumulated by the
+   step loop and one by K6-K9, the same r and s, their proofs held byte
+   for byte equal.
+5. Real size, affine path: the same key and witness, one timed proof
+   with msm_affine=True, msm_h="bucket" (the batch-affine accumulate and
+   the w=16 sorted-prefix bucket h MSM; no warm-up: every kernel and
+   allocation size ran before it), its five MSMs checked the same way.
 
 The launch counts are reset just before the first timed proof of each
 path and read just after it; every kernel of a path must have launched in
-its run (on the Jacobian path K1, K2, K4, K6, K7 and G2's K3, and G1's K3
-not at all; on the affine path K1-K5).
+its run (on the Jacobian path K1, K2, K4 and K6-K9, and K3 not at all; on
+the affine path K1-K5).
 
 Before the last line it prints the card's name and power limit, a
 profile of one more Jacobian proof, run after every timed proof (the
 device's busy share and the ops with the most device time, from
 torch.profiler), one JSON line with the
-ten kernels (checks, launches on each path, times and bounds), one each
+twelve kernels (checks, launches on each path, times and bounds), one each
 with the two paths' per-stage times and peak device memory, and one
-each with the same-run comparisons of the h MSM and of the proof.  The last line is
-{"ok": true, "device": {...}}.
+each with the same-run comparisons of the h MSM, the b2 MSM and the
+proof.  The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -117,23 +122,30 @@ REPLACES = {
     "g2_double": "zkp2p_tpu/ops/pallas_curve.py:380",
     "g1_window_table": "zkp2p_tpu/ops/pallas_curve.py:358",
     "g1_window_accumulate": "zkp2p_tpu/ops/pallas_curve.py:351",
+    "g2_window_table": "zkp2p_tpu/ops/pallas_curve.py:375",
+    "g2_window_accumulate": "zkp2p_tpu/ops/pallas_curve.py:369",
 }
+WINDOW_KERNELS = ("g1_window_table", "g1_window_accumulate", "g2_window_table", "g2_window_accumulate")
 SOURCE = {"mont_mul": "mont_mul.cu", "mont_pow": "mont_pow.cu",
-          "g1_window_table": "msm_window.cu", "g1_window_accumulate": "msm_window.cu"}  # the rest: point_ops.cu
+          **dict.fromkeys(WINDOW_KERNELS, "msm_window.cu")}  # the rest: point_ops.cu
 # the launchers each real-size path must have launched, and must not have
-_POINT_KERNELS = ("g1_add", "g1_double", "g2_add", "g2_add_mixed", "g2_double")
+_POINT_KERNELS = ("g1_add", "g1_double", "g2_add", "g2_double")
 PATH_KERNELS = {
-    "jacobian": ("mont_mul",) + _POINT_KERNELS + ("g1_window_table", "g1_window_accumulate"),
-    "affine": ("mont_mul",) + _POINT_KERNELS + ("g1_add_mixed", "mont_pow"),
+    "jacobian": ("mont_mul",) + _POINT_KERNELS + WINDOW_KERNELS,
+    "affine": ("mont_mul",) + _POINT_KERNELS + ("g1_add_mixed", "g2_add_mixed", "mont_pow"),
 }
-NOT_ON_JACOBIAN = ("g1_add_mixed",)  # K6 builds the windowed path's G1 tables
-# K6/K7: (lanes, digit planes, steps) held bitwise against plain, before
+# K6/K8 build the windowed path's tables
+NOT_ON_JACOBIAN = ("g1_add_mixed", "g2_add_mixed")
+# K6-K9: (lanes, digit planes, steps) held bitwise against plain, before
 # the path's chunk shapes
 WINDOW_BATCHES = ((1, 64, 3), (257, 64, 3), (257, 3, 3))
 N_TABLE = 8  # window 4
-# the whole G1 MSM through K6/K7 against the step loop: (name, log2 of
-# the points, digit planes, lane cap as the prover sets it)
-WINDOW_MSMS = (("64 planes", 16, 64, 4096), ("3 planes", 18, 3, 16384))
+# the whole MSM through K6/K7 (G1) and K8/K9 (G2) against the step loop:
+# (name, log2 of the points, digit planes, lane cap as the prover sets it)
+WINDOW_MSMS = {
+    False: (("64 planes", 16, 64, 4096), ("3 planes", 18, 3, 16384)),
+    True: (("64 planes", 16, 64, 2048), ("3 planes", 16, 3, 4096)),
+}
 
 
 def log(msg: str) -> None:
@@ -429,22 +441,25 @@ def digit_planes(torch, gen, n_digits, steps, lanes, device):
     return mags.permute(2, 0, 1), negs.permute(2, 0, 1)
 
 
-def window_case(torch, gen, steps, lanes, n_digits, device):
-    """K6/K7 inputs: random bases (steps, lanes) and partials, digit-minor
-    digit planes of steps + 2 steps read from step 1, and, from 5 lanes
-    up, the special lanes: a (0, 0) base (lane 2), acc equal to the entry
-    its digit picks (lane 0, the doubling) and to that entry negated
-    (lane 1, infinity), acc at infinity (lane 3), e = 16 digits (lane 4)."""
+def window_case(torch, gen, g2, steps, lanes, n_digits, device):
+    """K6/K7 (G1) or K8/K9 (G2) inputs: random bases (steps, lanes) and
+    partials, digit-minor digit planes of steps + 2 steps read from step
+    1, and, from 5 lanes up, the special lanes: a (0, 0) base (lane 2),
+    acc equal to the entry its digit picks (lane 0, the doubling) and to
+    that entry negated (lane 1, infinity), acc at infinity (lane 3),
+    e = 16 digits (lane 4)."""
     from zkp2p_tpu_torch.field.tfield import FQ
     from zkp2p_tpu_torch.ops import cuda_msm_window
 
-    bases = [rand_canon(torch, gen, (steps, lanes), device) for _ in range(2)]
+    elem = (2,) if g2 else ()
+    bases = [rand_canon(torch, gen, (steps, lanes) + elem, device) for _ in range(2)]
     mags, negs = digit_planes(torch, gen, n_digits, steps + 2, lanes, device)
-    acc = [rand_canon(torch, gen, (n_digits, lanes), device) for _ in range(3)]
+    acc = [rand_canon(torch, gen, (n_digits, lanes) + elem, device) for _ in range(3)]
     s0 = 1
     if lanes >= 5 and n_digits >= 2:
         bases[0][:, 2] = bases[1][:, 2] = 0
-        table = cuda_msm_window.g1_window_table_plain(tuple(b[:1] for b in bases), N_TABLE)
+        table_plain = cuda_msm_window.g2_window_table_plain if g2 else cuda_msm_window.g1_window_table_plain
+        table = table_plain(tuple(b[:1] for b in bases), N_TABLE)
         mags[0, s0, 0], negs[0, s0, 0] = 3, False
         mags[1, s0, 1], negs[1, s0, 1] = 5, False
         for c in range(3):
@@ -455,104 +470,118 @@ def window_case(torch, gen, steps, lanes, n_digits, device):
     return tuple(bases), tuple(acc), mags, negs, s0
 
 
-def check_window_kernels(torch, shapes, peak_muls_per_s, device):
-    """K6 and K7 against their plain versions (bitwise) at WINDOW_BATCHES
-    and at each chunk shape the main path gives them (`shapes`: name ->
-    (digit planes, steps, lanes); "h" is the row's own), where each and
-    its plain version are timed on the same inputs."""
+def check_window_kernels(torch, g2, shapes, peak_muls_per_s, device):
+    """K6 and K7 (G1), or K8 and K9 (G2), against their plain versions
+    (bitwise) at WINDOW_BATCHES and at each chunk shape the main path
+    gives them (`shapes`: name -> (digit planes, steps, lanes); the first
+    is the row's own, the rest go under at_shapes), where each and its
+    plain version are timed on the same inputs."""
     from zkp2p_tpu_torch.ops import cuda_msm_window as W
 
-    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    gen = torch.Generator(device=device).manual_seed(SEED + (17 if g2 else 7))
+    g = "g2" if g2 else "g1"
+    name_t, name_a = f"{g}_window_table", f"{g}_window_accumulate"
+    table_of, accumulate = getattr(W, name_t), getattr(W, name_a)
+    table_plain_of, accumulate_plain = getattr(W, name_t + "_plain"), getattr(W, name_a + "_plain")
+    ks = "K8/K9" if g2 else "K6/K7"
 
     def table_plain(bases):
         # a step at a time in chunks of steps (bounds the int64 temporaries)
-        return chunked(torch, lambda x, y: W.g1_window_table_plain((x, y), N_TABLE), bases, 16)
+        return chunked(torch, lambda x, y: table_plain_of((x, y), N_TABLE), bases, 16 // (1 + g2))
 
     def check(steps, lanes, n_digits, timed=False):
-        bases, acc, mags, negs, s0 = window_case(torch, gen, steps, lanes, n_digits, device)
+        bases, acc, mags, negs, s0 = window_case(torch, gen, g2, steps, lanes, n_digits, device)
         times = {}
         if timed:
-            times["table"], table = cuda_ms(torch, lambda: W.g1_window_table(bases, N_TABLE), 5)
+            times["table"], table = cuda_ms(torch, lambda: table_of(bases, N_TABLE), 5)
             times["table_plain"], want = cuda_ms(torch, lambda: table_plain(bases), 1, warmup=False)
         else:
-            table, want = W.g1_window_table(bases, N_TABLE), table_plain(bases)
-        err6 = max_abs_err(torch, table, want)
-        if err6:
-            raise AssertionError(f"g1_window_table ({steps} x {lanes}) differs from its plain version")
+            table, want = table_of(bases, N_TABLE), table_plain(bases)
+        err_t = max_abs_err(torch, table, want)
+        if err_t:
+            raise AssertionError(f"{name_t} ({steps} x {lanes}) differs from its plain version")
         if timed:
-            times["acc"], got = cuda_ms(torch, lambda: W.g1_window_accumulate(acc, table, mags, negs, s0), 3)
+            times["acc"], got = cuda_ms(torch, lambda: accumulate(acc, table, mags, negs, s0), 3)
             times["acc_plain"], want = cuda_ms(
-                torch, lambda: W.g1_window_accumulate_plain(acc, table, mags, negs, s0), 1, warmup=False)
+                torch, lambda: accumulate_plain(acc, table, mags, negs, s0), 1, warmup=False)
         else:
-            got = W.g1_window_accumulate(acc, table, mags, negs, s0)
-            want = W.g1_window_accumulate_plain(acc, table, mags, negs, s0)
+            got = accumulate(acc, table, mags, negs, s0)
+            want = accumulate_plain(acc, table, mags, negs, s0)
         # the same digits laid out contiguously
-        got_c = W.g1_window_accumulate(acc, table, mags.contiguous(), negs.contiguous(), s0)
-        err7 = max(max_abs_err(torch, got, want), max_abs_err(torch, got_c, want))
-        if err7:
-            raise AssertionError(f"g1_window_accumulate ({n_digits} x {lanes}, {steps} steps) differs from its plain version")
-        return times, (err6, err7), mags[:, s0:s0 + steps]
+        got_c = accumulate(acc, table, mags.contiguous(), negs.contiguous(), s0)
+        err_a = max(max_abs_err(torch, got, want), max_abs_err(torch, got_c, want))
+        if err_a:
+            raise AssertionError(f"{name_a} ({n_digits} x {lanes}, {steps} steps) differs from its plain version")
+        return times, (err_t, err_a), mags[:, s0:s0 + steps]
 
     for steps, n, n_digits in WINDOW_BATCHES:
         check(steps, n, n_digits)
-    log(f"K6/K7: bitwise equal to plain at {WINDOW_BATCHES} (lanes, planes, steps), special lanes included")
+    log(f"{ks}: bitwise equal to plain at {WINDOW_BATCHES} (lanes, planes, steps), special lanes included")
+
+    fq = 3 if g2 else 1  # Fq products an Fq2 product
+    elem_bytes = 64 * (2 if g2 else 1)
 
     def bounds(steps, lanes, mags):
         n = steps * lanes
-        table_bytes = 3 * N_TABLE * 64 * n
-        t6 = bound(n, (N_TABLE - 1) * MONTS["add_mixed"], 2 * 64 + 3 * N_TABLE * 64, peak_muls_per_s)
-        # K7 adds only where the digit is nonzero
+        table_bytes = 3 * N_TABLE * elem_bytes * n
+        b_t = bound(n, (N_TABLE - 1) * MONTS["add_mixed"] * fq, (2 + 3 * N_TABLE) * elem_bytes, peak_muls_per_s)
+        # the accumulate adds only where the digit is nonzero
         adds = int(torch.count_nonzero(mags))
         n_digits = mags.shape[0]
-        nbytes = 6 * 64 * n_digits * lanes + table_bytes + 5 * n_digits * n
+        nbytes = 6 * elem_bytes * n_digits * lanes + table_bytes + 5 * n_digits * n
         t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = adds * MONTS["add"] * MULS_PER_MONT / peak_muls_per_s
-        t7 = dict(bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes > t_ops else "operations")
-        return t6, t7, adds
+        t_ops = adds * MONTS["add"] * fq * MULS_PER_MONT / peak_muls_per_s
+        b_a = dict(bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes > t_ops else "operations")
+        return b_t, b_a, adds
 
-    rows = {"g1_window_table": {}, "g1_window_accumulate": {}}
-    for name, (n_digits, steps, lanes) in shapes.items():
-        times, (err6, err7), mags = check(steps, lanes, n_digits, timed=True)
-        b6, b7, adds = bounds(steps, lanes, mags)
+    rows = {name_t: {}, name_a: {}}
+    for k, (name, (n_digits, steps, lanes)) in enumerate(shapes.items()):
+        times, (err_t, err_a), mags = check(steps, lanes, n_digits, timed=True)
+        b_t, b_a, adds = bounds(steps, lanes, mags)
         at = {
-            "g1_window_table": dict(shape=[steps, N_TABLE, lanes], max_abs_err=err6, ms=times["table"],
-                                    plain_ms=times["table_plain"], **b6),
-            "g1_window_accumulate": dict(shape=[n_digits, steps, N_TABLE, lanes], max_abs_err=err7, ms=times["acc"],
-                                         plain_ms=times["acc_plain"], adds=adds, **b7),
+            name_t: dict(shape=[steps, N_TABLE, lanes], max_abs_err=err_t, ms=times["table"],
+                         plain_ms=times["table_plain"], **b_t),
+            name_a: dict(shape=[n_digits, steps, N_TABLE, lanes], max_abs_err=err_a, ms=times["acc"],
+                         plain_ms=times["acc_plain"], adds=adds, ns_per_add=times["acc"] * 1e6 / max(adds, 1), **b_a),
         }
         for kernel, row in at.items():
-            if name == "h":
-                rows[kernel].update(row)
+            if k == 0:
+                rows[kernel].update(row, chunk=name)
             else:
                 rows[kernel].setdefault("at_shapes", {})[name] = row
-        log(f"K6/K7 at the {name} chunk ({n_digits} planes x {lanes} lanes x {steps} steps): bitwise equal to plain; "
-            f"K6 {times['table']:.4f} ms (plain {times['table_plain']:.1f}, bound {b6['bound_ms']:.4f}), "
-            f"K7 {times['acc']:.4f} ms (plain {times['acc_plain']:.1f}, bound {b7['bound_ms']:.4f})")
+        log(f"{ks} at the {name} chunk ({n_digits} planes x {lanes} lanes x {steps} steps): bitwise equal to plain; "
+            f"table {times['table']:.4f} ms (plain {times['table_plain']:.1f}, bound {b_t['bound_ms']:.4f}), "
+            f"accumulate {times['acc']:.4f} ms (plain {times['acc_plain']:.1f}, bound {b_a['bound_ms']:.4f}, "
+            f"{at[name_a]['ns_per_add']:.3f} ns an add)")
     for row in rows.values():
         row["check"] = (f"bitwise equal to plain at (lanes, planes, steps) {list(WINDOW_BATCHES)} and at the "
-                        f"path's chunk shapes (shape, at_shapes), special lanes included; the G1 MSM through it "
-                        f"equal to the step loop")
+                        f"path's chunk shapes (shape, at_shapes), special lanes included; the {g.upper()} MSM "
+                        f"through it equal to the step loop")
     return rows
 
 
-def check_window_msm(torch, device):
-    """The G1 MSM through K6/K7 against the step loop over K2/K3 (bitwise)
-    and against host discrete logs, at each of WINDOW_MSMS: 64 digit
+def check_window_msm(torch, g2, device):
+    """The G1 MSM through K6/K7, or the G2 MSM through K8/K9, against the
+    step loop over K2/K3 (bitwise) and against host discrete logs (bases
+    are multiples of a host table), at each of WINDOW_MSMS[g2]: 64 digit
     planes of full scalars, and the narrow class's 3 at its lane width."""
     from zkp2p_tpu_torch.curve import host
-    from zkp2p_tpu_torch.curve.tcurve import G1C, g1_jac_to_host, g1_to_affine_arrays
+    from zkp2p_tpu_torch.curve.tcurve import G1C, G2C, g1_jac_to_host, g1_to_affine_arrays, g2_jac_to_host, g2_to_affine_arrays
     from zkp2p_tpu_torch.field.bn254 import R
     from zkp2p_tpu_torch.ops import msm
 
-    gen = torch.Generator(device=device).manual_seed(SEED + 8)
-    pyr = random.Random(SEED + 9)
-    rows = 64
+    gen = torch.Generator(device=device).manual_seed(SEED + (18 if g2 else 8))
+    pyr = random.Random(SEED + (19 if g2 else 9))
+    curve, to_arr, to_host, gmul, G = ((G2C, g2_to_affine_arrays, g2_jac_to_host, host.g2_mul, host.G2_GENERATOR) if g2
+                                       else (G1C, g1_to_affine_arrays, g1_jac_to_host, host.g1_mul, host.G1_GENERATOR))
+    ks = "K8/K9" if g2 else "K6/K7"
+    rows = 16 if g2 else 64  # host G2 multiplications are slow
     t = [pyr.randrange(1, R) for _ in range(rows)]
-    T1 = g1_to_affine_arrays([host.g1_mul(host.G1_GENERATOR, v) for v in t] + [None], device)
-    for name, log_n, planes, cap in WINDOW_MSMS:
+    T = to_arr([gmul(G, v) for v in t] + [None], device)
+    for name, log_n, planes, cap in WINDOW_MSMS[g2]:
         n = 1 << log_n
         idx = torch.randint(0, rows + 1, (n,), generator=gen, device=device)  # row `rows` is the (0, 0) hole
-        bases = tuple(c[idx] for c in T1)
+        bases = tuple(c[idx] for c in T)
         scalars = rand_canon(torch, gen, (n,), device)
         if planes < 64:  # below 2^(4 planes - 1), as the narrow class's width guard keeps them
             scalars = torch.zeros_like(scalars)
@@ -561,13 +590,15 @@ def check_window_msm(torch, device):
         mags, negs = msm.signed_digit_planes_from_limbs(scalars, 4)
         mags, negs = mags[-planes:], negs[-planes:]
         lanes = msm.default_lanes(n, cap=cap)
-        got = msm.msm_windowed_signed(G1C, bases, mags, negs, lanes=lanes, window=4)
-        want = msm._windowed(G1C, bases, mags, negs, lanes, 4, msm._accumulate_steps)
+        got = msm.msm_windowed_signed(curve, bases, mags, negs, lanes=lanes, window=4)
+        want = msm._windowed(curve, bases, mags, negs, lanes, 4, msm._accumulate_steps)
         if max_abs_err(torch, got, want):
-            raise AssertionError(f"the G1 MSM through K6/K7 ({name}) differs from the step loop")
-        if g1_jac_to_host(got) != [host.g1_mul(host.G1_GENERATOR, expected_msm(torch, scalars, idx, t, rows))]:
-            raise AssertionError(f"the G1 MSM through K6/K7 ({name}) differs from its discrete-log value")
-        log(f"G1 MSM at 2^{log_n} ({name}, {lanes} lanes): K6/K7 bitwise equal to the step loop and to the host")
+            raise AssertionError(f"the {'G2' if g2 else 'G1'} MSM through {ks} ({name}) differs from the step loop")
+        if to_host(got) != [gmul(G, expected_msm(torch, scalars, idx, t, rows))]:
+            raise AssertionError(f"the {'G2' if g2 else 'G1'} MSM through {ks} ({name}) differs from its "
+                                 f"discrete-log value")
+        log(f"{'G2' if g2 else 'G1'} MSM at 2^{log_n} ({name}, {lanes} lanes): {ks} bitwise equal to the step loop "
+            f"and to the host")
 
 
 def compare_msm_h(torch, key, device):
@@ -596,7 +627,7 @@ def compare_msm_h(torch, key, device):
     steps, planes = n // lanes, mags.shape[0]
     pts = tuple(c.reshape(steps, lanes, 16) for c in key.h_bases)
     split = {}
-    split["accumulate"], acc = wall_s(torch, lambda: msm._accumulate_g1(
+    split["accumulate"], acc = wall_s(torch, lambda: msm._accumulate_chunked(
         G1C, pts, mags.reshape(planes, steps, lanes), negs.reshape(planes, steps, lanes), 4))
     split["horner_fold"], per_lane = wall_s(
         torch, lambda: msm.horner_fold_planes(G1C, G1C.infinity((lanes,), device), acc, 4))
@@ -609,11 +640,56 @@ def compare_msm_h(torch, key, device):
             "loop_s": secs["loop"], "fused_s": secs["fused"], "fused_split_s": split, "bitwise_equal": True}
 
 
+def compare_msm_b2(torch, key, device):
+    """The real-size b2 MSM (the key's G2 bases over the b query's narrow
+    and wide classes, random scalars of each class's width) as the prover
+    runs it: the narrow MSM (3 planes), the wide MSM (64) and their join,
+    once each way in turns: the step loop over K2/K3, K8/K9, K8/K9, the
+    step loop; all four held bitwise equal.  Seconds of each, host clock
+    around work that ends in a synchronise."""
+    import contextlib
+    from unittest import mock
+
+    from zkp2p_tpu_torch.curve.tcurve import G2C
+    from zkp2p_tpu_torch.ops import msm
+    from zkp2p_tpu_torch.prover import groth16_gpu as gp
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    parts = []
+    for sel, planes, fn in ((key.b_nsel, 3, gp._msm_g2_narrow), (key.b_wsel, 64, gp._msm_g2)):
+        scalars = rand_canon(torch, gen, (sel.numel(),), device)
+        if planes < 64:  # the narrow class: below 2^11
+            scalars = torch.zeros_like(scalars)
+            scalars[:, 0] = torch.randint(0, 1 << 11, (sel.numel(),), generator=gen, device=device,
+                                          dtype=torch.int32)
+        mags, negs = msm.signed_digit_planes_from_limbs(scalars, 4)
+        parts.append((fn, tuple(c.index_select(0, sel) for c in key.b2_bases), (mags[-planes:], negs[-planes:])))
+
+    def b2():
+        (fn_n, b_n, p_n), (fn_w, b_w, p_w) = parts
+        return G2C.add(fn_n(b_n, p_n, False), fn_w(b_w, p_w, False))
+
+    secs = {"loop": [], "fused": []}
+    outs = []
+    for way in ("loop", "fused", "fused", "loop"):
+        loop = mock.patch.object(msm, "_accumulate_chunked", msm._accumulate_steps)
+        with loop if way == "loop" else contextlib.nullcontext():
+            sec, out = wall_s(torch, b2)
+        secs[way].append(sec)
+        outs.append(out)
+    if any(max_abs_err(torch, o, outs[0]) for o in outs[1:]):
+        raise AssertionError("the real-size b2 MSM through K8/K9 differs from the step loop")
+    log(f"msm_b2 at {key.b_nsel.numel()} narrow + {key.b_wsel.numel()} wide bases: step loop {secs['loop']} s, "
+        f"K8/K9 {secs['fused']} s; bitwise equal")
+    return {"narrow": key.b_nsel.numel(), "wide": key.b_wsel.numel(), "order": ["loop", "fused", "fused", "loop"],
+            "loop_s": secs["loop"], "fused_s": secs["fused"], "bitwise_equal": True}
+
+
 def compare_proofs(torch, key, witness, rs, device):
-    """One real-size Jacobian proof with the G1 MSMs accumulated by the
-    step loop over K2/K3 (the accumulate before K6/K7), then one through
-    K6/K7, with the same r and s: the stage seconds of each; the two
-    proofs held byte for byte equal."""
+    """One real-size Jacobian proof with the G1 and G2 MSMs accumulated by
+    the step loop over K2/K3 (the accumulate before K6-K9), then one
+    through K6-K9, with the same r and s: the stage seconds of each; the
+    two proofs held byte for byte equal."""
     import contextlib
     from unittest import mock
 
@@ -625,16 +701,16 @@ def compare_proofs(torch, key, witness, rs, device):
     out, proofs = {}, []
     for way in ("loop", "fused"):
         stages = {}
-        loop = mock.patch.object(msm, "_accumulate_g1", msm._accumulate_steps)
+        loop = mock.patch.object(msm, "_accumulate_chunked", msm._accumulate_steps)
         with loop if way == "loop" else contextlib.nullcontext():
             stages["s_total"], proof = wall_s(
                 torch, lambda: prove_gpu(key, witness, r=r, s=s, device=device, stages=stages))
         proofs.append(proof_bytes(proof))
         out[way] = {k[2:]: v for k, v in stages.items() if k.startswith("s_")}
     if proofs[0] != proofs[1]:
-        raise AssertionError("the real-size proof through K6/K7 differs from the one through the step loop")
+        raise AssertionError("the real-size proof through K6-K9 differs from the one through the step loop")
     log(f"real-size proof, same r and s: step loop {out['loop']['total']:.2f} s, "
-        f"K6/K7 {out['fused']['total']:.2f} s; equal bytes")
+        f"K6-K9 {out['fused']['total']:.2f} s; equal bytes")
     return {"order": ["loop", "fused"], "stage_s": out, "proof_bytes_equal": True}
 
 
@@ -836,8 +912,9 @@ def check_h_evals(torch, device):
 # -------------------------------------------------------------------- main
 
 
-def real_size_proofs(torch, key, witness, ix, tables, rs, device, timed, **arms):
-    """One warm-up and `timed` proofs of the real-size key under `arms`.
+def real_size_proofs(torch, key, witness, ix, tables, rs, device, timed, warmup=True, **arms):
+    """One warm-up (if `warmup`) and `timed` proofs of the real-size key
+    under `arms`.
     The launch counts are reset just before the first timed proof and
     read just after it, whose five MSMs are checked against their
     discrete-log values.  Returns (stage seconds of each timed proof,
@@ -849,10 +926,11 @@ def real_size_proofs(torch, key, witness, ix, tables, rs, device, timed, **arms)
         return prove_gpu(key, witness, r=rs.randrange(1, 1 << 250), s=rs.randrange(1, 1 << 250), device=device,
                          stages=stages, **arms)
 
-    t0 = time.perf_counter()
-    prove()
-    torch.cuda.synchronize()
-    log(f"warm-up proof {arms}: {time.perf_counter() - t0:.1f} s")
+    if warmup:
+        t0 = time.perf_counter()
+        prove()
+        torch.cuda.synchronize()
+        log(f"warm-up proof {arms}: {time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
     runs = []
     for i in range(timed):
@@ -894,7 +972,9 @@ def run(torch, device, peak_muls, sm_clock_hz):
     # the main path's shapes: NTT stage products; G1's K2 and K4 in the h
     # MSM's Horner fold (K6/K7 took K2's accumulate); G1's K3 in the
     # affine arm's narrow tables (lanes capped at 16,384, as the prover
-    # sets them; K6 builds the windowed path's); the b2 narrow MSM's
+    # sets them; K6 builds the windowed path's); G2's K2 and K4 in the b2
+    # narrow MSM's Horner fold (K8/K9 took the accumulate), G2's K3 in the
+    # affine arm's b2 narrow tables
     V = VENMO
     h_lanes = default_lanes(1 << V["log_m"])
     narrow_lanes = default_lanes(V["c_narrow"] + 1, cap=16384)
@@ -902,25 +982,33 @@ def run(torch, device, peak_muls, sm_clock_hz):
     geometry = {
         "mont_mul": 1 << (V["log_m"] - 1),
         "g1_add": h_lanes, "g1_add_mixed": narrow_lanes, "g1_double": h_lanes,
-        "g2_add": 3 * b2_lanes, "g2_add_mixed": b2_lanes, "g2_double": b2_lanes,
+        "g2_add": b2_lanes, "g2_add_mixed": b2_lanes, "g2_double": b2_lanes,
     }
     # K6/K7's chunks (digit planes, steps, lanes): the h MSM's; the narrow
     # classes'; the wide classes' (a's, the widest: one chunk of all its
-    # steps)
+    # steps).  K8/K9's: the b2 narrow MSM's, and its wide MSM's (one chunk)
     wide_n = V["c_wide"] + V["n_public"]
     wide_lanes = default_lanes(wide_n)
+    b2w_lanes = default_lanes(V["b_wide"], cap=2048)
     window_shapes = {
-        "h": (64, chunk_steps(h_lanes, N_TABLE), h_lanes),
-        "narrow": (3, chunk_steps(narrow_lanes, N_TABLE), narrow_lanes),
-        "wide": (64, min(chunk_steps(wide_lanes, N_TABLE), -(-wide_n // wide_lanes)), wide_lanes),
+        False: {
+            "h": (64, chunk_steps(h_lanes, N_TABLE, 16), h_lanes),
+            "narrow": (3, chunk_steps(narrow_lanes, N_TABLE, 16), narrow_lanes),
+            "wide": (64, min(chunk_steps(wide_lanes, N_TABLE, 16), -(-wide_n // wide_lanes)), wide_lanes),
+        },
+        True: {
+            "b2 narrow": (3, chunk_steps(b2_lanes, N_TABLE, 32), b2_lanes),
+            "b2 wide": (64, min(chunk_steps(b2w_lanes, N_TABLE, 32), -(-V["b_wide"] // b2w_lanes)), b2w_lanes),
+        },
     }
 
     # phase 2
     t0 = time.perf_counter()
     rows = check_kernels(torch, geometry, peak_muls, device)
     rows["mont_pow"] = check_mont_pow(torch, peak_muls, sm_clock_hz, device)
-    rows.update(check_window_kernels(torch, window_shapes, peak_muls, device))
-    check_window_msm(torch, device)
+    for g2 in (False, True):
+        rows.update(check_window_kernels(torch, g2, window_shapes[g2], peak_muls, device))
+        check_window_msm(torch, g2, device)
     log(f"kernels against plain: {time.perf_counter() - t0:.1f} s")
 
     # phase 3
@@ -945,11 +1033,13 @@ def run(torch, device, peak_muls, sm_clock_hz):
     rs = random.Random(SEED + 5)
     runs, jac_launches, peak_gib = real_size_proofs(torch, key, witness, ix, tables, rs, device, JACOBIAN_TIMED)
     msm_h_same_run = compare_msm_h(torch, key, device)
+    msm_b2_same_run = compare_msm_b2(torch, key, device)
     proof_same_run = compare_proofs(torch, key, witness, rs, device)
 
-    # phase 5
+    # phase 5 (no warm-up proof: the Jacobian proofs and the test vector's
+    # affine proof ran every kernel and allocation size before it)
     aff_runs, aff_launches, aff_peak_gib = real_size_proofs(torch, key, witness, ix, tables, rs, device, 1,
-                                                            **AFFINE_ARMS)
+                                                            warmup=False, **AFFINE_ARMS)
     # last, so that no timed proof runs after the profiler
     profile = profile_proof(torch, lambda: prove_gpu(
         key, witness, r=rs.randrange(1, 1 << 250), s=rs.randrange(1, 1 << 250), device=device))
@@ -988,7 +1078,7 @@ def run(torch, device, peak_muls, sm_clock_hz):
     shape = {"shape": "venmo 1024/6400", "log_m": V["log_m"], "n_wires": V["n_wires"]}
     real = dict(shape, path="jacobian", build_s=build_s, key_setup_s=setup_s, **summary(runs, peak_gib))
     real_affine = dict(shape, path="affine", arms=AFFINE_ARMS, **summary(aff_runs, aff_peak_gib))
-    return kernels, real, real_affine, profile, msm_h_same_run, proof_same_run
+    return kernels, real, real_affine, profile, msm_h_same_run, msm_b2_same_run, proof_same_run
 
 
 def main() -> int:
@@ -1005,7 +1095,7 @@ def main() -> int:
     peak_muls = props.multi_processor_count * INT_MULS_PER_SM_CLK * sm_clock_hz
     log(f"{card}; {props.multi_processor_count} SMs, max SM clock {sm_clock_hz / 1e6:.0f} MHz")
     t0 = time.perf_counter()
-    kernels, real, real_affine, profile, msm_h_same_run, proof_same_run = run(
+    kernels, real, real_affine, profile, msm_h_same_run, msm_b2_same_run, proof_same_run = run(
         torch, torch.device("cuda", 0), peak_muls, sm_clock_hz)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     print(card)
@@ -1014,6 +1104,7 @@ def main() -> int:
     print(json.dumps({"real_size": real}))
     print(json.dumps({"real_size_affine": real_affine}))
     print(json.dumps({"msm_h_same_run": msm_h_same_run}))
+    print(json.dumps({"msm_b2_same_run": msm_b2_same_run}))
     print(json.dumps({"proof_same_run": proof_same_run}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

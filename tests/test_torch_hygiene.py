@@ -107,16 +107,21 @@ def test_wrappers_on_cpu_take_the_plain_path_and_count_nothing():
         assert all(torch.equal(x, y) for x, y in zip(C.add_mixed(p, q[:2]),
                                                       cuda_curve.point_op_plain("add_mixed", g2, *p, *q[:2])))
         assert all(torch.equal(x, y) for x, y in zip(C.double(p), cuda_curve.point_op_plain("double", g2, *p)))
-    bases = (_rand((2, 3), 30), _rand((2, 3), 31))
-    table = cuda_msm_window.g1_window_table(bases, 4)
-    assert all(torch.equal(x, y) for x, y in zip(table, cuda_msm_window.g1_window_table_plain(bases, 4)))
-    acc = tuple(_rand((2, 3), 40 + k) for k in range(3))
-    mags = torch.from_numpy(np.random.default_rng(5).integers(0, 5, size=(2, 4, 3)).astype(np.int32))
-    negs = mags % 2 == 1
-    got = cuda_msm_window.g1_window_accumulate(acc, table, mags, negs, 1)
-    want = cuda_msm_window.g1_window_accumulate_plain(acc, table, mags, negs, 1)
-    assert all(torch.equal(x, y) for x, y in zip(got, want))
-    assert set(cuda_build.LAUNCHES) == set(cuda_build.LAUNCHERS) and len(cuda_build.LAUNCHERS) == 10
+    W = cuda_msm_window
+    for elem, table_of, table_plain, accumulate, accumulate_plain in (
+        ((), W.g1_window_table, W.g1_window_table_plain, W.g1_window_accumulate, W.g1_window_accumulate_plain),
+        ((2,), W.g2_window_table, W.g2_window_table_plain, W.g2_window_accumulate, W.g2_window_accumulate_plain),
+    ):
+        bases = (_rand((2, 3) + elem, 30), _rand((2, 3) + elem, 31))
+        table = table_of(bases, 4)
+        assert all(torch.equal(x, y) for x, y in zip(table, table_plain(bases, 4)))
+        acc = tuple(_rand((2, 3) + elem, 40 + k) for k in range(3))
+        mags = torch.from_numpy(np.random.default_rng(5).integers(0, 5, size=(2, 4, 3)).astype(np.int32))
+        negs = mags % 2 == 1
+        got = accumulate(acc, table, mags, negs, 1)
+        want = accumulate_plain(acc, table, mags, negs, 1)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert set(cuda_build.LAUNCHES) == set(cuda_build.LAUNCHERS) and len(cuda_build.LAUNCHERS) == 12
     assert all(v == 0 for v in cuda_build.LAUNCHES.values())
 
 
@@ -128,13 +133,17 @@ def test_wrappers_refuse_other_devices():
         FQ.inv_fused(a)
     with pytest.raises(ValueError):
         tcurve.G1C.double((a, a, a))
-    with pytest.raises(ValueError):
-        cuda_msm_window.g1_window_table((a[None], a[None]), 8)
     planes = torch.zeros(2, 1, 3, dtype=torch.int32, device="meta")
-    table = torch.zeros(1, 8, 3, 16, dtype=torch.int32, device="meta")
-    acc = torch.zeros(2, 3, 16, dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError):
-        cuda_msm_window.g1_window_accumulate((acc,) * 3, (table,) * 3, planes, planes.bool(), 0)
+    W = cuda_msm_window
+    for elem, table_of, accumulate in (((), W.g1_window_table, W.g1_window_accumulate),
+                                       ((2,), W.g2_window_table, W.g2_window_accumulate)):
+        b = torch.zeros((1, 3) + elem + (16,), dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError):
+            table_of((b, b), 8)
+        table = torch.zeros((1, 8, 3) + elem + (16,), dtype=torch.int32, device="meta")
+        acc = torch.zeros((2, 3) + elem + (16,), dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError):
+            accumulate((acc,) * 3, (table,) * 3, planes, planes.bool(), 0)
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

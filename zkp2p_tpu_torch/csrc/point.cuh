@@ -1,7 +1,13 @@
 // BN254 Jacobian point math for one thread, written once over the field
 // type (Fe = Fq, Fe2 = Fq2) and shared by point_ops.cu (K2-K4) and
-// msm_window.cu (K6-K7), so that every kernel runs literally the same
+// msm_window.cu (K6-K9), so that every kernel runs literally the same
 // formulas and case selects and its output limbs equal the reference's.
+//
+// The addend q of pt_add / pt_add_core (and the affine addend of
+// pt_add_mixed_q) is read through its accessors qx(), qy(), qz() at each
+// use: Jac<E> returns the coordinates it holds, and a kernel may pass an
+// addend that reads them from device memory where the formula needs them
+// instead of holding 3 coordinates in registers across the add (K8, K9).
 //
 // The formulas (dbl-2009-l, add-2007-bl and its mixed form), the order of
 // the case selects (q at infinity -> p, p at infinity -> q, same x and same
@@ -57,6 +63,9 @@ __device__ __forceinline__ void f_store(int32_t* p, long long i, const Fe2& a) {
 template <class E>
 struct Jac {
   E x, y, z;
+  __device__ __forceinline__ E qx() const { return x; }
+  __device__ __forceinline__ E qy() const { return y; }
+  __device__ __forceinline__ E qz() const { return z; }
 };
 
 template <class E>
@@ -81,18 +90,18 @@ __device__ __forceinline__ Jac<E> pt_double(const Jac<E>& p, const FieldConst& c
   return r;
 }
 
-template <class E>
-__device__ __forceinline__ Jac<E> pt_add_core(const Jac<E>& p, const Jac<E>& q, const E& U1, const E& U2,
+template <class E, class Q>
+__device__ __forceinline__ Jac<E> pt_add_core(const Jac<E>& p, const Q& q, const E& U1, const E& U2,
                                               const E& S1, const E& S2, const E& Z1Z2, const FieldConst& c) {
   E H = f_sub(U2, U1, c);
   E Rr = f_sub(S2, S1, c);
   Jac<E> res;
   const bool same_x = f_is_zero(H);
   const bool same_y = f_is_zero(Rr);
-  if (f_is_zero(q.z)) {
+  if (f_is_zero(q.qz())) {
     res = p;
   } else if (f_is_zero(p.z)) {
-    res = q;
+    res = Jac<E>{q.qx(), q.qy(), q.qz()};
   } else if (same_x && same_y) {
     res = pt_double(p, c);
   } else if (same_x) {
@@ -112,15 +121,15 @@ __device__ __forceinline__ Jac<E> pt_add_core(const Jac<E>& p, const Jac<E>& q, 
   return res;
 }
 
-template <class E>
-__device__ __forceinline__ Jac<E> pt_add(const Jac<E>& p, const Jac<E>& q, const FieldConst& c) {
+template <class E, class Q>
+__device__ __forceinline__ Jac<E> pt_add(const Jac<E>& p, const Q& q, const FieldConst& c) {
   E Z1Z1 = f_mul(p.z, p.z, c);
-  E Z2Z2 = f_mul(q.z, q.z, c);
+  E Z2Z2 = f_mul(q.qz(), q.qz(), c);
   E U1 = f_mul(p.x, Z2Z2, c);
-  E U2 = f_mul(q.x, Z1Z1, c);
-  E S1 = f_mul(f_mul(p.y, q.z, c), Z2Z2, c);
-  E S2 = f_mul(f_mul(q.y, p.z, c), Z1Z1, c);
-  E Z1Z2 = f_mul(p.z, q.z, c);
+  E U2 = f_mul(q.qx(), Z1Z1, c);
+  E S1 = f_mul(f_mul(p.y, q.qz(), c), Z2Z2, c);
+  E S2 = f_mul(f_mul(q.qy(), p.z, c), Z1Z1, c);
+  E Z1Z2 = f_mul(p.z, q.qz(), c);
   return pt_add_core(p, q, U1, U2, S1, S2, Z1Z2, c);
 }
 
@@ -134,4 +143,15 @@ __device__ __forceinline__ Jac<E> pt_add_mixed(const Jac<E>& p, const E& x2, con
   q.y = y2;
   q.z = (f_is_zero(x2) && f_is_zero(y2)) ? f_zero(x2) : f_one(x2, c);
   return pt_add_core(p, q, p.x, U2, p.y, S2, p.z, c);
+}
+
+// pt_add_mixed for an affine addend read through its accessors: qx(),
+// qy() its coordinates and qz() the Z of from_affine, 0 for (0, 0) and
+// one otherwise.
+template <class E, class A>
+__device__ __forceinline__ Jac<E> pt_add_mixed_q(const Jac<E>& p, const A& a, const FieldConst& c) {
+  E Z1Z1 = f_mul(p.z, p.z, c);
+  E U2 = f_mul(a.qx(), Z1Z1, c);
+  E S2 = f_mul(a.qy(), f_mul(p.z, Z1Z1, c), c);
+  return pt_add_core(p, a, p.x, U2, p.y, S2, p.z, c);
 }

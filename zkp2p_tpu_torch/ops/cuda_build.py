@@ -64,6 +64,10 @@ SOURCES = {
         # acc x/y/z, table x/y/z, mags, negs, out x/y/z, n_digits, lanes,
         # lanes_per_block, n_table, steps, s0, plane strides (3 + 3), consts, stream
         "zk_g1_window_accumulate": (_VP,) * 11 + (_I32,) * 5 + (_I64,) * 7 + (_VP, _VP),
+        # the G2 table: as zk_g1_window_table
+        "zk_g2_window_table": (_VP,) * 5 + (_I64, _I32, _I32, _VP, _VP),
+        # as zk_g1_window_accumulate without lanes_per_block
+        "zk_g2_window_accumulate": (_VP,) * 11 + (_I32,) * 4 + (_I64,) * 7 + (_VP, _VP),
     },
 }
 

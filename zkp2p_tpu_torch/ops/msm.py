@@ -7,17 +7,22 @@ takes the table entry with Y negated.  The base axis is consumed `lanes`
 points per step, accumulating into an (n_digits, lanes) batch of
 Jacobian partials; a Horner fold (acc = 2^w * acc + plane) then reduces
 the planes and a pairwise tree the lanes.  The reference's `lax.scan`
-over lane steps is, for G1, two kernels a chunk of steps (K6 builds the
-chunk's tables, K7 accumulates them: ``ops.cuda_msm_window``) and, for
-G2, a Python loop over point-kernel launches (``_accumulate_steps``)."""
+over lane steps is, for G1 and G2 alike, two kernels a chunk of steps
+(``_accumulate_chunked``: K6/K8 build the chunk's tables, K7/K9
+accumulate them; ``ops.cuda_msm_window``).  The step loop over point
+kernels (``_accumulate_steps``) remains as the comparator that the tests
+and ``chip_smoke.py`` hold the chunked kernels against."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from ..curve.tcurve import AffPoint, JacPoint, TCurve
-from .cuda_msm_window import chunk_steps, g1_window_accumulate, g1_window_table
+from .cuda_msm_window import (chunk_steps, g1_window_accumulate, g1_window_table, g2_window_accumulate,
+                               g2_window_table)
 
 
 def tree_reduce(curve: TCurve, pts: JacPoint, axis_len: int) -> JacPoint:
@@ -116,25 +121,28 @@ def _accumulate_steps(curve: TCurve, pts: AffPoint, planes: torch.Tensor, neg_t:
         # n_table+1.. repeat them with Y negated (F.neg keeps -0 = 0, so
         # the infinity row stays (0, 0, 0))
         inf = torch.zeros_like(pt[0])
-        xs, ys, zs = (torch.stack([inf] + [e[i] for e in table]) for i in range(3))
-        signed = (torch.cat([xs, xs]), torch.cat([ys, curve.F.neg(ys)]), torch.cat([zs, zs]))
+        rows = [(inf, inf, inf)] + table
+        signed = tuple(torch.stack([r[i] for r in rows] * 2) for i in range(3))
+        signed[1][n_table + 1:] = curve.F.neg(signed[1][n_table + 1:])
         idx = planes[:, s].long() + neg_t[:, s].long() * (n_table + 1)
         acc = curve.add(acc, tuple(c[idx, lane_ix] for c in signed))
     return acc
 
 
-def _accumulate_g1(curve: TCurve, pts: AffPoint, planes: torch.Tensor, neg_t: torch.Tensor,
-                   window: int) -> JacPoint:
-    """_accumulate_steps for G1 in chunks of steps: one K6 launch builds a
-    chunk's tables, one K7 launch adds them into the partials.  The same
-    partials, bit for bit."""
+def _accumulate_chunked(curve: TCurve, pts: AffPoint, planes: torch.Tensor, neg_t: torch.Tensor,
+                        window: int) -> JacPoint:
+    """_accumulate_steps in chunks of steps: one table launch (K6 for G1,
+    K8 for G2) builds a chunk's tables, one accumulate launch (K7, K9)
+    adds them into the partials.  The same partials, bit for bit."""
     n_digits, steps, lanes = planes.shape
     n_table = 1 << (window - 1)
-    chunk = chunk_steps(lanes, n_table)
+    table_of, accumulate = ((g2_window_table, g2_window_accumulate) if curve.g2
+                            else (g1_window_table, g1_window_accumulate))
+    chunk = chunk_steps(lanes, n_table, math.prod(curve.elem))
     acc = curve.infinity((n_digits, lanes), planes.device)
     for s0 in range(0, steps, chunk):
-        table = g1_window_table((pts[0][s0:s0 + chunk], pts[1][s0:s0 + chunk]), n_table)
-        acc = g1_window_accumulate(acc, table, planes, neg_t, s0)
+        table = table_of((pts[0][s0:s0 + chunk], pts[1][s0:s0 + chunk]), n_table)
+        acc = accumulate(acc, table, planes, neg_t, s0)
     return acc
 
 
@@ -167,9 +175,8 @@ def msm_windowed_signed(
 ) -> JacPoint:
     """sum_i k_i * P_i for affine bases ((0, 0) = infinity) and signed
     digit planes (mags, negs) of shape (n_digits, n): one Jacobian point.
-    G1 accumulates by K6/K7 a chunk of steps, G2 a step at a time.  The
-    lanes fold by the pairwise tree, for G1 and G2 alike (the reference's
-    fold_lanes_per_curve takes the tree whenever its point kernels are in
-    use)."""
-    accumulate = _accumulate_steps if curve.g2 else _accumulate_g1
-    return _windowed(curve, bases, mags, negs, lanes, window, accumulate)
+    G1 and G2 accumulate a chunk of steps a kernel pair (K6/K7, K8/K9).
+    The lanes fold by the pairwise tree, for G1 and G2 alike (the
+    reference's fold_lanes_per_curve takes the tree whenever its point
+    kernels are in use)."""
+    return _windowed(curve, bases, mags, negs, lanes, window, _accumulate_chunked)
