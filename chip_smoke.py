@@ -9,9 +9,10 @@ and prints no result line):
 1. Build: every kernel source under zkp2p_tpu_torch/csrc/ with nvcc for
    sm_90a, one process per source, all started together, timed as
    set-up.
-2. Kernels against plain: each of the twelve launchers (K1 mont_mul; K2
-   add, K3 add_mixed, K4 double for G1 and G2; K5 mont_pow; K6/K8 the G1
-   and G2 window tables, K7/K9 the G1 and G2 window accumulates) on
+2. Kernels against plain: each of the fourteen launchers (K1 mont_mul;
+   K2 add, K3 add_mixed, K4 double for G1 and G2; K5 mont_pow; K6/K8 the
+   G1 and G2 window tables, K7/K9 the G1 and G2 window accumulates;
+   K10/K11 the G1 and G2 Horner folds) on
    random canonical inputs with the special cases (zero, one, p-1; P+P,
    P+(-P), infinity, the (0, 0) affine sentinel; for K7/K9 also acc
    equal to its entry and to its negation, and e = 16 digits) at batches
@@ -27,7 +28,15 @@ and prints no result line):
    planes and at 2^18 with the narrow class's 3 (16,384 lanes), and the
    whole G2 MSM through K8/K9, at 2^16 points with 64 planes (2,048
    lanes) and with 3 (4,096 lanes), are held bitwise against the step
-   loop over K2/K3 and against host discrete logs.
+   loop over K2/K3 and against host discrete logs.  K10/K11 at (lanes,
+   planes, window) (1, 3, 4), (257, 64, 4) and (1, 16, 16) and at each
+   fold the paths give them (G1: the h MSM's 4,096 x 64 x 4, the wide
+   classes' 2,088 and 572 lanes x 64 x 4, the narrow classes' 16,384 x 3
+   x 4, the bucket h MSM's 1 x 16 x 16; G2: b2 wide 572 x 64 x 4 and b2
+   narrow 4,096 x 3 x 4), with the special lanes (init at infinity,
+   partials at infinity, a partial equal to 2^w * acc and to -2^w * acc):
+   timed, with the operation bound and the chain floor, and held bitwise
+   against one plain run over all the lanes of the same (planes, window).
 3. Test vector: prove_gpu on zkp2p_tpu_torch/data/port_vector.npz gives
    the committed proof byte for byte, with the default (Jacobian) MSM
    arms and with the affine ones (msm_affine=True, msm_h="bucket").
@@ -38,13 +47,18 @@ and prints no result line):
    against (sum_i s_i t_idx(i) mod r)*G computed from the scalars the
    prover used.  h_evals is held against the plain path (CPU) at 2^16.
    Then the h MSM at real size (2^23 bases, 64 planes) once each way in
-   turns (step loop, K6/K7, K6/K7, step loop), the four results held
-   bitwise equal, and one more through K6/K7 split into its accumulate,
-   Horner fold and lane tree; the b2 MSM at real size (its narrow and
-   wide classes and their join) the same way (step loop, K8/K9, K8/K9,
-   step loop); then one proof with the G1 and G2 MSMs accumulated by the
-   step loop and one by K6-K9, the same r and s, their proofs held byte
-   for byte equal.
+   turns (step loops, kernels, kernels, step loops: the accumulate by
+   _accumulate_steps and the fold by _fold_steps, or by K6/K7 and K10),
+   the four results held bitwise equal, and one more through the kernels
+   split into its accumulate, Horner fold and lane tree, the fold timed
+   both ways in turns on the same partials (_fold_steps, K10, K10,
+   _fold_steps; bitwise equal); the b2 MSM at real size (its narrow and
+   wide classes and their join) the same way (step loops, K8/K9 and K11,
+   twice, step loops), and its wide fold both ways in turns (_fold_steps,
+   K11, K11, _fold_steps); then three proofs with the same r and s, their
+   bytes held equal: the G1 and G2 MSMs through the step loops (accumulate
+   and fold), with only the fold through _fold_steps, and through the
+   kernels.
 5. Real size, affine path: the same key and witness, one timed proof
    with msm_affine=True, msm_h="bucket" (the batch-affine accumulate and
    the w=16 sorted-prefix bucket h MSM; no warm-up: every kernel and
@@ -52,14 +66,15 @@ and prints no result line):
 
 The launch counts are reset just before the first timed proof of each
 path and read just after it; every kernel of a path must have launched in
-its run (on the Jacobian path K1, K2, K4 and K6-K9, and K3 not at all; on
-the affine path K1-K5).
+its run (on the Jacobian path K1, K2 and K6-K11, and neither K3 nor K4;
+on the affine path K1-K3, K5, K10 and K11, and not K4: after the fold
+kernels K4 launches on no path, and is asserted to launch 0 times).
 
 Before the last line it prints the card's name and power limit, a
 profile of one more Jacobian proof, run after every timed proof (the
 device's busy share and the ops with the most device time, from
 torch.profiler), one JSON line with the
-twelve kernels (checks, launches on each path, times and bounds), one each
+fourteen kernels (checks, launches on each path, times and bounds), one each
 with the two paths' per-stage times and peak device memory, and one
 each with the same-run comparisons of the h MSM, the b2 MSM and the
 proof.  The last line is {"ok": true, "device": {...}}.
@@ -110,6 +125,9 @@ COORDS = {"add": (6, 3), "add_mixed": (5, 3), "double": (3, 3)}
 # on the last; at an assumed 4-clock latency of a 32-bit multiply-add
 CHAIN_MADS_PER_MONT = 8 * (8 + 1 + 8)
 MAD_LATENCY_CLK = 4
+# Montgomery products on the critical path of a doubling and of an add
+# (csrc/msm_fold.cu's count from point.cuh; an Fq2 product is one deep)
+CHAIN_MONTS = {"double": 3, "add": 5}
 
 REPLACES = {
     "mont_mul": "zkp2p_tpu/ops/pallas_mont.py:201",
@@ -124,18 +142,23 @@ REPLACES = {
     "g1_window_accumulate": "zkp2p_tpu/ops/pallas_curve.py:351",
     "g2_window_table": "zkp2p_tpu/ops/pallas_curve.py:375",
     "g2_window_accumulate": "zkp2p_tpu/ops/pallas_curve.py:369",
+    "g1_horner_fold": "zkp2p_tpu/ops/pallas_curve.py:364",
+    "g2_horner_fold": "zkp2p_tpu/ops/pallas_curve.py:380",
 }
 WINDOW_KERNELS = ("g1_window_table", "g1_window_accumulate", "g2_window_table", "g2_window_accumulate")
+FOLD_KERNELS = ("g1_horner_fold", "g2_horner_fold")
 SOURCE = {"mont_mul": "mont_mul.cu", "mont_pow": "mont_pow.cu",
-          **dict.fromkeys(WINDOW_KERNELS, "msm_window.cu")}  # the rest: point_ops.cu
+          **dict.fromkeys(WINDOW_KERNELS, "msm_window.cu"),
+          **dict.fromkeys(FOLD_KERNELS, "msm_fold.cu")}  # the rest: point_ops.cu
 # the launchers each real-size path must have launched, and must not have
-_POINT_KERNELS = ("g1_add", "g1_double", "g2_add", "g2_double")
+_POINT_KERNELS = ("g1_add", "g2_add") + FOLD_KERNELS
 PATH_KERNELS = {
     "jacobian": ("mont_mul",) + _POINT_KERNELS + WINDOW_KERNELS,
     "affine": ("mont_mul",) + _POINT_KERNELS + ("g1_add_mixed", "g2_add_mixed", "mont_pow"),
 }
-# K6/K8 build the windowed path's tables
-NOT_ON_JACOBIAN = ("g1_add_mixed", "g2_add_mixed")
+# K6/K8 build the windowed path's tables; K10/K11 do every path's doublings
+NOT_ON_JACOBIAN = ("g1_add_mixed", "g2_add_mixed", "g1_double", "g2_double")
+NOT_ON_AFFINE = ("g1_double", "g2_double")
 # K6-K9: (lanes, digit planes, steps) held bitwise against plain, before
 # the path's chunk shapes
 WINDOW_BATCHES = ((1, 64, 3), (257, 64, 3), (257, 3, 3))
@@ -146,6 +169,9 @@ WINDOW_MSMS = {
     False: (("64 planes", 16, 64, 4096), ("3 planes", 18, 3, 16384)),
     True: (("64 planes", 16, 64, 2048), ("3 planes", 16, 3, 4096)),
 }
+# K10/K11: (lanes, planes, window) held bitwise against plain, before the
+# paths' fold shapes
+FOLD_CASES = ((1, 3, 4), (257, 64, 4), (1, 16, 16))
 
 
 def log(msg: str) -> None:
@@ -601,11 +627,142 @@ def check_window_msm(torch, g2, device):
             f"and to the host")
 
 
+def fold_case(torch, gen, g2, lanes, n_planes, window, device):
+    """K10/K11 inputs: random init (lanes, *elem) and planes (n_planes,
+    lanes, *elem) x3 with the special lanes: init at infinity (lane 0);
+    from 6 lanes up, plane 0 equal to 2^w * init in another Jacobian
+    representation (X l^2, Y l^3, Z l for a random l; lane 2, the add's
+    doubling branch) and to its negation (lane 3, infinity), plane 1 at
+    infinity (lane 4), every plane at infinity (lane 5); at fewer lanes,
+    plane 1 at infinity in lane 0."""
+    from zkp2p_tpu_torch.field.tfield import FQ
+    from zkp2p_tpu_torch.ops.cuda_curve import point_op_plain
+    from zkp2p_tpu_torch.ops.cuda_mont import mont_mul_plain
+
+    elem = (2,) if g2 else ()
+    init = [rand_canon(torch, gen, (lanes,) + elem, device) for _ in range(3)]
+    planes = [rand_canon(torch, gen, (n_planes, lanes) + elem, device) for _ in range(3)]
+    for c in range(3):
+        init[c][0] = 0
+        if n_planes >= 2:
+            planes[c][1, 4 if lanes >= 6 else 0] = 0
+    if lanes >= 6:
+        d = tuple(c[2] for c in init)
+        for _ in range(window):
+            d = point_op_plain("double", g2, *d)
+        lam = rand_canon(torch, gen, elem, device)
+        if g2:
+            lam[1] = lam[0]  # an Fq scalar on both components
+        lam2 = mont_mul_plain(FQ, lam, lam)
+        lam3 = mont_mul_plain(FQ, lam2, lam)
+        x, y, z = (mont_mul_plain(FQ, a, b) for a, b in ((d[0], lam2), (d[1], lam3), (d[2], lam)))
+        for c, (v, w) in enumerate(((x, x), (y, FQ.neg(y)), (z, z))):
+            planes[c][0, 2], planes[c][0, 3] = v, w
+            planes[c][:, 5] = 0
+    return tuple(init), tuple(planes)
+
+
+def check_fold_kernels(torch, g2, shapes, peak_muls_per_s, sm_clock_hz, device):
+    """K10 (G1) or K11 (G2) against its plain version (bitwise) at
+    FOLD_CASES and at each fold the paths give it (`shapes`: name ->
+    (lanes, planes, window); the first is the row's own, the rest go under
+    at_shapes), timed by CUDA events at the paths' shapes beside its
+    operation bound and its chain floor.  One lane is a batch (), as the
+    bucket h MSM folds.  The plain version runs once over all the lanes of
+    one (planes, window), timed: it is a few hundred small torch ops a
+    point op, so its time hardly depends on the lanes."""
+    from zkp2p_tpu_torch.ops import cuda_msm_fold
+
+    g = "g2" if g2 else "g1"
+    name = f"{g}_horner_fold"
+    fold, plain = getattr(cuda_msm_fold, name), getattr(cuda_msm_fold, name + "_plain")
+    ks = "K11" if g2 else "K10"
+    gen = torch.Generator(device=device).manual_seed(SEED + (21 if g2 else 20))
+    cases = [(f"{lanes} x {planes} x {window}", (lanes, planes, window), False) for lanes, planes, window in FOLD_CASES]
+    cases += [(label, shape, True) for label, shape in shapes.items()]
+    inputs = {label: fold_case(torch, gen, g2, *shape, device) for label, shape, _ in cases}
+    want, plain_of = {}, {}
+    for key in dict.fromkeys(shape[1:] for _, shape, _ in cases):
+        labels = [label for label, shape, _ in cases if shape[1:] == key]
+        init = tuple(torch.cat([inputs[label][0][c] for label in labels]) for c in range(3))
+        planes = tuple(torch.cat([inputs[label][1][c] for label in labels], dim=1) for c in range(3))
+        ms, out = cuda_ms(torch, lambda: plain(init, planes, key[1]), 1, warmup=False)
+        at = 0
+        for label in labels:
+            n = inputs[label][0][0].shape[0]
+            want[label] = tuple(c[at:at + n] for c in out)
+            plain_of[label] = dict(plain_ms=ms, plain_lanes=init[0].shape[0])
+            at += n
+
+    def call(init, planes, window):
+        if init[0].shape[0] > 1:
+            return fold(init, planes, window)
+        got = fold(tuple(c[0] for c in init), tuple(c[:, 0] for c in planes), window)  # batch ()
+        return tuple(c[None] for c in got)
+
+    fq = 3 if g2 else 1
+    elem_bytes = 64 * (2 if g2 else 1)
+    row = {}
+    for label, (lanes, n_planes, window), timed in cases:
+        init, planes = inputs[label]
+        if timed:
+            ms, got = cuda_ms(torch, lambda: call(init, planes, window), 10)
+        else:
+            got = call(init, planes, window)
+        if max_abs_err(torch, got, want[label]):
+            raise AssertionError(f"{name} ({label}) differs from its plain version")
+        if not timed:
+            continue
+        steps = n_planes * (window * MONTS["double"] + MONTS["add"])
+        b = bound(lanes, steps * fq, (6 + 3 * n_planes) * elem_bytes, peak_muls_per_s)
+        chain = n_planes * (window * CHAIN_MONTS["double"] + CHAIN_MONTS["add"])
+        at = dict(shape=[lanes, n_planes, window], max_abs_err=0, ms=ms, **plain_of[label], **b,
+                  chain_floor_ms=chain * CHAIN_MADS_PER_MONT * MAD_LATENCY_CLK / sm_clock_hz * 1e3)
+        if row:
+            row.setdefault("at_shapes", {})[label] = at
+        else:
+            row.update(at, fold=label)
+        log(f"{ks} at the {label} fold ({lanes} lanes x {n_planes} planes x window {window}): bitwise equal to "
+            f"plain; {ms:.4f} ms (plain {at['plain_ms']:.1f} over {at['plain_lanes']} lanes, bound "
+            f"{at['bound_ms']:.4f}, chain floor {at['chain_floor_ms']:.4f})")
+    row["check"] = (f"bitwise equal to plain at (lanes, planes, window) {list(FOLD_CASES)} and at the paths' "
+                    f"fold shapes (shape, at_shapes), special lanes included; the plain version run once over "
+                    f"all the lanes of a (planes, window)")
+    log(f"{ks}: bitwise equal to plain at {FOLD_CASES} (lanes, planes, window), special lanes included")
+    return {name: row}
+
+
+def fold_turns(torch, curve, acc, window):
+    """The Horner fold of the (planes, lanes) partials `acc` both ways in
+    turns: _fold_steps (K4 and K2 a step), the kernel (K10, K11), the
+    kernel, _fold_steps.  Host seconds of each; the four results held
+    bitwise equal.  Returns (seconds, the kernel's result)."""
+    from zkp2p_tpu_torch.ops import msm
+
+    init = curve.infinity((acc[0].shape[1],), acc[0].device)
+    ways = {"steps": lambda: msm._fold_steps(curve, init, acc, window),
+            "kernel": lambda: msm.horner_fold_planes(curve, init, acc, window)}
+    secs = {"order": ["steps", "kernel", "kernel", "steps"], "steps_s": [], "kernel_s": []}
+    outs = []
+    for way in secs["order"]:
+        sec, out = wall_s(torch, ways[way])
+        secs[f"{way}_s"].append(sec)
+        outs.append(out)
+    if any(max_abs_err(torch, o, outs[0]) for o in outs[1:]):
+        raise AssertionError(f"the {'K11' if curve.g2 else 'K10'} fold differs from _fold_steps")
+    return secs, outs[1]
+
+
 def compare_msm_h(torch, key, device):
     """The real-size h MSM (the key's 2^23 h bases, random scalars) once
-    each way in turns: the step loop over K2/K3, K6/K7, K6/K7, the step
-    loop; all four held bitwise equal.  Seconds of each, host clock around
-    work that ends in a synchronise."""
+    each way in turns: the step loops (the accumulate over K2/K3, the fold
+    over K4/K2), the kernels (K6/K7, K10), the kernels, the step loops;
+    all four held bitwise equal.  Then one more through the kernels a part
+    at a time, the fold both ways in turns on the same partials (K10 and
+    _fold_steps).  Seconds of each, host clock around work that ends in a
+    synchronise."""
+    from unittest import mock
+
     from zkp2p_tpu_torch.curve.tcurve import G1C
     from zkp2p_tpu_torch.ops import msm
 
@@ -613,8 +770,13 @@ def compare_msm_h(torch, key, device):
     n = key.h_bases[0].shape[0]
     mags, negs = msm.signed_digit_planes_from_limbs(rand_canon(torch, gen, (n,), device), 4)
     lanes = msm.default_lanes(n)
+
+    def loop():
+        with mock.patch.object(msm, "horner_fold_planes", msm._fold_steps):
+            return msm._windowed(G1C, key.h_bases, mags, negs, lanes, 4, msm._accumulate_steps)
+
     ways = {
-        "loop": lambda: msm._windowed(G1C, key.h_bases, mags, negs, lanes, 4, msm._accumulate_steps),
+        "loop": loop,
         "fused": lambda: msm.msm_windowed_signed(G1C, key.h_bases, mags, negs, lanes=lanes, window=4),
     }
     secs = {"loop": [], "fused": []}
@@ -623,30 +785,31 @@ def compare_msm_h(torch, key, device):
         sec, out = wall_s(torch, ways[way])
         secs[way].append(sec)
         outs.append(out)
-    # one more through K6/K7, a part at a time
-    steps, planes = n // lanes, mags.shape[0]
-    pts = tuple(c.reshape(steps, lanes, 16) for c in key.h_bases)
+    # one more through the kernels, a part at a time
     split = {}
-    split["accumulate"], acc = wall_s(torch, lambda: msm._accumulate_chunked(
-        G1C, pts, mags.reshape(planes, steps, lanes), negs.reshape(planes, steps, lanes), 4))
-    split["horner_fold"], per_lane = wall_s(
-        torch, lambda: msm.horner_fold_planes(G1C, G1C.infinity((lanes,), device), acc, 4))
+    split["accumulate"], acc = wall_s(torch, lambda: msm._lane_partials(
+        G1C, key.h_bases, mags, negs, lanes, 4, msm._accumulate_chunked))
+    fold_s, per_lane = fold_turns(torch, G1C, acc, 4)
+    split["horner_fold"] = fold_s["kernel_s"][0]
     split["lane_tree"], out = wall_s(torch, lambda: msm.tree_reduce(G1C, per_lane, lanes))
     if any(max_abs_err(torch, o, outs[0]) for o in outs[1:] + [out]):
-        raise AssertionError("the real-size h MSM through K6/K7 differs from the step loop")
-    log(f"msm_h at {n} bases: step loop {secs['loop']} s, K6/K7 {secs['fused']} s; bitwise equal; "
-        f"K6/K7 split {split}")
-    return {"n": n, "lanes": lanes, "planes": int(planes), "order": ["loop", "fused", "fused", "loop"],
-            "loop_s": secs["loop"], "fused_s": secs["fused"], "fused_split_s": split, "bitwise_equal": True}
+        raise AssertionError("the real-size h MSM through K6/K7 and K10 differs from the step loops")
+    log(f"msm_h at {n} bases: step loops {secs['loop']} s, K6/K7 + K10 {secs['fused']} s; bitwise equal; "
+        f"split {split}; fold {fold_s}")
+    return {"n": n, "lanes": lanes, "planes": int(mags.shape[0]), "order": ["loop", "fused", "fused", "loop"],
+            "loop_s": secs["loop"], "fused_s": secs["fused"], "fused_split_s": split, "fold_s": fold_s,
+            "bitwise_equal": True}
 
 
 def compare_msm_b2(torch, key, device):
     """The real-size b2 MSM (the key's G2 bases over the b query's narrow
     and wide classes, random scalars of each class's width) as the prover
     runs it: the narrow MSM (3 planes), the wide MSM (64) and their join,
-    once each way in turns: the step loop over K2/K3, K8/K9, K8/K9, the
-    step loop; all four held bitwise equal.  Seconds of each, host clock
-    around work that ends in a synchronise."""
+    once each way in turns: the step loops (the accumulate over K2/K3, the
+    fold over K4/K2), the kernels (K8/K9, K11), the kernels, the step
+    loops; all four held bitwise equal.  Then the wide MSM's fold both ways
+    in turns on the same partials (K11 and _fold_steps).  Seconds of each,
+    host clock around work that ends in a synchronise."""
     import contextlib
     from unittest import mock
 
@@ -672,24 +835,33 @@ def compare_msm_b2(torch, key, device):
     secs = {"loop": [], "fused": []}
     outs = []
     for way in ("loop", "fused", "fused", "loop"):
-        loop = mock.patch.object(msm, "_accumulate_chunked", msm._accumulate_steps)
-        with loop if way == "loop" else contextlib.nullcontext():
+        with contextlib.ExitStack() as stack:
+            if way == "loop":
+                stack.enter_context(mock.patch.object(msm, "_accumulate_chunked", msm._accumulate_steps))
+                stack.enter_context(mock.patch.object(msm, "horner_fold_planes", msm._fold_steps))
             sec, out = wall_s(torch, b2)
         secs[way].append(sec)
         outs.append(out)
     if any(max_abs_err(torch, o, outs[0]) for o in outs[1:]):
-        raise AssertionError("the real-size b2 MSM through K8/K9 differs from the step loop")
-    log(f"msm_b2 at {key.b_nsel.numel()} narrow + {key.b_wsel.numel()} wide bases: step loop {secs['loop']} s, "
-        f"K8/K9 {secs['fused']} s; bitwise equal")
+        raise AssertionError("the real-size b2 MSM through K8/K9 and K11 differs from the step loops")
+    # the wide MSM's partials, as gp._msm_g2 lays them out, folded both ways
+    _, b_w, (mags_w, negs_w) = parts[1]
+    lanes_w = msm.default_lanes(b_w[0].shape[0], cap=2048)
+    acc_w = msm._lane_partials(G2C, b_w, mags_w, negs_w, lanes_w, 4, msm._accumulate_chunked)
+    fold_s, _ = fold_turns(torch, G2C, acc_w, 4)
+    log(f"msm_b2 at {key.b_nsel.numel()} narrow + {key.b_wsel.numel()} wide bases: step loops {secs['loop']} s, "
+        f"K8/K9 + K11 {secs['fused']} s; bitwise equal; wide fold ({lanes_w} lanes) {fold_s}")
     return {"narrow": key.b_nsel.numel(), "wide": key.b_wsel.numel(), "order": ["loop", "fused", "fused", "loop"],
-            "loop_s": secs["loop"], "fused_s": secs["fused"], "bitwise_equal": True}
+            "loop_s": secs["loop"], "fused_s": secs["fused"], "wide_lanes": lanes_w, "wide_fold_s": fold_s,
+            "bitwise_equal": True}
 
 
 def compare_proofs(torch, key, witness, rs, device):
-    """One real-size Jacobian proof with the G1 and G2 MSMs accumulated by
-    the step loop over K2/K3 (the accumulate before K6-K9), then one
-    through K6-K9, with the same r and s: the stage seconds of each; the
-    two proofs held byte for byte equal."""
+    """Three real-size Jacobian proofs with the same r and s: the G1 and G2
+    MSMs through the step loops (the accumulate over K2/K3 before K6-K9,
+    the fold over K4/K2 before K10/K11), with only the fold through
+    _fold_steps, and through the kernels.  The stage seconds of each; the
+    three proofs held byte for byte equal."""
     import contextlib
     from unittest import mock
 
@@ -698,20 +870,27 @@ def compare_proofs(torch, key, witness, rs, device):
     from zkp2p_tpu_torch.snark.groth16 import proof_bytes
 
     r, s = rs.randrange(1, 1 << 250), rs.randrange(1, 1 << 250)
+    patches = {
+        "loop": (("_accumulate_chunked", msm._accumulate_steps), ("horner_fold_planes", msm._fold_steps)),
+        "fold_steps": (("horner_fold_planes", msm._fold_steps),),
+        "fused": (),
+    }
     out, proofs = {}, []
-    for way in ("loop", "fused"):
+    for way, patched in patches.items():
         stages = {}
-        loop = mock.patch.object(msm, "_accumulate_chunked", msm._accumulate_steps)
-        with loop if way == "loop" else contextlib.nullcontext():
+        with contextlib.ExitStack() as stack:
+            for attr, fn in patched:
+                stack.enter_context(mock.patch.object(msm, attr, fn))
             stages["s_total"], proof = wall_s(
                 torch, lambda: prove_gpu(key, witness, r=r, s=s, device=device, stages=stages))
         proofs.append(proof_bytes(proof))
         out[way] = {k[2:]: v for k, v in stages.items() if k.startswith("s_")}
-    if proofs[0] != proofs[1]:
-        raise AssertionError("the real-size proof through K6-K9 differs from the one through the step loop")
-    log(f"real-size proof, same r and s: step loop {out['loop']['total']:.2f} s, "
-        f"K6-K9 {out['fused']['total']:.2f} s; equal bytes")
-    return {"order": ["loop", "fused"], "stage_s": out, "proof_bytes_equal": True}
+        log(f"real-size proof ({way}): {json.dumps(out[way])}")
+    if any(p != proofs[-1] for p in proofs):
+        raise AssertionError("the real-size proofs through the kernels and through the step loops differ")
+    log(f"real-size proof, same r and s: step loops {out['loop']['total']:.2f} s, fold by _fold_steps "
+        f"{out['fold_steps']['total']:.2f} s, kernels {out['fused']['total']:.2f} s; equal bytes")
+    return {"order": list(patches), "stage_s": out, "proof_bytes_equal": True}
 
 
 def bound(n, monts_per_elem, bytes_per_elem, peak_muls_per_s):
@@ -969,12 +1148,12 @@ def run(torch, device, peak_muls, sm_clock_hz):
                 log(f"ptxas {stem}: {line.strip()}")
     log(f"build: {build_s:.1f} s")
 
-    # the main path's shapes: NTT stage products; G1's K2 and K4 in the h
-    # MSM's Horner fold (K6/K7 took K2's accumulate); G1's K3 in the
-    # affine arm's narrow tables (lanes capped at 16,384, as the prover
-    # sets them; K6 builds the windowed path's); G2's K2 and K4 in the b2
-    # narrow MSM's Horner fold (K8/K9 took the accumulate), G2's K3 in the
-    # affine arm's b2 narrow tables
+    # the main path's shapes: NTT stage products; G1's K2 and K4 at the h
+    # MSM's lanes (K2 in its lane tree; K4 did its Horner fold before
+    # K10); G1's K3 in the affine arm's narrow tables (lanes capped at
+    # 16,384, as the prover sets them; K6 builds the windowed path's);
+    # G2's K2 and K4 at the b2 narrow MSM's lanes (K4 did its fold before
+    # K11), G2's K3 in the affine arm's b2 narrow tables
     V = VENMO
     h_lanes = default_lanes(1 << V["log_m"])
     narrow_lanes = default_lanes(V["c_narrow"] + 1, cap=16384)
@@ -1001,6 +1180,15 @@ def run(torch, device, peak_muls, sm_clock_hz):
             "b2 wide": (64, min(chunk_steps(b2w_lanes, N_TABLE, 32), -(-V["b_wide"] // b2w_lanes)), b2w_lanes),
         },
     }
+    # K10/K11's folds (lanes, planes, window): the h MSM's, the wide
+    # classes' (a's lanes and b1's), the narrow classes', the bucket h
+    # MSM's (one lane, w = 16); b2's wide and narrow MSMs'
+    fold_shapes = {
+        False: {"h": (h_lanes, 64, 4), "a wide": (wide_lanes, 64, 4),
+                "b1 wide": (default_lanes(V["b_wide"]), 64, 4), "narrow": (narrow_lanes, 3, 4),
+                "bucket h": (1, 16, 16)},
+        True: {"b2 wide": (b2w_lanes, 64, 4), "b2 narrow": (b2_lanes, 3, 4)},
+    }
 
     # phase 2
     t0 = time.perf_counter()
@@ -1009,6 +1197,8 @@ def run(torch, device, peak_muls, sm_clock_hz):
     for g2 in (False, True):
         rows.update(check_window_kernels(torch, g2, window_shapes[g2], peak_muls, device))
         check_window_msm(torch, g2, device)
+    for g2 in (False, True):
+        rows.update(check_fold_kernels(torch, g2, fold_shapes[g2], peak_muls, sm_clock_hz, device))
     log(f"kernels against plain: {time.perf_counter() - t0:.1f} s")
 
     # phase 3
@@ -1048,10 +1238,13 @@ def run(torch, device, peak_muls, sm_clock_hz):
         missing = [k for k in names if by_path[path]["zk_" + k] == 0]
         if missing:
             raise AssertionError(f"launchers never launched on the {path} path: {missing}")
-    stray = [k for k in NOT_ON_JACOBIAN if by_path["jacobian"]["zk_" + k]]
-    if stray:
-        raise AssertionError(f"launchers launched on the jacobian path, which no longer runs them: {stray}")
-    unused = [k for k in cuda_build.LAUNCHERS if not any(v[k] for v in by_path.values())]
+    for path, names in (("jacobian", NOT_ON_JACOBIAN), ("affine", NOT_ON_AFFINE)):
+        stray = [k for k in names if by_path[path]["zk_" + k]]
+        if stray:
+            raise AssertionError(f"launchers launched on the {path} path, which no longer runs them: {stray}")
+    # K4 (g1_double, g2_double) is asserted above to launch on neither path
+    unused = [k for k in cuda_build.LAUNCHERS if not any(v[k] for v in by_path.values())
+              and k[len("zk_"):] not in set(NOT_ON_JACOBIAN) & set(NOT_ON_AFFINE)]
     if unused:
         raise AssertionError(f"launchers launched on no path: {unused}")
 

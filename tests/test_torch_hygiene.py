@@ -16,7 +16,7 @@ import torch
 
 from zkp2p_tpu_torch.curve import tcurve
 from zkp2p_tpu_torch.field.tfield import FQ, FR
-from zkp2p_tpu_torch.ops import cuda_build, cuda_curve, cuda_mont, cuda_msm_window
+from zkp2p_tpu_torch.ops import cuda_build, cuda_curve, cuda_mont, cuda_msm_fold, cuda_msm_window
 from zkp2p_tpu_torch.prover.groth16_gpu import key_from_numpy, prove_gpu
 from zkp2p_tpu_torch.prover.vector import VECTOR_PATH, load_vector
 from zkp2p_tpu_torch.utils.device import resolve_device
@@ -121,7 +121,14 @@ def test_wrappers_on_cpu_take_the_plain_path_and_count_nothing():
         got = accumulate(acc, table, mags, negs, 1)
         want = accumulate_plain(acc, table, mags, negs, 1)
         assert all(torch.equal(x, y) for x, y in zip(got, want))
-    assert set(cuda_build.LAUNCHES) == set(cuda_build.LAUNCHERS) and len(cuda_build.LAUNCHERS) == 12
+    F = cuda_msm_fold
+    for elem, fold, fold_plain in (((), F.g1_horner_fold, F.g1_horner_fold_plain),
+                                   ((2,), F.g2_horner_fold, F.g2_horner_fold_plain)):
+        init = tuple(_rand((2,) + elem, 50 + k) for k in range(3))
+        planes = tuple(_rand((2, 2) + elem, 60 + k) for k in range(3))
+        got = fold(init, planes, 2)
+        assert all(torch.equal(x, y) for x, y in zip(got, fold_plain(init, planes, 2)))
+    assert set(cuda_build.LAUNCHES) == set(cuda_build.LAUNCHERS) and len(cuda_build.LAUNCHERS) == 14
     assert all(v == 0 for v in cuda_build.LAUNCHES.values())
 
 
@@ -144,6 +151,12 @@ def test_wrappers_refuse_other_devices():
         acc = torch.zeros((2, 3) + elem + (16,), dtype=torch.int32, device="meta")
         with pytest.raises(ValueError):
             accumulate((acc,) * 3, (table,) * 3, planes, planes.bool(), 0)
+    for elem, fold in (((), cuda_msm_fold.g1_horner_fold), ((2,), cuda_msm_fold.g2_horner_fold)):
+        init = torch.zeros((3,) + elem + (16,), dtype=torch.int32)
+        stacked = torch.zeros((2, 3) + elem + (16,), dtype=torch.int32)
+        for i, p in ((init, stacked.to("meta")), (init.to("meta"), stacked), (init.to("meta"), stacked.to("meta"))):
+            with pytest.raises(ValueError):
+                fold((i,) * 3, (p,) * 3, 4)
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

@@ -176,26 +176,6 @@ k_g1_window_accumulate(const int32_t* __restrict__ ax, const int32_t* __restrict
 
 // ------------------------------------------------------------- K8, K9
 
-// One Fq2 element read from device memory at each call.  The asm is
-// volatile so that the compiler neither merges two reads of an element
-// nor keeps a read value live between its uses: the addend of K8 and K9
-// comes from L1 where the formula needs it, not from registers.
-__device__ __forceinline__ Fe fe_load_each(const int32_t* p) {
-  Fe r;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    int a, b, c, d;
-    asm volatile("ld.global.nc.v4.s32 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(a), "=r"(b), "=r"(c), "=r"(d)
-                 : "l"(p + 4 * k));
-    r.w[2 * k] = (uint32_t)a | ((uint32_t)b << 16);
-    r.w[2 * k + 1] = (uint32_t)c | ((uint32_t)d << 16);
-  }
-  return r;
-}
-
-__device__ __forceinline__ Fe2 fe2_load_each(const int32_t* p) { return Fe2{fe_load_each(p), fe_load_each(p + 16)}; }
-
 // K8's addend: the affine base (x, y) of the thread's chain; qz() is
 // from_affine's Z, which the infinity flag fixes once for the chain.
 struct G2Base {

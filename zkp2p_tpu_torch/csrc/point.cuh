@@ -1,7 +1,9 @@
 // BN254 Jacobian point math for one thread, written once over the field
-// type (Fe = Fq, Fe2 = Fq2) and shared by point_ops.cu (K2-K4) and
-// msm_window.cu (K6-K9), so that every kernel runs literally the same
-// formulas and case selects and its output limbs equal the reference's.
+// type (Fe = Fq, Fe2 = Fq2) and shared by point_ops.cu (K2-K4),
+// msm_window.cu (K6-K9) and msm_fold.cu (K10/K11, which spreads the same
+// formulas over three threads), so that every kernel runs literally the
+// same formulas and case selects and its output limbs equal the
+// reference's.
 //
 // The addend q of pt_add / pt_add_core (and the affine addend of
 // pt_add_mixed_q) is read through its accessors qx(), qy(), qz() at each
@@ -59,6 +61,30 @@ __device__ __forceinline__ void f_store(int32_t* p, long long i, const Fe2& a) {
   fe_store(p + i * 32, a.c0);
   fe_store(p + i * 32 + 16, a.c1);
 }
+
+// One element read from device memory at each call.  The asm is volatile
+// so that the compiler neither merges two reads of an element nor keeps a
+// read value live between its uses: an addend read through accessors
+// that use it comes from L1 where the formula needs it, not from
+// registers.
+__device__ __forceinline__ Fe fe_load_each(const int32_t* p) {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    int a, b, c, d;
+    asm volatile("ld.global.nc.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(a), "=r"(b), "=r"(c), "=r"(d)
+                 : "l"(p + 4 * k));
+    r.w[2 * k] = (uint32_t)a | ((uint32_t)b << 16);
+    r.w[2 * k + 1] = (uint32_t)c | ((uint32_t)d << 16);
+  }
+  return r;
+}
+
+__device__ __forceinline__ Fe2 fe2_load_each(const int32_t* p) { return Fe2{fe_load_each(p), fe_load_each(p + 16)}; }
+
+__device__ __forceinline__ Fe f_load_each(const Fe*, const int32_t* p) { return fe_load_each(p); }
+__device__ __forceinline__ Fe2 f_load_each(const Fe2*, const int32_t* p) { return fe2_load_each(p); }
 
 template <class E>
 struct Jac {

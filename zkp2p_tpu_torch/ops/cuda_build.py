@@ -69,6 +69,11 @@ SOURCES = {
         # as zk_g1_window_accumulate without lanes_per_block
         "zk_g2_window_accumulate": (_VP,) * 11 + (_I32,) * 4 + (_I64,) * 7 + (_VP, _VP),
     },
+    "msm_fold": {
+        # init x/y/z, planes x/y/z, out x/y/z, lanes, n_planes, window, consts, stream
+        "zk_g1_horner_fold": (_VP,) * 9 + (_I64, _I32, _I32, _VP, _VP),
+        "zk_g2_horner_fold": (_VP,) * 9 + (_I64, _I32, _I32, _VP, _VP),
+    },
 }
 
 LAUNCHERS = tuple(name for fns in SOURCES.values() for name in fns)

@@ -9,9 +9,11 @@ Jacobian partials; a Horner fold (acc = 2^w * acc + plane) then reduces
 the planes and a pairwise tree the lanes.  The reference's `lax.scan`
 over lane steps is, for G1 and G2 alike, two kernels a chunk of steps
 (``_accumulate_chunked``: K6/K8 build the chunk's tables, K7/K9
-accumulate them; ``ops.cuda_msm_window``).  The step loop over point
-kernels (``_accumulate_steps``) remains as the comparator that the tests
-and ``chip_smoke.py`` hold the chunked kernels against."""
+accumulate them; ``ops.cuda_msm_window``), and its `lax.scan` over
+planes one kernel a fold (``horner_fold_planes``: K10 for G1, K11 for
+G2; ``ops.cuda_msm_fold``).  The step loops over point kernels
+(``_accumulate_steps``, ``_fold_steps``) remain as the comparators that
+the tests and ``chip_smoke.py`` hold the kernels against."""
 
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..curve.tcurve import AffPoint, JacPoint, TCurve
+from .cuda_msm_fold import g1_horner_fold, g2_horner_fold
 from .cuda_msm_window import (chunk_steps, g1_window_accumulate, g1_window_table, g2_window_accumulate,
                                g2_window_table)
 
@@ -44,7 +47,15 @@ def tree_reduce(curve: TCurve, pts: JacPoint, axis_len: int) -> JacPoint:
 
 def horner_fold_planes(curve: TCurve, init: JacPoint, planes_stacked: JacPoint, window: int) -> JacPoint:
     """MSB-first Horner fold over stacked plane partials (leading axis =
-    planes): acc = 2^window * acc + plane."""
+    planes): acc = 2^window * acc + plane, in one kernel (K10 for G1, K11
+    for G2)."""
+    fold = g2_horner_fold if curve.g2 else g1_horner_fold
+    return fold(init, planes_stacked, window)
+
+
+def _fold_steps(curve: TCurve, init: JacPoint, planes_stacked: JacPoint, window: int) -> JacPoint:
+    """horner_fold_planes one point kernel a step (K4 doublings, K2 adds):
+    the same result, bit for bit."""
     acc = init
     for p in range(planes_stacked[0].shape[0]):
         for _ in range(window):
@@ -146,8 +157,10 @@ def _accumulate_chunked(curve: TCurve, pts: AffPoint, planes: torch.Tensor, neg_
     return acc
 
 
-def _windowed(curve: TCurve, bases: AffPoint, mags: torch.Tensor, negs: torch.Tensor, lanes: int, window: int,
-              accumulate) -> JacPoint:
+def _lane_partials(curve: TCurve, bases: AffPoint, mags: torch.Tensor, negs: torch.Tensor, lanes: int,
+                   window: int, accumulate) -> JacPoint:
+    """The (n_digits, lanes) partials of an MSM: the bases padded with
+    (0, 0) to whole lane steps, accumulated by `accumulate`."""
     n_digits = mags.shape[0]
     n = bases[0].shape[0]
     device = bases[0].device
@@ -160,8 +173,14 @@ def _windowed(curve: TCurve, bases: AffPoint, mags: torch.Tensor, negs: torch.Te
         negs = F.pad(negs, [0, pad])
     steps = (n + pad) // lanes
     pts = tuple(c.reshape((steps, lanes) + curve.elem) for c in bases)
-    acc = accumulate(curve, pts, mags.reshape(n_digits, steps, lanes), negs.reshape(n_digits, steps, lanes), window)
-    per_lane = horner_fold_planes(curve, curve.infinity((lanes,), device), acc, window)
+    return accumulate(curve, pts, mags.reshape(n_digits, steps, lanes), negs.reshape(n_digits, steps, lanes), window)
+
+
+def _windowed(curve: TCurve, bases: AffPoint, mags: torch.Tensor, negs: torch.Tensor, lanes: int, window: int,
+              accumulate) -> JacPoint:
+    acc = _lane_partials(curve, bases, mags, negs, lanes, window, accumulate)
+    lanes = acc[0].shape[1]
+    per_lane = horner_fold_planes(curve, curve.infinity((lanes,), bases[0].device), acc, window)
     return tree_reduce(curve, per_lane, lanes)
 
 
@@ -175,8 +194,8 @@ def msm_windowed_signed(
 ) -> JacPoint:
     """sum_i k_i * P_i for affine bases ((0, 0) = infinity) and signed
     digit planes (mags, negs) of shape (n_digits, n): one Jacobian point.
-    G1 and G2 accumulate a chunk of steps a kernel pair (K6/K7, K8/K9).
-    The lanes fold by the pairwise tree, for G1 and G2 alike (the
+    G1 and G2 accumulate a chunk of steps a kernel pair (K6/K7, K8/K9)
+    and fold the planes in one kernel (K10, K11).  The lanes fold by the pairwise tree, for G1 and G2 alike (the
     reference's fold_lanes_per_curve takes the tree whenever its point
     kernels are in use)."""
     return _windowed(curve, bases, mags, negs, lanes, window, _accumulate_chunked)

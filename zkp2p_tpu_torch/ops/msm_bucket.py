@@ -15,8 +15,9 @@ Per signed digit plane:
      signed buckets: K gathers, K affine subtracts and a K-leaf affine
      tree.
 
-The plane partials fold by Horner (K2/K4).  G1 only, as in the
-reference.  The reference's ``lax.scan`` over planes is a Python loop.
+The reference's ``lax.scan`` over planes is a Python loop.  The plane
+partials fold by Horner in one kernel (K10; ``_fold_steps`` in
+``ops/msm.py`` is its comparator).  G1 only, as in the reference.
 """
 
 from __future__ import annotations
