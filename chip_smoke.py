@@ -9,10 +9,10 @@ and prints no result line):
 1. Build: every kernel source under zkp2p_tpu_torch/csrc/ with nvcc for
    sm_90a, one process per source, all started together, timed as
    set-up.
-2. Kernels against plain: each of the fourteen launchers (K1 mont_mul;
+2. Kernels against plain: each of the fifteen launchers (K1 mont_mul;
    K2 add, K3 add_mixed, K4 double for G1 and G2; K5 mont_pow; K6/K8 the
    G1 and G2 window tables, K7/K9 the G1 and G2 window accumulates;
-   K10/K11 the G1 and G2 Horner folds) on
+   K10/K11 the G1 and G2 Horner folds; K12 the NTT pass) on
    random canonical inputs with the special cases (zero, one, p-1; P+P,
    P+(-P), infinity, the (0, 0) affine sentinel; for K7/K9 also acc
    equal to its entry and to its negation, and e = 16 digits) at batches
@@ -37,6 +37,15 @@ and prints no result line):
    partials at infinity, a partial equal to 2^w * acc and to -2^w * acc):
    timed, with the operation bound and the chain floor, and held bitwise
    against one plain run over all the lanes of the same (planes, window).
+   K12 on three random canonical rows with 0, 1, r-1 and the Montgomery
+   one at log m 1, 2, 11, 12 and 16, at every pass of each size's plan
+   (the first pass bit-reversed, with no factor, the 1/m constant and the
+   g^i / m table; the later ones also in place), held bitwise against
+   ntt_pass_plain, and ntt, intt and coset_ladder there against the
+   stage-at-a-time _ntt_core compositions; then each pass of the 2^23
+   plan at the H ladder's shape (3 rows): timed with its bound, its plain
+   version timed on the same inputs, both held bitwise; and ntt and intt
+   of one 2^23 row against _ntt_core (K1 products, plain add/sub).
 3. Test vector: prove_gpu on zkp2p_tpu_torch/data/port_vector.npz gives
    the committed proof byte for byte, with the default (Jacobian) MSM
    arms and with the affine ones (msm_affine=True, msm_h="bucket").
@@ -45,7 +54,9 @@ and prints no result line):
    one warm-up and three timed proofs through prove_gpu.  Every base is
    t_j*G from a small host table, so each of the five MSMs is checked
    against (sum_i s_i t_idx(i) mod r)*G computed from the scalars the
-   prover used.  h_evals is held against the plain path (CPU) at 2^16.
+   prover used.  h_evals is held against the plain path (CPU) at 2^16,
+   and at real size through K12 against the stage-at-a-time ladder
+   (ntt._ladder_steps) in turns (K12, ladder steps, K12; bitwise equal).
    Then the h MSM at real size (2^23 bases, 64 planes) once each way in
    turns (step loops, kernels, kernels, step loops: the accumulate by
    _accumulate_steps and the fold by _fold_steps, or by K6/K7 and K10),
@@ -66,18 +77,20 @@ and prints no result line):
 
 The launch counts are reset just before the first timed proof of each
 path and read just after it; every kernel of a path must have launched in
-its run (on the Jacobian path K1, K2 and K6-K11, and neither K3 nor K4;
-on the affine path K1-K3, K5, K10 and K11, and not K4: after the fold
-kernels K4 launches on no path, and is asserted to launch 0 times).
+its run (on the Jacobian path K1, K2 and K6-K12, and neither K3 nor K4;
+on the affine path K1-K3, K5, K10-K12, and not K4: after the fold
+kernels K4 launches on no path, and is asserted to launch 0 times); K12
+launches once a pass of the iNTT and of the NTT on each path.
 
 Before the last line it prints the card's name and power limit, a
 profile of one more Jacobian proof, run after every timed proof (the
 device's busy share and the ops with the most device time, from
 torch.profiler), one JSON line with the
-fourteen kernels (checks, launches on each path, times and bounds), one each
+fifteen kernels (checks, launches on each path, times and bounds), one each
 with the two paths' per-stage times and peak device memory, and one
-each with the same-run comparisons of the h MSM, the b2 MSM and the
-proof.  The last line is {"ok": true, "device": {...}}.
+each with the same-run comparisons of the H ladder (ntt_same_run), the h
+MSM, the b2 MSM and the proof.  The last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -144,17 +157,18 @@ REPLACES = {
     "g2_window_accumulate": "zkp2p_tpu/ops/pallas_curve.py:369",
     "g1_horner_fold": "zkp2p_tpu/ops/pallas_curve.py:364",
     "g2_horner_fold": "zkp2p_tpu/ops/pallas_curve.py:380",
+    "fr_ntt_pass": "zkp2p_tpu/ops/pallas_mont.py:201",
 }
 WINDOW_KERNELS = ("g1_window_table", "g1_window_accumulate", "g2_window_table", "g2_window_accumulate")
 FOLD_KERNELS = ("g1_horner_fold", "g2_horner_fold")
 SOURCE = {"mont_mul": "mont_mul.cu", "mont_pow": "mont_pow.cu",
           **dict.fromkeys(WINDOW_KERNELS, "msm_window.cu"),
-          **dict.fromkeys(FOLD_KERNELS, "msm_fold.cu")}  # the rest: point_ops.cu
+          **dict.fromkeys(FOLD_KERNELS, "msm_fold.cu"), "fr_ntt_pass": "ntt.cu"}  # the rest: point_ops.cu
 # the launchers each real-size path must have launched, and must not have
 _POINT_KERNELS = ("g1_add", "g2_add") + FOLD_KERNELS
 PATH_KERNELS = {
-    "jacobian": ("mont_mul",) + _POINT_KERNELS + WINDOW_KERNELS,
-    "affine": ("mont_mul",) + _POINT_KERNELS + ("g1_add_mixed", "g2_add_mixed", "mont_pow"),
+    "jacobian": ("mont_mul", "fr_ntt_pass") + _POINT_KERNELS + WINDOW_KERNELS,
+    "affine": ("mont_mul", "fr_ntt_pass") + _POINT_KERNELS + ("g1_add_mixed", "g2_add_mixed", "mont_pow"),
 }
 # K6/K8 build the windowed path's tables; K10/K11 do every path's doublings
 NOT_ON_JACOBIAN = ("g1_add_mixed", "g2_add_mixed", "g1_double", "g2_double")
@@ -172,6 +186,11 @@ WINDOW_MSMS = {
 # K10/K11: (lanes, planes, window) held bitwise against plain, before the
 # paths' fold shapes
 FOLD_CASES = ((1, 3, 4), (257, 64, 4), (1, 16, 16))
+# K12: log2 of the domains held bitwise against plain at every pass of
+# their plans (11: one pass of 64 KB of shared memory a block), before the
+# 2^23 plan's passes at the H ladder's shape (three rows)
+NTT_CHECK_LOGS = (1, 2, 11, 12, 16)
+LADDER_ROWS = 3
 
 
 def log(msg: str) -> None:
@@ -385,7 +404,7 @@ def check_kernels(torch, geometry, peak_muls_per_s, device):
             torch, lambda x, y: cuda_mont.mont_mul_plain(field, x, y), (a, b), 1 << 20), 2)
         if max_abs_err(torch, got, want):
             raise AssertionError(f"mont_mul ({field.name}, n={n_k1}) differs from its plain version")
-        if field is FR:  # the NTT's products, the shape the main path gives K1
+        if field is FR:  # a*b over the domain, the shape the main path gives K1
             rows["mont_mul"].update(shape=[n_k1], ms=ms, plain_ms=plain_ms, **bound(n_k1, 1, 192, peak_muls_per_s))
     for (g2, op) in wrappers:
         name = f"{'g2' if g2 else 'g1'}_{op}"
@@ -730,6 +749,144 @@ def check_fold_kernels(torch, g2, shapes, peak_muls_per_s, sm_clock_hz, device):
                     f"all the lanes of a (planes, window)")
     log(f"{ks}: bitwise equal to plain at {FOLD_CASES} (lanes, planes, window), special lanes included")
     return {name: row}
+
+
+def ntt_rows(torch, gen, rows, m, device):
+    """(rows, m, 16) random canonical Fr limbs; each row's first entries
+    0, 1, r - 1 and the Montgomery one."""
+    from zkp2p_tpu_torch.field.bn254 import MONT_R, R
+    from zkp2p_tpu_torch.ops.cuda_mont import limbs_of
+
+    x = rand_canon(torch, gen, (rows, m), device)
+    for i, v in enumerate((0, 1, R - 1, MONT_R % R)[:m]):
+        x[:, i] = torch.tensor(limbs_of(v), dtype=torch.int32, device=device)
+    return x
+
+
+def check_ntt_kernel(torch, peak_muls_per_s, device):
+    """K12 against its plain version (bitwise) at every pass of the plans
+    of NTT_CHECK_LOGS, with each kind of factor and in place; ntt, intt
+    and coset_ladder there against the _ntt_core compositions; each pass
+    of the 2^23 plan at the H ladder's shape, timed beside its bound and
+    its plain version (held bitwise); ntt and intt of one 2^23 row against
+    _ntt_core."""
+    from zkp2p_tpu_torch.field.tfield import FR
+    from zkp2p_tpu_torch.ops import cuda_ntt, ntt
+    from zkp2p_tpu_torch.snark.groth16 import coset_gen
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 30)
+    log_full = VENMO["log_m"]
+
+    def steps_ntt(x, log_m):
+        d = ntt.domain(log_m, device)
+        return ntt._ntt_core(x, d["tw"], d["perm"])
+
+    def steps_intt(x, log_m):
+        d = ntt.domain(log_m, device)
+        return FR.mul(ntt._ntt_core(x, d["tw_inv"], d["perm"]), d["m_inv_mont"])
+
+    for log_m in NTT_CHECK_LOGS:
+        d = ntt.domain(log_m, device)
+        g = coset_gen(log_m)
+        factors = (None, d["m_inv_mont"], ntt._coset_factor(g, log_m, device))
+        x = ntt_rows(torch, gen, LADDER_ROWS, 1 << log_m, device)
+        for i, (s0, k) in enumerate(ntt.pass_plan(log_m)):
+            for tw in (d["tw"], d["tw_inv"]):
+                for f in factors:
+                    want = cuda_ntt.ntt_pass_plain(x, tw, s0, k, i == 0, f)
+                    if max_abs_err(torch, cuda_ntt.ntt_pass(x, tw, s0, k, i == 0, f), want):
+                        raise AssertionError(f"fr_ntt_pass (2^{log_m}, stages {s0}+{k}) differs from plain")
+                    if i:
+                        y = x.clone()
+                        cuda_ntt.ntt_pass(y, tw, s0, k, factor=f, out=y)
+                        if max_abs_err(torch, y, want):
+                            raise AssertionError(f"fr_ntt_pass in place (2^{log_m}, stages {s0}+{k}) differs")
+        if (max_abs_err(torch, ntt.ntt(x, log_m), steps_ntt(x, log_m))
+                or max_abs_err(torch, ntt.intt(x, log_m), steps_intt(x, log_m))
+                or max_abs_err(torch, ntt.coset_ladder(x, g, log_m), ntt._ladder_steps(x, g, log_m))):
+            raise AssertionError(f"ntt / intt / coset_ladder at 2^{log_m} differ from _ntt_core")
+    log(f"K12 fr_ntt_pass: bitwise equal to plain at every pass of 2^{list(NTT_CHECK_LOGS)} (no factor, 1/m, "
+        f"g^i/m; in place); ntt, intt and coset_ladder equal to _ntt_core there")
+
+    # the 2^23 plan at the ladder's shape: each pass timed, its plain
+    # version timed once on the same inputs, the two held bitwise
+    d = ntt.domain(log_full, device)
+    m = 1 << log_full
+    x = ntt_rows(torch, gen, LADDER_ROWS, m, device)
+    plan = ntt.pass_plan(log_full)
+    shapes = {"ntt pass 0 (bit-reversed, g^i/m)": (plan[0], d["tw"], ntt._coset_factor(coset_gen(log_full), log_full,
+                                                                                        device)),
+              "intt pass 0 (bit-reversed)": (plan[0], d["tw_inv"], None)}
+    shapes.update({f"pass {i}": (p, d["tw"], None) for i, p in enumerate(plan) if i})
+    row = {}
+    for label, ((s0, k), tw, f) in shapes.items():
+        bitrev = s0 == 0
+        out = torch.empty_like(x)
+        ms, got = cuda_ms(torch, lambda: cuda_ntt.ntt_pass(x, tw, s0, k, bitrev, f, out=out), 5)
+        plain_ms, want = cuda_ms(torch, lambda: cuda_ntt.ntt_pass_plain(x, tw, s0, k, bitrev, f), 1, warmup=False)
+        err = max_abs_err(torch, got, want)
+        if not bitrev:
+            y = x.clone()
+            cuda_ntt.ntt_pass(y, tw, s0, k, out=y)
+            err = max(err, max_abs_err(torch, y, want))
+        if err:
+            raise AssertionError(f"fr_ntt_pass at 2^{log_full} x {LADDER_ROWS} ({label}) differs from plain")
+        products = LADDER_ROWS * (k * m // 2 + (m if f is not None else 0))
+        nbytes = (2 * LADDER_ROWS * m + (m if f is not None else 0) + (1 << (s0 + k - 1))) * 64
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, products * MULS_PER_MONT / peak_muls_per_s
+        at = dict(shape=[LADDER_ROWS, m], stages=[s0, k], max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                  bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes > t_ops else "operations",
+                  products=products, shared_bytes_per_block=32 << k)
+        if row:
+            row.setdefault("at_shapes", {})[label] = at
+        else:
+            row.update(at, **{"pass": label})
+        log(f"K12 at 2^{log_full} x {LADDER_ROWS}, {label}, stages {s0}..{s0 + k - 1}: bitwise equal to plain; "
+            f"{ms:.4f} ms (plain {plain_ms:.1f}, bound {at['bound_ms']:.4f} by {at['bound_by']}; "
+            f"{32 << k} B of shared memory a block)")
+    # whole transforms of one 2^23 row against the stage-at-a-time ladder
+    x = ntt_rows(torch, gen, 1, m, device)[0]
+    if (max_abs_err(torch, ntt.ntt(x, log_full), steps_ntt(x, log_full))
+            or max_abs_err(torch, ntt.intt(x, log_full), steps_intt(x, log_full))):
+        raise AssertionError(f"ntt / intt at 2^{log_full} differ from _ntt_core")
+    log(f"ntt and intt at 2^{log_full}: bitwise equal to _ntt_core (plan {plan})")
+    row["check"] = (f"bitwise equal to plain at every pass of the plans of 2^{list(NTT_CHECK_LOGS)} (3 rows; no "
+                    f"factor, 1/m, g^i/m; in place) and of 2^{log_full} at the ladder's 3 rows (shape, at_shapes); "
+                    f"ntt, intt and coset_ladder equal to _ntt_core there, ntt and intt at 2^{log_full}")
+    row["library_ms_reason"] = "no PyTorch call computes an NTT over Fr (torch.fft is complex floating point)"
+    return {"fr_ntt_pass": row}
+
+
+def compare_ladder(torch, key, witness, device):
+    """h_evals at real size through K12 (coset_ladder) and through the
+    stage-at-a-time ladder (ntt._ladder_steps: _ntt_core with K1 products
+    and plain add/sub) in turns: K12, ladder steps, K12; the three results
+    held bitwise equal.  The ladder's and h_evals' seconds of each (host
+    clock around work that ends in a synchronise)."""
+    import contextlib
+    from unittest import mock
+
+    from zkp2p_tpu_torch.ops import ntt
+    from zkp2p_tpu_torch.prover import groth16_gpu as gp
+
+    w_mont = gp.witness_to_device(witness, device)
+    order = ["kernel", "steps", "kernel"]
+    out = {"order": order, "ladder_s": [], "h_evals_s": []}
+    results = []
+    for way in order:
+        stages = {}
+        steps = mock.patch.object(gp, "coset_ladder", ntt._ladder_steps) if way == "steps" else contextlib.nullcontext()
+        with steps:
+            sec, h = wall_s(torch, lambda: gp.h_evals(key, w_mont, stages))
+        out["ladder_s"].append(stages["s_ntt"])
+        out["h_evals_s"].append(sec)
+        results.append(h)
+    if any(max_abs_err(torch, r, results[0]) for r in results[1:]):
+        raise AssertionError("h_evals through K12 differs from the stage-at-a-time ladder at real size")
+    log(f"H ladder at 2^{key.log_m}: K12 {out['ladder_s'][0]:.4f}, {out['ladder_s'][2]:.4f} s, ladder steps "
+        f"{out['ladder_s'][1]:.3f} s; h_evals bitwise equal")
+    out.update(log_m=key.log_m, rows=LADDER_ROWS, bitwise_equal=True)
+    return out
 
 
 def fold_turns(torch, curve, acc, window):
@@ -1134,6 +1291,7 @@ def run(torch, device, peak_muls, sm_clock_hz):
     from zkp2p_tpu_torch.ops import cuda_build
     from zkp2p_tpu_torch.ops.cuda_msm_window import chunk_steps
     from zkp2p_tpu_torch.ops.msm import default_lanes
+    from zkp2p_tpu_torch.ops.ntt import pass_plan
     from zkp2p_tpu_torch.prover.groth16_gpu import key_from_numpy, prove_gpu
     from zkp2p_tpu_torch.prover.vector import load_vector
     from zkp2p_tpu_torch.snark.groth16 import proof_bytes
@@ -1148,7 +1306,8 @@ def run(torch, device, peak_muls, sm_clock_hz):
                 log(f"ptxas {stem}: {line.strip()}")
     log(f"build: {build_s:.1f} s")
 
-    # the main path's shapes: NTT stage products; G1's K2 and K4 at the h
+    # the main path's shapes: K1 at the domain (a*b; the NTT's products
+    # run in K12); G1's K2 and K4 at the h
     # MSM's lanes (K2 in its lane tree; K4 did its Horner fold before
     # K10); G1's K3 in the affine arm's narrow tables (lanes capped at
     # 16,384, as the prover sets them; K6 builds the windowed path's);
@@ -1159,7 +1318,7 @@ def run(torch, device, peak_muls, sm_clock_hz):
     narrow_lanes = default_lanes(V["c_narrow"] + 1, cap=16384)
     b2_lanes = default_lanes(V["b_narrow"], cap=4096)
     geometry = {
-        "mont_mul": 1 << (V["log_m"] - 1),
+        "mont_mul": 1 << V["log_m"],
         "g1_add": h_lanes, "g1_add_mixed": narrow_lanes, "g1_double": h_lanes,
         "g2_add": b2_lanes, "g2_add_mixed": b2_lanes, "g2_double": b2_lanes,
     }
@@ -1199,6 +1358,7 @@ def run(torch, device, peak_muls, sm_clock_hz):
         check_window_msm(torch, g2, device)
     for g2 in (False, True):
         rows.update(check_fold_kernels(torch, g2, fold_shapes[g2], peak_muls, sm_clock_hz, device))
+    rows.update(check_ntt_kernel(torch, peak_muls, device))
     log(f"kernels against plain: {time.perf_counter() - t0:.1f} s")
 
     # phase 3
@@ -1222,6 +1382,7 @@ def run(torch, device, peak_muls, sm_clock_hz):
     log(f"real-size synthetic key: {setup_s:.1f} s")
     rs = random.Random(SEED + 5)
     runs, jac_launches, peak_gib = real_size_proofs(torch, key, witness, ix, tables, rs, device, JACOBIAN_TIMED)
+    ntt_same_run = compare_ladder(torch, key, witness, device)
     msm_h_same_run = compare_msm_h(torch, key, device)
     msm_b2_same_run = compare_msm_b2(torch, key, device)
     proof_same_run = compare_proofs(torch, key, witness, rs, device)
@@ -1247,6 +1408,10 @@ def run(torch, device, peak_muls, sm_clock_hz):
               and k[len("zk_"):] not in set(NOT_ON_JACOBIAN) & set(NOT_ON_AFFINE)]
     if unused:
         raise AssertionError(f"launchers launched on no path: {unused}")
+    passes = 2 * len(pass_plan(V["log_m"]))  # the iNTT's and the NTT's, all three rows in each
+    if any(v["zk_fr_ntt_pass"] != passes for v in by_path.values()):
+        raise AssertionError(f"K12 launched {[v['zk_fr_ntt_pass'] for v in by_path.values()]} times a proof, "
+                             f"expected {passes}")
 
     kernels = []
     for launcher in cuda_build.LAUNCHERS:
@@ -1271,7 +1436,7 @@ def run(torch, device, peak_muls, sm_clock_hz):
     shape = {"shape": "venmo 1024/6400", "log_m": V["log_m"], "n_wires": V["n_wires"]}
     real = dict(shape, path="jacobian", build_s=build_s, key_setup_s=setup_s, **summary(runs, peak_gib))
     real_affine = dict(shape, path="affine", arms=AFFINE_ARMS, **summary(aff_runs, aff_peak_gib))
-    return kernels, real, real_affine, profile, msm_h_same_run, msm_b2_same_run, proof_same_run
+    return kernels, real, real_affine, profile, ntt_same_run, msm_h_same_run, msm_b2_same_run, proof_same_run
 
 
 def main() -> int:
@@ -1288,7 +1453,7 @@ def main() -> int:
     peak_muls = props.multi_processor_count * INT_MULS_PER_SM_CLK * sm_clock_hz
     log(f"{card}; {props.multi_processor_count} SMs, max SM clock {sm_clock_hz / 1e6:.0f} MHz")
     t0 = time.perf_counter()
-    kernels, real, real_affine, profile, msm_h_same_run, msm_b2_same_run, proof_same_run = run(
+    kernels, real, real_affine, profile, ntt_same_run, msm_h_same_run, msm_b2_same_run, proof_same_run = run(
         torch, torch.device("cuda", 0), peak_muls, sm_clock_hz)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     print(card)
@@ -1296,6 +1461,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"real_size": real}))
     print(json.dumps({"real_size_affine": real_affine}))
+    print(json.dumps({"ntt_same_run": ntt_same_run}))
     print(json.dumps({"msm_h_same_run": msm_h_same_run}))
     print(json.dumps({"msm_b2_same_run": msm_b2_same_run}))
     print(json.dumps({"proof_same_run": proof_same_run}))

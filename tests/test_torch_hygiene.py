@@ -16,7 +16,7 @@ import torch
 
 from zkp2p_tpu_torch.curve import tcurve
 from zkp2p_tpu_torch.field.tfield import FQ, FR
-from zkp2p_tpu_torch.ops import cuda_build, cuda_curve, cuda_mont, cuda_msm_fold, cuda_msm_window
+from zkp2p_tpu_torch.ops import cuda_build, cuda_curve, cuda_mont, cuda_msm_fold, cuda_msm_window, cuda_ntt, ntt
 from zkp2p_tpu_torch.prover.groth16_gpu import key_from_numpy, prove_gpu
 from zkp2p_tpu_torch.prover.vector import VECTOR_PATH, load_vector
 from zkp2p_tpu_torch.utils.device import resolve_device
@@ -128,7 +128,12 @@ def test_wrappers_on_cpu_take_the_plain_path_and_count_nothing():
         planes = tuple(_rand((2, 2) + elem, 60 + k) for k in range(3))
         got = fold(init, planes, 2)
         assert all(torch.equal(x, y) for x, y in zip(got, fold_plain(init, planes, 2)))
-    assert set(cuda_build.LAUNCHES) == set(cuda_build.LAUNCHERS) and len(cuda_build.LAUNCHERS) == 14
+    tw = ntt.domain(3, torch.device("cpu"))["tw"]
+    x = _rand((2, 8), 70)
+    for s0, k, bitrev, factor in ((0, 2, True, _rand((8,), 71)), (2, 1, False, _rand((), 72))):
+        assert torch.equal(cuda_ntt.ntt_pass(x, tw, s0, k, bitrev, factor),
+                           cuda_ntt.ntt_pass_plain(x, tw, s0, k, bitrev, factor))
+    assert set(cuda_build.LAUNCHES) == set(cuda_build.LAUNCHERS) and len(cuda_build.LAUNCHERS) == 15
     assert all(v == 0 for v in cuda_build.LAUNCHES.values())
 
 
@@ -157,6 +162,16 @@ def test_wrappers_refuse_other_devices():
         for i, p in ((init, stacked.to("meta")), (init.to("meta"), stacked), (init.to("meta"), stacked.to("meta"))):
             with pytest.raises(ValueError):
                 fold((i,) * 3, (p,) * 3, 4)
+
+
+def test_ntt_pass_refuses_other_devices():
+    x = torch.zeros(2, 8, 16, dtype=torch.int32)
+    tw = torch.zeros(4, 16, dtype=torch.int32)
+    for xs, tws in ((x.to("meta"), tw.to("meta")), (x, tw.to("meta")), (x.to("meta"), tw)):
+        with pytest.raises(ValueError):
+            cuda_ntt.ntt_pass(xs, tws, 0, 3, bitrev=True)
+    with pytest.raises(ValueError):
+        cuda_ntt.ntt_pass(x, tw, 0, 3, factor=torch.zeros(16, dtype=torch.int32, device="meta"))
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

@@ -74,6 +74,11 @@ SOURCES = {
         "zk_g1_horner_fold": (_VP,) * 9 + (_I64, _I32, _I32, _VP, _VP),
         "zk_g2_horner_fold": (_VP,) * 9 + (_I64, _I32, _I32, _VP, _VP),
     },
+    "ntt": {
+        # in, out, twiddles, factor (or null), rows, log_m, s0, k, bitrev,
+        # factor stride, consts, stream
+        "zk_fr_ntt_pass": (_VP,) * 4 + (_I64,) + (_I32,) * 5 + (_VP, _VP),
+    },
 }
 
 LAUNCHERS = tuple(name for fns in SOURCES.values() for name in fns)

@@ -7,7 +7,7 @@ reference's defaults:
 
   witness -> Montgomery limbs (n_wires, 16)
     |- Az/Bz: gathered coefficient products (K1), segment sums
-    |- H: 3 iNTT -> coset shift -> 3 NTT -> a*b - c
+    |- H: 3 iNTT -> coset shift -> 3 NTT (as 3 rows of one batch) -> a*b - c
     |- signed w=4 digit planes of the witness; of H, w=4 (or w=16 for
     |  the bucket h MSM)
     '- 4 G1 MSMs (a, b1, c, h) + 1 G2 MSM (b2); with width metadata each
@@ -41,7 +41,7 @@ from ..field.tower import Fq2
 from ..ops.msm import default_lanes, msm_windowed_signed, signed_digit_planes_from_limbs
 from ..ops.msm_affine import msm_windowed_affine
 from ..ops.msm_bucket import msm_bucket_affine
-from ..ops.ntt import coset_shift, intt, ntt
+from ..ops.ntt import coset_ladder
 from ..snark.groth16 import Proof, coset_gen
 from ..utils.device import resolve_device
 
@@ -254,15 +254,18 @@ def abc_evals(dpk: DeviceProvingKey, w_mont: torch.Tensor):
 def h_evals(dpk: DeviceProvingKey, w_mont: torch.Tensor, stages=None) -> torch.Tensor:
     """Coset evaluations d_j = (A*B - C)(g*w^j), (m, 16) Montgomery limbs:
     the scalars of the h MSM (Z is constant on the coset and folded into
-    the h bases)."""
-    g = coset_gen(dpk.log_m)
+    the h bases).
+
+    The reference (``zkp2p_tpu/prover/groth16_tpu.py:525-538``) runs
+    ntt(coset_shift(intt(ev))) on each of Az, Bz, Cz.  Here the three
+    are rows of one (3, m, 16) batch through ``coset_ladder``: the iNTT's
+    passes, then the NTT's, whose first pass multiplies by the table
+    g^i / m as it loads (the iNTT's 1/m and the coset shift in one
+    product); each pass is one K12 launch over all three rows (2^23:
+    3 + 3 launches)."""
     log_m = dpk.log_m
-    a_ev, b_ev, c_ev = _timed(stages, "matvec", lambda: abc_evals(dpk, w_mont))
-
-    def ladder(ev):
-        return ntt(coset_shift(intt(ev, log_m), g, log_m), log_m)
-
-    a_cos, b_cos, c_cos = _timed(stages, "ntt", lambda: (ladder(a_ev), ladder(b_ev), ladder(c_ev)))
+    abc = _timed(stages, "matvec", lambda: torch.stack(abc_evals(dpk, w_mont)))
+    a_cos, b_cos, c_cos = _timed(stages, "ntt", lambda: coset_ladder(abc, coset_gen(log_m), log_m))
     return FR.sub(FR.mul(a_cos, b_cos), c_cos)
 
 
