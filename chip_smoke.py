@@ -9,10 +9,11 @@ and prints no result line):
 1. Build: every kernel source under zkp2p_tpu_torch/csrc/ with nvcc for
    sm_90a, one process per source, all started together, timed as
    set-up.
-2. Kernels against plain: each of the fifteen launchers (K1 mont_mul;
+2. Kernels against plain: each of the seventeen launchers (K1 mont_mul;
    K2 add, K3 add_mixed, K4 double for G1 and G2; K5 mont_pow; K6/K8 the
    G1 and G2 window tables, K7/K9 the G1 and G2 window accumulates;
-   K10/K11 the G1 and G2 Horner folds; K12 the NTT pass) on
+   K10/K11 the G1 and G2 Horner folds; K12 the NTT pass; K13 the CSR
+   sparse matvec over Fr; K14 the signed digit recode) on
    random canonical inputs with the special cases (zero, one, p-1; P+P,
    P+(-P), infinity, the (0, 0) affine sentinel; for K7/K9 also acc
    equal to its entry and to its negation, and e = 16 digits) at batches
@@ -46,6 +47,15 @@ and prints no result line):
    plan at the H ladder's shape (3 rows): timed with its bound, its plain
    version timed on the same inputs, both held bitwise; and ntt and intt
    of one 2^23 row against _ntt_core (K1 products, plain add/sub).
+   K13 on random CSR matrices of 1, 257 and 2^20 rows (an empty row, a
+   wire repeated in a row, coefficients and witness values 0, 1, r-1, and
+   in the 257-row one a row of 100,001 nonzeros), held bitwise against
+   fr_matvec_plain and sample rows against Python ints; K14 at 1, 257 and
+   2^20 scalars at w = 4 and w = 16 with the carry-chain scalars, held
+   bitwise (mags and negs) against the Kogge-Stone recode and a sample
+   against a serial recode over Python ints; K14 then at the path's
+   shapes (the witness at w = 4, 2^23 at w = 4 and w = 16), timed with
+   its bound and its plain version, held bitwise.
 3. Test vector: prove_gpu on zkp2p_tpu_torch/data/port_vector.npz gives
    the committed proof byte for byte, with the default (Jacobian) MSM
    arms and with the affine ones (msm_affine=True, msm_h="bucket").
@@ -54,7 +64,14 @@ and prints no result line):
    one warm-up and three timed proofs through prove_gpu.  Every base is
    t_j*G from a small host table, so each of the five MSMs is checked
    against (sum_i s_i t_idx(i) mod r)*G computed from the scalars the
-   prover used.  h_evals is held against the plain path (CPU) at 2^16,
+   prover used.  K13 on the key's A and B (their CSR forms; the CSR's
+   extra bytes and longest row logged), timed with its bound and its
+   plain version, held bitwise.  The witness side at real size (witness
+   upload, matvec, ladder and planes as prove_gpu runs them) in turns:
+   new (u64 upload, K13, K14), old (host widen, gathered K1 products and
+   segment sums, Kogge-Stone), new; abc and the planes held bitwise
+   equal (the witness_same_run line).  h_evals is held against the plain
+   path (CPU) at 2^16,
    and at real size through K12 against the stage-at-a-time ladder
    (ntt._ladder_steps) in turns (K12, ladder steps, K12; bitwise equal).
    Then the h MSM at real size (2^23 bases, 64 planes) once each way in
@@ -66,10 +83,10 @@ and prints no result line):
    _fold_steps; bitwise equal); the b2 MSM at real size (its narrow and
    wide classes and their join) the same way (step loops, K8/K9 and K11,
    twice, step loops), and its wide fold both ways in turns (_fold_steps,
-   K11, K11, _fold_steps); then three proofs with the same r and s, their
+   K11, K11, _fold_steps); then four proofs with the same r and s, their
    bytes held equal: the G1 and G2 MSMs through the step loops (accumulate
-   and fold), with only the fold through _fold_steps, and through the
-   kernels.
+   and fold), with only the fold through _fold_steps, through the
+   kernels, and through the kernels with the old witness side.
 5. Real size, affine path: the same key and witness, one timed proof
    with msm_affine=True, msm_h="bucket" (the batch-affine accumulate and
    the w=16 sorted-prefix bucket h MSM; no warm-up: every kernel and
@@ -77,19 +94,22 @@ and prints no result line):
 
 The launch counts are reset just before the first timed proof of each
 path and read just after it; every kernel of a path must have launched in
-its run (on the Jacobian path K1, K2 and K6-K12, and neither K3 nor K4;
-on the affine path K1-K3, K5, K10-K12, and not K4: after the fold
+its run (on the Jacobian path K1, K2 and K6-K14, and neither K3 nor K4;
+on the affine path K1-K3, K5, K10-K14, and not K4: after the fold
 kernels K4 launches on no path, and is asserted to launch 0 times); K12
-launches once a pass of the iNTT and of the NTT on each path.
+launches once a pass of the iNTT and of the NTT on each path, K13 and
+K14 twice a proof on each path, and K1 at most 5 times on the Jacobian
+path (printed).
 
 Before the last line it prints the card's name and power limit, a
 profile of one more Jacobian proof, run after every timed proof (the
 device's busy share and the ops with the most device time, from
 torch.profiler), one JSON line with the
-fifteen kernels (checks, launches on each path, times and bounds), one each
-with the two paths' per-stage times and peak device memory, and one
-each with the same-run comparisons of the H ladder (ntt_same_run), the h
-MSM, the b2 MSM and the proof.  The last line is
+seventeen kernels (checks, launches on each path, times and bounds), one
+each with the two paths' per-stage times, K1 launches and peak device
+memory, and one each with the same-run comparisons of the witness side
+(witness_same_run), the H ladder (ntt_same_run), the h MSM, the b2 MSM
+and the proof.  The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -158,18 +178,27 @@ REPLACES = {
     "g1_horner_fold": "zkp2p_tpu/ops/pallas_curve.py:364",
     "g2_horner_fold": "zkp2p_tpu/ops/pallas_curve.py:380",
     "fr_ntt_pass": "zkp2p_tpu/ops/pallas_mont.py:201",
+    "fr_matvec": "zkp2p_tpu/ops/pallas_mont.py:201 (segment sum: zkp2p_tpu/field/jfield.py:431)",
+    "signed_recode": "zkp2p_tpu/ops/msm.py:129 (XLA, no Pallas row)",
 }
 WINDOW_KERNELS = ("g1_window_table", "g1_window_accumulate", "g2_window_table", "g2_window_accumulate")
 FOLD_KERNELS = ("g1_horner_fold", "g2_horner_fold")
 SOURCE = {"mont_mul": "mont_mul.cu", "mont_pow": "mont_pow.cu",
           **dict.fromkeys(WINDOW_KERNELS, "msm_window.cu"),
-          **dict.fromkeys(FOLD_KERNELS, "msm_fold.cu"), "fr_ntt_pass": "ntt.cu"}  # the rest: point_ops.cu
+          **dict.fromkeys(FOLD_KERNELS, "msm_fold.cu"), "fr_ntt_pass": "ntt.cu",
+          "fr_matvec": "matvec.cu", "signed_recode": "recode.cu"}  # the rest: point_ops.cu
 # the launchers each real-size path must have launched, and must not have
 _POINT_KERNELS = ("g1_add", "g2_add") + FOLD_KERNELS
+# the witness side: K13 (Az, Bz) and K14 (the witness's planes, H's)
+WITNESS_KERNELS = ("fr_matvec", "signed_recode")
 PATH_KERNELS = {
-    "jacobian": ("mont_mul", "fr_ntt_pass") + _POINT_KERNELS + WINDOW_KERNELS,
-    "affine": ("mont_mul", "fr_ntt_pass") + _POINT_KERNELS + ("g1_add_mixed", "g2_add_mixed", "mont_pow"),
+    "jacobian": ("mont_mul", "fr_ntt_pass") + WITNESS_KERNELS + _POINT_KERNELS + WINDOW_KERNELS,
+    "affine": ("mont_mul", "fr_ntt_pass") + WITNESS_KERNELS + _POINT_KERNELS
+    + ("g1_add_mixed", "g2_add_mixed", "mont_pow"),
 }
+# K1's launches left on a Jacobian proof: to_mont of the witness, Cz =
+# Az*Bz, a*b after the ladder, from_mont of the witness and of H
+K1_JACOBIAN_MAX = 5
 # K6/K8 build the windowed path's tables; K10/K11 do every path's doublings
 NOT_ON_JACOBIAN = ("g1_add_mixed", "g2_add_mixed", "g1_double", "g2_double")
 NOT_ON_AFFINE = ("g1_double", "g2_double")
@@ -191,6 +220,15 @@ FOLD_CASES = ((1, 3, 4), (257, 64, 4), (1, 16, 16))
 # 2^23 plan's passes at the H ladder's shape (three rows)
 NTT_CHECK_LOGS = (1, 2, 11, 12, 16)
 LADDER_ROWS = 3
+# K13: rows of the random CSR matrices held bitwise against plain (about
+# three nonzeros a row, special rows; the 257-row one also holds a row of
+# MATVEC_LONG_ROW nonzeros), before the synthetic key's A and B
+MATVEC_BATCHES = (1, 257, 1 << 20)
+MATVEC_LONG_ROW = 100_001
+# K14: scalars held bitwise against plain at each window, before the
+# path's shapes (the witness at w = 4, H at w = 4 and w = 16)
+RECODE_BATCHES = (1, 257, 1 << 20)
+RECODE_WINDOWS = (4, 16)
 
 
 def log(msg: str) -> None:
@@ -857,6 +895,246 @@ def check_ntt_kernel(torch, peak_muls_per_s, device):
     return {"fr_ntt_pass": row}
 
 
+def recode_specials():
+    """Scalars that exercise the recode's carries: 0, 1, r-1, 2^253; all
+    0xF nibbles below r; chains through digits equal to half (0x88..89 at
+    w = 4, 0x8000 limbs above 0x8001 at w = 16); digits 2^w - 1 that take
+    a carry in (mag 0, neg)."""
+    from zkp2p_tpu_torch.field.bn254 import R
+
+    return [0, 1, R - 1, 1 << 253, (1 << 252) - 1, int("8" * 63, 16) + 1,
+            sum(0x8000 << (16 * i) for i in range(15)) + 1, 0xF9, 0xFFF9, 0xFFFF_9000,
+            0xFFFF_FFFF_8001_0000_0000_9000]
+
+
+def serial_recode(k: int, window: int):
+    """Signed digits of the Python int k, least significant first with the
+    carry in hand (K14's recurrence), most significant first out."""
+    half, full = 1 << (window - 1), 1 << window
+    mags, negs, carry = [], [], 0
+    for j in range(256 // window):
+        e = ((k >> (window * j)) & (full - 1)) + carry
+        carry = int(e > half)
+        mags.append(full - e if carry else e)
+        negs.append(bool(carry))
+    return mags[::-1], negs[::-1]
+
+
+def check_recode_kernel(torch, device):
+    """K14 against its plain version (the Kogge-Stone recode, bitwise on
+    mags and negs) at RECODE_BATCHES x RECODE_WINDOWS with the special
+    scalars first, and a sample against the serial recode over Python
+    ints; then at the path's shapes (the witness at w = 4, H's 2^23 at
+    w = 4 and w = 16), timed beside its bound and its plain version."""
+    from zkp2p_tpu_torch.field.tfield import limbs_to_int
+    from zkp2p_tpu_torch.ops import cuda_recode, msm
+    from zkp2p_tpu_torch.ops.cuda_mont import limbs_of
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 40)
+    specials = recode_specials()
+
+    def scalars(n):
+        x = rand_canon(torch, gen, (n,), device)
+        k = min(n, len(specials))
+        x[:k] = torch.tensor([limbs_of(v) for v in specials[:k]], dtype=torch.int32, device=device)
+        return x
+
+    def check(x, window):
+        got = cuda_recode.signed_recode(x, window)
+        want = msm.signed_digit_planes_from_limbs(x, window)
+        if max_abs_err(torch, got, want):
+            raise AssertionError(f"signed_recode (n={x.shape[0]}, w={window}) differs from its plain version")
+        return got
+
+    for n in RECODE_BATCHES:
+        x = scalars(n)
+        for window in RECODE_WINDOWS:
+            mags, negs = check(x, window)
+            xs, ms, ns = x[:32].cpu().numpy(), mags[:, :32].cpu().numpy(), negs[:, :32].cpu().numpy()
+            for i in range(xs.shape[0]):
+                if serial_recode(limbs_to_int(xs[i]), window) != (ms[:, i].tolist(), ns[:, i].tolist()):
+                    raise AssertionError(f"signed_recode (w={window}) scalar {i} differs from the serial recode")
+    log(f"K14 signed_recode: bitwise equal to plain at {RECODE_BATCHES} scalars, w = {RECODE_WINDOWS}, special "
+        f"scalars included; sample equal to the serial recode")
+
+    shapes = {"witness, w=4": (VENMO["n_wires"], 4), "H, w=4": (1 << VENMO["log_m"], 4),
+              "H, w=16 (bucket h MSM)": (1 << VENMO["log_m"], 16)}
+    row = {}
+    for label, (n, window) in shapes.items():
+        x = scalars(n)
+        ms, got = cuda_ms(torch, lambda: cuda_recode.signed_recode(x, window), 10)
+        plain_ms, want = cuda_ms(torch, lambda: msm.signed_digit_planes_from_limbs(x, window), 1, warmup=False)
+        if max_abs_err(torch, got, want):
+            raise AssertionError(f"signed_recode ({label}, n={n}) differs from its plain version")
+        del want
+        nbytes = n * 64 + (256 // window) * n * 5  # limbs in; an int32 magnitude and a bool sign a digit out
+        at = dict(shape=[n], window=window, max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                  bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+        if row:
+            row.setdefault("at_shapes", {})[label] = at
+        else:
+            row.update(at, scalars=label)
+        log(f"K14 at {label} ({n} scalars): bitwise equal to plain; {ms:.4f} ms (plain {plain_ms:.1f}, bound "
+            f"{at['bound_ms']:.4f} by bytes)")
+    row["check"] = (f"bitwise equal to plain (mags and negs) at {list(RECODE_BATCHES)} scalars x w = "
+                    f"{list(RECODE_WINDOWS)} with special scalars, sample equal to a serial recode over Python "
+                    f"ints, and at the path's shapes (shape, at_shapes)")
+    row["library_ms_reason"] = "no PyTorch call computes a signed base-2^w recode"
+    return {"signed_recode": row}
+
+
+def matvec_case(torch, gen, rows, long_row, device):
+    """A random CSR matrix of `rows` rows (three nonzeros a row on average,
+    rows unsorted) over rows + 3 witness values; from 4 rows up, row 1
+    empty, row 2 one wire four times, row 3 the coefficients 0, 1, r-1
+    against the witness values 0, 1, r-1; with `long_row`, that many
+    nonzeros more in the last row.  Returns (csr, w)."""
+    from zkp2p_tpu_torch.field.bn254 import R
+    from zkp2p_tpu_torch.ops.cuda_matvec import csr_from_rows
+    from zkp2p_tpu_torch.ops.cuda_mont import limbs_of
+
+    n_wires, nnz = rows + 3, 3 * rows + long_row
+    row = torch.randint(0, rows, (nnz,), generator=gen, device=device)
+    wire = torch.randint(0, n_wires, (nnz,), generator=gen, device=device)
+    coeff = rand_canon(torch, gen, (nnz,), device)
+    w = rand_canon(torch, gen, (n_wires,), device)
+    special = torch.tensor([limbs_of(v) for v in (0, 1, R - 1)], dtype=torch.int32, device=device)
+    w[:3] = special
+    if rows >= 4:
+        row[row == 1] = 0
+        row[:4], wire[:4] = 2, 7
+        row[4:13] = 3
+        wire[4:13] = torch.arange(3, device=device).repeat_interleave(3)
+        coeff[4:13] = special.repeat(3, 1)
+    if long_row:
+        row[-long_row:] = rows - 1
+    return csr_from_rows(coeff, wire, row, rows), w
+
+
+def check_matvec_kernel(torch, device):
+    """K13 against its plain version (bitwise) on random CSR matrices of
+    MATVEC_BATCHES rows with the special rows and one row of
+    MATVEC_LONG_ROW nonzeros, and sample rows against Python ints."""
+    from zkp2p_tpu_torch.field.bn254 import MONT_R, R
+    from zkp2p_tpu_torch.field.tfield import limbs_to_int
+    from zkp2p_tpu_torch.ops import cuda_matvec
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 41)
+    rinv = pow(MONT_R, -1, R)
+    for rows in MATVEC_BATCHES:
+        long_row = MATVEC_LONG_ROW if rows == 257 else 0
+        csr, w = matvec_case(torch, gen, rows, long_row, device)
+        got = cuda_matvec.fr_matvec(*csr, w)
+        if max_abs_err(torch, got, cuda_matvec.fr_matvec_plain(*csr, w)):
+            raise AssertionError(f"fr_matvec ({rows} rows) differs from its plain version")
+        coeff, wire, offsets, wh, gh = (t.cpu().numpy() for t in (*csr, w, got))
+        for i in sorted({*range(min(rows, 8)), rows - 1}):
+            js = range(offsets[i], offsets[i + 1])
+            want = sum(limbs_to_int(coeff[j]) * limbs_to_int(wh[wire[j]]) for j in js) * rinv % R
+            if limbs_to_int(gh[i]) != want:
+                raise AssertionError(f"fr_matvec ({rows} rows) row {i} ({len(js)} nonzeros) differs from Python ints")
+    log(f"K13 fr_matvec: bitwise equal to plain at {MATVEC_BATCHES} rows (special rows; a row of "
+        f"{MATVEC_LONG_ROW} nonzeros); sample rows equal to Python ints")
+    return {"fr_matvec": {"check": (
+        f"bitwise equal to plain at {list(MATVEC_BATCHES)} rows with an empty row, a repeated wire, coefficients "
+        f"and witness values 0, 1, r-1 and a row of {MATVEC_LONG_ROW} nonzeros, sample rows equal to Python ints, "
+        f"and on the synthetic key's A and B over 2^{VENMO['log_m']} rows (shape, at_shapes)"),
+        "library_ms_reason": "no PyTorch call computes a sparse product over Fr (torch.sparse adds floats or "
+                             "integers that wrap)"}}
+
+
+def time_matvec_path(torch, key, witness, peak_muls_per_s, device):
+    """K13 on the synthetic key's A and B (their CSR forms, as the prover
+    builds them) against the real-size witness: timed beside its bound
+    and its plain version, held bitwise.  Logs the CSR's extra bytes on
+    the card and its longest row."""
+    from zkp2p_tpu_torch.ops import cuda_matvec
+    from zkp2p_tpu_torch.prover import groth16_gpu as gp
+
+    w = gp.witness_to_device(witness, device)
+    m = 1 << key.log_m
+    row = {}
+    for name in ("a", "b"):
+        csr = gp.key_csr(key, name)
+        nnz = csr.wire.numel()
+        copied = csr.coeff.data_ptr() != getattr(key, f"{name}_coeff").data_ptr()
+        extra = csr.wire.nbytes + csr.offsets.nbytes + (csr.coeff.nbytes if copied else 0)
+        fan_in = int(csr.offsets.diff().max())
+        out = torch.empty(m, 16, dtype=torch.int32, device=device)
+        ms, got = cuda_ms(torch, lambda: cuda_matvec.fr_matvec(*csr, w, out=out), 10)
+        plain_ms, want = cuda_ms(torch, lambda: cuda_matvec.fr_matvec_plain(*csr, w), 1, warmup=False)
+        if max_abs_err(torch, got, want):
+            raise AssertionError(f"fr_matvec on the key's {name.upper()} differs from its plain version")
+        del want
+        # coefficients and wire ids once a nonzero, offsets, the witness
+        # read once, the rows written once; one product a nonzero
+        nbytes = nnz * (64 + 4) + csr.offsets.nbytes + w.numel() * 4 + m * 64
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nnz * MULS_PER_MONT / peak_muls_per_s
+        at = dict(shape=[m, nnz], max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+                  bound_by="bytes" if t_bytes > t_ops else "operations", max_fan_in=fan_in,
+                  csr_extra_bytes=extra, coeff_copied=copied)
+        if row:
+            row.setdefault("at_shapes", {})[name.upper()] = at
+        else:
+            row.update(at, matrix=name.upper())
+        log(f"K13 on the key's {name.upper()} ({nnz} nonzeros over {m} rows; longest row {fan_in}; CSR adds "
+            f"{extra} bytes on the card{', coefficients sorted into a copy' if copied else ''}): bitwise equal "
+            f"to plain; {ms:.4f} ms (plain {plain_ms:.1f}, bound {at['bound_ms']:.4f} by {at['bound_by']})")
+    return row
+
+
+def old_witness_side(stack, gp):
+    """Patch the prover's witness side back to the routes K13, K14 and the
+    u64 upload replaced (for the duration of `stack`): the host-widened
+    upload, the gathered K1 products with segment sums, the Kogge-Stone
+    recode."""
+    from unittest import mock
+
+    from zkp2p_tpu_torch.ops import msm
+
+    stack.enter_context(mock.patch.object(gp, "witness_to_device", gp._witness_to_device_widened))
+    stack.enter_context(mock.patch.object(gp, "abc_evals", gp._abc_evals_gathered))
+    stack.enter_context(mock.patch.object(gp, "signed_digit_planes", msm.signed_digit_planes_from_limbs))
+
+
+def compare_witness_side(torch, key, witness, device):
+    """The proof's witness side at real size (witness -> device, the
+    matvec, the H ladder and the digit planes, as prove_gpu runs them) in
+    turns: new (u64 upload, K13, K14), old (host widen, gathered K1
+    products and segment sums, Kogge-Stone), new; the abc buffer, the
+    witness's and H's planes held bitwise equal.  Stage seconds of each."""
+    import contextlib
+    from unittest import mock
+
+    from zkp2p_tpu_torch.prover import groth16_gpu as gp
+
+    order = ["new", "old", "new"]
+    out = {"order": order, "stage_s": []}
+    first = None
+    for way in order:
+        stages, kept = {}, {}
+        with contextlib.ExitStack() as stack:
+            if way == "old":
+                old_witness_side(stack, gp)
+            abc_of = gp.abc_evals
+            stack.enter_context(mock.patch.object(gp, "abc_evals", lambda d, w: kept.setdefault("abc", abc_of(d, w))))
+
+            def side():
+                w_mont = gp._timed(stages, "witness", lambda: gp.witness_to_device(witness, device))
+                return gp._h_and_planes(key, w_mont, gp.WINDOW, stages)
+
+            stages["s_total"], ((w_planes, _), h_planes) = wall_s(torch, side)
+        got = (kept["abc"], *w_planes, *h_planes)
+        out["stage_s"].append({k[2:]: v for k, v in stages.items() if k.startswith("s_")})
+        if first is None:
+            first = got
+        elif any(max_abs_err(torch, g, f) for g, f in zip(got, first)):
+            raise AssertionError(f"the witness side ({way}) differs from the first run")
+        log(f"witness side ({way}): {json.dumps(out['stage_s'][-1])}")
+    out.update(bitwise_equal=True, compared="abc (3, m, 16), witness planes (mags, negs), H planes (mags, negs)")
+    return out
+
+
 def compare_ladder(torch, key, witness, device):
     """h_evals at real size through K12 (coset_ladder) and through the
     stage-at-a-time ladder (ntt._ladder_steps: _ntt_core with K1 products
@@ -1014,16 +1292,18 @@ def compare_msm_b2(torch, key, device):
 
 
 def compare_proofs(torch, key, witness, rs, device):
-    """Three real-size Jacobian proofs with the same r and s: the G1 and G2
+    """Four real-size Jacobian proofs with the same r and s: the G1 and G2
     MSMs through the step loops (the accumulate over K2/K3 before K6-K9,
     the fold over K4/K2 before K10/K11), with only the fold through
-    _fold_steps, and through the kernels.  The stage seconds of each; the
-    three proofs held byte for byte equal."""
+    _fold_steps, through the kernels, and through the kernels with the old
+    witness side (host widen, gathered K1 products and segment sums,
+    Kogge-Stone recode; old_witness_side).  The stage seconds of each; the
+    four proofs held byte for byte equal."""
     import contextlib
     from unittest import mock
 
     from zkp2p_tpu_torch.ops import msm
-    from zkp2p_tpu_torch.prover.groth16_gpu import prove_gpu
+    from zkp2p_tpu_torch.prover import groth16_gpu as gp
     from zkp2p_tpu_torch.snark.groth16 import proof_bytes
 
     r, s = rs.randrange(1, 1 << 250), rs.randrange(1, 1 << 250)
@@ -1031,6 +1311,7 @@ def compare_proofs(torch, key, witness, rs, device):
         "loop": (("_accumulate_chunked", msm._accumulate_steps), ("horner_fold_planes", msm._fold_steps)),
         "fold_steps": (("horner_fold_planes", msm._fold_steps),),
         "fused": (),
+        "old_witness_side": (),
     }
     out, proofs = {}, []
     for way, patched in patches.items():
@@ -1038,15 +1319,18 @@ def compare_proofs(torch, key, witness, rs, device):
         with contextlib.ExitStack() as stack:
             for attr, fn in patched:
                 stack.enter_context(mock.patch.object(msm, attr, fn))
+            if way == "old_witness_side":
+                old_witness_side(stack, gp)
             stages["s_total"], proof = wall_s(
-                torch, lambda: prove_gpu(key, witness, r=r, s=s, device=device, stages=stages))
+                torch, lambda: gp.prove_gpu(key, witness, r=r, s=s, device=device, stages=stages))
         proofs.append(proof_bytes(proof))
         out[way] = {k[2:]: v for k, v in stages.items() if k.startswith("s_")}
         log(f"real-size proof ({way}): {json.dumps(out[way])}")
     if any(p != proofs[-1] for p in proofs):
         raise AssertionError("the real-size proofs through the kernels and through the step loops differ")
     log(f"real-size proof, same r and s: step loops {out['loop']['total']:.2f} s, fold by _fold_steps "
-        f"{out['fold_steps']['total']:.2f} s, kernels {out['fused']['total']:.2f} s; equal bytes")
+        f"{out['fold_steps']['total']:.2f} s, kernels {out['fused']['total']:.2f} s, kernels with the old witness "
+        f"side {out['old_witness_side']['total']:.2f} s; equal bytes")
     return {"order": list(patches), "stage_s": out, "proof_bytes_equal": True}
 
 
@@ -1237,8 +1521,9 @@ def check_h_evals(torch, device):
                 torch.randint(0, n_wires, (nnz,), generator=gen), torch.randint(0, rows, (nnz,), generator=gen))
 
     (ac, aw, ar), (bc, bw, br) = mat(nnz_a), mat(nnz_b)
-    cpu = SimpleNamespace(log_m=log_m, a_coeff=ac, a_wire=aw, a_row=ar, b_coeff=bc, b_wire=bw, b_row=br)
+    cpu = SimpleNamespace(log_m=log_m, a_coeff=ac, a_wire=aw, a_row=ar, b_coeff=bc, b_wire=bw, b_row=br, _split={})
     gpu = SimpleNamespace(**{k: (v.to(device) if hasattr(v, "to") else v) for k, v in vars(cpu).items()})
+    gpu._split = {}
     got = h_evals(gpu, w.to(device)).cpu()
     want = h_evals(cpu, w)
     if not torch.equal(got, want):
@@ -1359,6 +1644,8 @@ def run(torch, device, peak_muls, sm_clock_hz):
     for g2 in (False, True):
         rows.update(check_fold_kernels(torch, g2, fold_shapes[g2], peak_muls, sm_clock_hz, device))
     rows.update(check_ntt_kernel(torch, peak_muls, device))
+    rows.update(check_matvec_kernel(torch, device))
+    rows.update(check_recode_kernel(torch, device))
     log(f"kernels against plain: {time.perf_counter() - t0:.1f} s")
 
     # phase 3
@@ -1380,8 +1667,10 @@ def run(torch, device, peak_muls, sm_clock_hz):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     log(f"real-size synthetic key: {setup_s:.1f} s")
+    rows["fr_matvec"].update(time_matvec_path(torch, key, witness, peak_muls, device))
     rs = random.Random(SEED + 5)
     runs, jac_launches, peak_gib = real_size_proofs(torch, key, witness, ix, tables, rs, device, JACOBIAN_TIMED)
+    witness_same_run = compare_witness_side(torch, key, witness, device)
     ntt_same_run = compare_ladder(torch, key, witness, device)
     msm_h_same_run = compare_msm_h(torch, key, device)
     msm_b2_same_run = compare_msm_b2(torch, key, device)
@@ -1409,9 +1698,15 @@ def run(torch, device, peak_muls, sm_clock_hz):
     if unused:
         raise AssertionError(f"launchers launched on no path: {unused}")
     passes = 2 * len(pass_plan(V["log_m"]))  # the iNTT's and the NTT's, all three rows in each
-    if any(v["zk_fr_ntt_pass"] != passes for v in by_path.values()):
-        raise AssertionError(f"K12 launched {[v['zk_fr_ntt_pass'] for v in by_path.values()]} times a proof, "
-                             f"expected {passes}")
+    for launcher, want in (("zk_fr_ntt_pass", passes), ("zk_fr_matvec", 2), ("zk_signed_recode", 2)):
+        if any(v[launcher] != want for v in by_path.values()):
+            raise AssertionError(f"{launcher} launched {[v[launcher] for v in by_path.values()]} times a proof, "
+                                 f"expected {want}")
+    k1_jac = jac_launches["zk_mont_mul"]
+    log(f"K1 mont_mul launches a proof: {k1_jac} on the Jacobian path, {aff_launches['zk_mont_mul']} on the "
+        f"affine path")
+    if k1_jac > K1_JACOBIAN_MAX:
+        raise AssertionError(f"K1 launched {k1_jac} times on the Jacobian path, at most {K1_JACOBIAN_MAX} expected")
 
     kernels = []
     for launcher in cuda_build.LAUNCHERS:
@@ -1434,9 +1729,14 @@ def run(torch, device, peak_muls, sm_clock_hz):
                 "prove_s": [r["s_total"] for r in runs], "peak_device_gib": peak}
 
     shape = {"shape": "venmo 1024/6400", "log_m": V["log_m"], "n_wires": V["n_wires"]}
-    real = dict(shape, path="jacobian", build_s=build_s, key_setup_s=setup_s, **summary(runs, peak_gib))
-    real_affine = dict(shape, path="affine", arms=AFFINE_ARMS, **summary(aff_runs, aff_peak_gib))
-    return kernels, real, real_affine, profile, ntt_same_run, msm_h_same_run, msm_b2_same_run, proof_same_run
+    real = dict(shape, path="jacobian", build_s=build_s, key_setup_s=setup_s, k1_launches=k1_jac,
+                **summary(runs, peak_gib))
+    real_affine = dict(shape, path="affine", arms=AFFINE_ARMS, k1_launches=aff_launches["zk_mont_mul"],
+                       **summary(aff_runs, aff_peak_gib))
+    lines = {"profile": profile, "kernels": kernels, "real_size": real, "real_size_affine": real_affine,
+             "witness_same_run": witness_same_run, "ntt_same_run": ntt_same_run, "msm_h_same_run": msm_h_same_run,
+             "msm_b2_same_run": msm_b2_same_run, "proof_same_run": proof_same_run}
+    return lines
 
 
 def main() -> int:
@@ -1453,18 +1753,11 @@ def main() -> int:
     peak_muls = props.multi_processor_count * INT_MULS_PER_SM_CLK * sm_clock_hz
     log(f"{card}; {props.multi_processor_count} SMs, max SM clock {sm_clock_hz / 1e6:.0f} MHz")
     t0 = time.perf_counter()
-    kernels, real, real_affine, profile, ntt_same_run, msm_h_same_run, msm_b2_same_run, proof_same_run = run(
-        torch, torch.device("cuda", 0), peak_muls, sm_clock_hz)
+    lines = run(torch, torch.device("cuda", 0), peak_muls, sm_clock_hz)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     print(card)
-    print(json.dumps({"profile": profile}))
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"real_size": real}))
-    print(json.dumps({"real_size_affine": real_affine}))
-    print(json.dumps({"ntt_same_run": ntt_same_run}))
-    print(json.dumps({"msm_h_same_run": msm_h_same_run}))
-    print(json.dumps({"msm_b2_same_run": msm_b2_same_run}))
-    print(json.dumps({"proof_same_run": proof_same_run}))
+    for name, value in lines.items():
+        print(json.dumps({name: value}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

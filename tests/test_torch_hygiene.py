@@ -16,7 +16,8 @@ import torch
 
 from zkp2p_tpu_torch.curve import tcurve
 from zkp2p_tpu_torch.field.tfield import FQ, FR
-from zkp2p_tpu_torch.ops import cuda_build, cuda_curve, cuda_mont, cuda_msm_fold, cuda_msm_window, cuda_ntt, ntt
+from zkp2p_tpu_torch.ops import (cuda_build, cuda_curve, cuda_matvec, cuda_mont, cuda_msm_fold, cuda_msm_window,
+                                  cuda_ntt, cuda_recode, msm, ntt)
 from zkp2p_tpu_torch.prover.groth16_gpu import key_from_numpy, prove_gpu
 from zkp2p_tpu_torch.prover.vector import VECTOR_PATH, load_vector
 from zkp2p_tpu_torch.utils.device import resolve_device
@@ -133,7 +134,14 @@ def test_wrappers_on_cpu_take_the_plain_path_and_count_nothing():
     for s0, k, bitrev, factor in ((0, 2, True, _rand((8,), 71)), (2, 1, False, _rand((), 72))):
         assert torch.equal(cuda_ntt.ntt_pass(x, tw, s0, k, bitrev, factor),
                            cuda_ntt.ntt_pass_plain(x, tw, s0, k, bitrev, factor))
-    assert set(cuda_build.LAUNCHES) == set(cuda_build.LAUNCHERS) and len(cuda_build.LAUNCHERS) == 15
+    coeff, w = _rand((6,), 80), _rand((4,), 81)
+    csr = cuda_matvec.csr_from_rows(coeff, torch.tensor([0, 3, 1, 3, 0, 2]), torch.tensor([2, 0, 2, 1, 0, 3]), 5)
+    assert torch.equal(cuda_matvec.fr_matvec(*csr, w), cuda_matvec.fr_matvec_plain(*csr, w))
+    std = _rand((7,), 82)
+    for window in (4, 16):
+        got = msm.signed_digit_planes(std, window)
+        assert all(torch.equal(x, y) for x, y in zip(got, msm.signed_digit_planes_from_limbs(std, window)))
+    assert set(cuda_build.LAUNCHES) == set(cuda_build.LAUNCHERS) and len(cuda_build.LAUNCHERS) == 17
     assert all(v == 0 for v in cuda_build.LAUNCHES.values())
 
 
@@ -172,6 +180,23 @@ def test_ntt_pass_refuses_other_devices():
             cuda_ntt.ntt_pass(xs, tws, 0, 3, bitrev=True)
     with pytest.raises(ValueError):
         cuda_ntt.ntt_pass(x, tw, 0, 3, factor=torch.zeros(16, dtype=torch.int32, device="meta"))
+
+
+def test_witness_side_wrappers_refuse_other_devices():
+    coeff, w = torch.zeros(3, 16, dtype=torch.int32), torch.zeros(2, 16, dtype=torch.int32)
+    csr = cuda_matvec.csr_from_rows(coeff, torch.tensor([0, 1, 1]), torch.tensor([0, 0, 2]), 4)
+    for i in range(4):
+        args = [t.to("meta") if k == i else t for k, t in enumerate((*csr, w))]
+        with pytest.raises(ValueError):
+            cuda_matvec.fr_matvec(*args)
+    with pytest.raises(ValueError):
+        cuda_matvec.fr_matvec(*csr, w, out=torch.zeros(4, 16, dtype=torch.int32, device="meta"))
+    std = torch.zeros(3, 16, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        msm.signed_digit_planes(std.to("meta"), 4)
+    for x in (std, std.to("meta")):  # the launch wrapper takes CUDA tensors only
+        with pytest.raises(ValueError):
+            cuda_recode.signed_recode(x, 4)
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

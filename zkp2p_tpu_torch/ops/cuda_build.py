@@ -79,6 +79,14 @@ SOURCES = {
         # factor stride, consts, stream
         "zk_fr_ntt_pass": (_VP,) * 4 + (_I64,) + (_I32,) * 5 + (_VP, _VP),
     },
+    "matvec": {
+        # coeff, wire, offsets, w, out, rows, consts, stream
+        "zk_fr_matvec": (_VP,) * 5 + (_I64, _VP, _VP),
+    },
+    "recode": {
+        # limbs, mags, negs, n, window, stream
+        "zk_signed_recode": (_VP,) * 3 + (_I64, _I32, _VP),
+    },
 }
 
 LAUNCHERS = tuple(name for fns in SOURCES.values() for name in fns)

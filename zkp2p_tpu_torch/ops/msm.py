@@ -13,7 +13,10 @@ accumulate them; ``ops.cuda_msm_window``), and its `lax.scan` over
 planes one kernel a fold (``horner_fold_planes``: K10 for G1, K11 for
 G2; ``ops.cuda_msm_fold``).  The step loops over point kernels
 (``_accumulate_steps``, ``_fold_steps``) remain as the comparators that
-the tests and ``chip_smoke.py`` hold the kernels against."""
+the tests and ``chip_smoke.py`` hold the kernels against.  The planes
+come from ``signed_digit_planes``: one launch of K14
+(``ops.cuda_recode``) on a CUDA tensor, the Kogge-Stone recode
+``signed_digit_planes_from_limbs`` (its comparator) on a CPU tensor."""
 
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from ..curve.tcurve import AffPoint, JacPoint, TCurve
 from .cuda_msm_fold import g1_horner_fold, g2_horner_fold
 from .cuda_msm_window import (chunk_steps, g1_window_accumulate, g1_window_table, g2_window_accumulate,
                                g2_window_table)
+from .cuda_recode import signed_recode
 
 
 def tree_reduce(curve: TCurve, pts: JacPoint, axis_len: int) -> JacPoint:
@@ -103,6 +107,17 @@ def signed_digit_planes_from_limbs(limbs: torch.Tensor, window: int = 4):
     neg = e > half
     mag = torch.where(neg, full - e, e)
     return mag.flip(0), neg.flip(0)
+
+
+def signed_digit_planes(limbs: torch.Tensor, window: int = 4):
+    """signed_digit_planes_from_limbs in one launch of K14
+    (``ops.cuda_recode``) for a CUDA tensor; the Kogge-Stone pass above
+    for a CPU tensor.  The same (mags, negs), in the same layout."""
+    if limbs.device.type == "cpu":
+        return signed_digit_planes_from_limbs(limbs, window)
+    if limbs.device.type != "cuda":
+        raise ValueError(f"signed_digit_planes: limbs on {limbs.device}")
+    return signed_recode(limbs, window)
 
 
 def default_lanes(n: int, cap: int = 4096) -> int:

@@ -5,11 +5,11 @@ Dataflow, signed digits and no GLV as in the reference; its two
 accumulate arms are keyword arguments of ``prove_gpu`` with the
 reference's defaults:
 
-  witness -> Montgomery limbs (n_wires, 16)
-    |- Az/Bz: gathered coefficient products (K1), segment sums
+  witness -> (n_wires, 4) u64 rows on the device -> Montgomery limbs
+    |- Az/Bz: one CSR sparse matvec each (K13) into one (3, m) batch
     |- H: 3 iNTT -> coset shift -> 3 NTT (as 3 rows of one batch) -> a*b - c
     |- signed w=4 digit planes of the witness; of H, w=4 (or w=16 for
-    |  the bucket h MSM)
+    |  the bucket h MSM); one recode launch each (K14)
     '- 4 G1 MSMs (a, b1, c, h) + 1 G2 MSM (b2); with width metadata each
        witness MSM splits into a narrow class (3 planes) and a wide class
   host: blinding with (r, s) and assembly of (A, B, C)
@@ -38,7 +38,8 @@ from ..curve.tcurve import G1C, G2C, AffPoint, g1_jac_to_host, g2_jac_to_host
 from ..field.bn254 import R
 from ..field.tfield import FR, NUM_LIMBS, lazy_segment_sum_mod
 from ..field.tower import Fq2
-from ..ops.msm import default_lanes, msm_windowed_signed, signed_digit_planes_from_limbs
+from ..ops.cuda_matvec import Csr, csr_from_rows, fr_matvec
+from ..ops.msm import default_lanes, msm_windowed_signed, signed_digit_planes
 from ..ops.msm_affine import msm_windowed_affine
 from ..ops.msm_bucket import msm_bucket_affine
 from ..ops.ntt import coset_ladder
@@ -178,16 +179,21 @@ def _scalars_to_u64(scalars: Sequence[int]) -> np.ndarray:
 
 def _check_u64_reduced(rows: np.ndarray) -> None:
     """Reject (n, 4)-u64 witness rows >= R: an unreduced row would give a
-    wrong Montgomery form and an unverifiable proof."""
-    ge = np.zeros(rows.shape[0], dtype=bool)
-    eq = np.ones(rows.shape[0], dtype=bool)
+    wrong Montgomery form and an unverifiable proof.  One pass over the
+    top words; the full compare only on rows whose top word reaches R's."""
+    cand = np.flatnonzero(rows[:, 3] >= _R_U64[3])
+    if not cand.size:
+        return
+    sub = rows[cand]
+    ge = np.zeros(cand.size, dtype=bool)
+    eq = np.ones(cand.size, dtype=bool)
     for j in range(3, -1, -1):
-        col = rows[:, j]
+        col = sub[:, j]
         ge |= eq & (col > _R_U64[j])
         eq &= col == _R_U64[j]
     ge |= eq  # exactly R is unreduced too
     if ge.any():
-        i = int(np.flatnonzero(ge)[0])
+        i = int(cand[np.flatnonzero(ge)[0]])
         raise ValueError(
             f"witness row {i} is not reduced below the Fr modulus: the "
             f"(n, 4)-u64 form requires canonical scalars (< R)"
@@ -230,7 +236,27 @@ def _check_inferred_widths(dpk: DeviceProvingKey, witness, w_std: Optional[np.nd
 
 
 def witness_to_device(witness, device) -> torch.Tensor:
-    """Host witness -> (n_wires, 16) Montgomery limbs on `device`."""
+    """Host witness -> (n_wires, 16) Montgomery limbs on `device`: the
+    (n, 4) u64 rows cross as they are (ints pack into them first), are
+    split into 16-bit limbs on the device, and one K1 product takes them
+    to Montgomery form."""
+    if _is_u64_witness(witness):
+        _check_u64_reduced(witness)
+        rows = witness
+    else:
+        rows = _scalars_to_u64([int(w) % R for w in witness])
+    rows = np.ascontiguousarray(rows)
+    if not rows.flags.writeable:
+        rows = rows.copy()
+    words = torch.from_numpy(rows.view(np.int64)).to(device)
+    std = words.view(torch.int16).to(torch.int32) & 0xFFFF
+    return FR.to_mont(std)
+
+
+def _witness_to_device_widened(witness, device) -> torch.Tensor:
+    """witness_to_device as the reference does it: the limbs widened to
+    (n, 16) int32 on the host and uploaded, then to_mont.  The same
+    result; kept as the comparator."""
     std = torch.from_numpy(_witness_std_limbs(witness)).to(device)
     return FR.to_mont(std)
 
@@ -243,12 +269,36 @@ def _matvec(coeff, wire, row, w_mont, m):
     return lazy_segment_sum_mod(FR, vals, row, m)
 
 
-def abc_evals(dpk: DeviceProvingKey, w_mont: torch.Tensor):
-    """Az, Bz and Cz = Az*Bz on the domain."""
+def _abc_evals_gathered(dpk: DeviceProvingKey, w_mont: torch.Tensor) -> torch.Tensor:
+    """abc_evals by gathered K1 products and segment sums (``_matvec``,
+    the reference's dataflow): the same (3, m, 16); kept as the
+    comparator."""
     m = 1 << dpk.log_m
     a_ev = _matvec(dpk.a_coeff, dpk.a_wire, dpk.a_row, w_mont, m)
     b_ev = _matvec(dpk.b_coeff, dpk.b_wire, dpk.b_row, w_mont, m)
-    return a_ev, b_ev, FR.mul(a_ev, b_ev)
+    return torch.stack([a_ev, b_ev, FR.mul(a_ev, b_ev)])
+
+
+def key_csr(dpk: DeviceProvingKey, name: str) -> Csr:
+    """The CSR form of the key's A ("a") or B ("b") rows, built once per
+    key (memoised in ``dpk._split``)."""
+    got = dpk._split.get("csr." + name)
+    if got is None:
+        coeff, wire, row = (getattr(dpk, f"{name}_{k}") for k in ("coeff", "wire", "row"))
+        got = dpk._split["csr." + name] = csr_from_rows(coeff, wire, row, 1 << dpk.log_m)
+    return got
+
+
+def abc_evals(dpk: DeviceProvingKey, w_mont: torch.Tensor) -> torch.Tensor:
+    """Az, Bz and Cz = Az*Bz on the domain, the rows of one (3, m, 16)
+    batch: Az and Bz each one K13 launch over the key's CSR rows, Cz one
+    K1 product."""
+    m = 1 << dpk.log_m
+    abc = torch.empty(3, m, NUM_LIMBS, dtype=torch.int32, device=w_mont.device)
+    fr_matvec(*key_csr(dpk, "a"), w_mont, out=abc[0])
+    fr_matvec(*key_csr(dpk, "b"), w_mont, out=abc[1])
+    abc[2] = FR.mul(abc[0], abc[1])
+    return abc
 
 
 def h_evals(dpk: DeviceProvingKey, w_mont: torch.Tensor, stages=None) -> torch.Tensor:
@@ -264,7 +314,7 @@ def h_evals(dpk: DeviceProvingKey, w_mont: torch.Tensor, stages=None) -> torch.T
     product); each pass is one K12 launch over all three rows (2^23:
     3 + 3 launches)."""
     log_m = dpk.log_m
-    abc = _timed(stages, "matvec", lambda: torch.stack(abc_evals(dpk, w_mont)))
+    abc = _timed(stages, "matvec", lambda: abc_evals(dpk, w_mont))
     a_cos, b_cos, c_cos = _timed(stages, "ntt", lambda: coset_ladder(abc, coset_gen(log_m), log_m))
     return FR.sub(FR.mul(a_cos, b_cos), c_cos)
 
@@ -276,8 +326,8 @@ def _h_and_planes(dpk: DeviceProvingKey, w_mont: torch.Tensor, h_window: int, st
     h = _timed(stages, "h_evals", lambda: h_evals(dpk, w_mont, stages))
 
     def planes():
-        w_planes = signed_digit_planes_from_limbs(FR.from_mont(w_mont), WINDOW)
-        h_planes = signed_digit_planes_from_limbs(FR.from_mont(h), h_window)
+        w_planes = signed_digit_planes(FR.from_mont(w_mont), WINDOW)
+        h_planes = signed_digit_planes(FR.from_mont(h), h_window)
         narrow = tuple(p[-NARROW_PLANES:] for p in w_planes) if dpk.a_nsel.numel() else ()
         return (w_planes, narrow), h_planes
 
