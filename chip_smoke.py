@@ -56,6 +56,15 @@ and prints no result line):
    against a serial recode over Python ints; K14 then at the path's
    shapes (the witness at w = 4, 2^23 at w = 4 and w = 16), timed with
    its bound and its plain version, held bitwise.
+   The batch prover's kernels over a batch of witnesses: K7 and K9 at
+   B = 2 and 3 on cut shapes (257 lanes x 64 and 3 planes x 3 steps) and
+   K13 at B = 2 and 3 on the 257-row and 2^20-row matrices, each held
+   bitwise against its plain version and against the unbatched kernel
+   run once a witness; then K7 at 4 witnesses of the h MSM's chunk (64 x
+   4,096 x 170) and K9 at 4 of the b2 narrow chunk (3 x 4,096 x 85), the
+   plain version over their first 8 steps held bitwise, the whole chunk
+   timed against the unbatched kernel a witness (bitwise equal); K13 at 4
+   witnesses on the key's A (phase 4), timed, held bitwise against both.
 3. Test vector: prove_gpu on zkp2p_tpu_torch/data/port_vector.npz gives
    the committed proof byte for byte, with the default (Jacobian) MSM
    arms and with the affine ones (msm_affine=True, msm_h="bucket").
@@ -87,6 +96,15 @@ and prints no result line):
    bytes held equal: the G1 and G2 MSMs through the step loops (accumulate
    and fold), with only the fold through _fold_steps, through the
    kernels, and through the kernels with the old witness side.
+   Then the batch phase: 8 distinct seeded witnesses of the same key,
+   one warm-up chunk, then in turns with the same (r, s):
+   prove_gpu_batch (chunk 4, launches counted), prove_gpu on each
+   witness, prove_gpu_batch again; all proof bytes equal, each batch
+   proof's accumulators equal to the looped proof's and its five MSMs
+   checked against their discrete-log values; launches a chunk: the
+   tables, accumulates, folds and lane trees (K2, K6-K11) as many as one
+   proof's, K13 and K14 2, K12 6; the peak device memory of one chunk of
+   1, 2 and 4 witnesses, and the key's resident bytes.
 5. Real size, affine path: the same key and witness, one timed proof
    with msm_affine=True, msm_h="bucket" (the batch-affine accumulate and
    the w=16 sorted-prefix bucket h MSM; no warm-up: every kernel and
@@ -99,7 +117,8 @@ on the affine path K1-K3, K5, K10-K14, and not K4: after the fold
 kernels K4 launches on no path, and is asserted to launch 0 times); K12
 launches once a pass of the iNTT and of the NTT on each path, K13 and
 K14 twice a proof on each path, and K1 at most 5 times on the Jacobian
-path (printed).
+path (printed); on the batch path, besides the per-chunk counts above,
+neither K3 nor K4.
 
 Before the last line it prints the card's name and power limit, a
 profile of one more Jacobian proof, run after every timed proof (the
@@ -109,7 +128,9 @@ seventeen kernels (checks, launches on each path, times and bounds), one
 each with the two paths' per-stage times, K1 launches and peak device
 memory, and one each with the same-run comparisons of the witness side
 (witness_same_run), the H ladder (ntt_same_run), the h MSM, the b2 MSM
-and the proof.  The last line is
+and the proof, and the batch phase's lines: real_size_batch (proofs/s,
+per-chunk stage seconds, peak memory a chunk size) and batch_same_run
+(the batch against prove_gpu in a loop).  The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -193,6 +214,7 @@ _POINT_KERNELS = ("g1_add", "g2_add") + FOLD_KERNELS
 WITNESS_KERNELS = ("fr_matvec", "signed_recode")
 PATH_KERNELS = {
     "jacobian": ("mont_mul", "fr_ntt_pass") + WITNESS_KERNELS + _POINT_KERNELS + WINDOW_KERNELS,
+    "batch": ("mont_mul", "fr_ntt_pass") + WITNESS_KERNELS + _POINT_KERNELS + WINDOW_KERNELS,
     "affine": ("mont_mul", "fr_ntt_pass") + WITNESS_KERNELS + _POINT_KERNELS
     + ("g1_add_mixed", "g2_add_mixed", "mont_pow"),
 }
@@ -229,6 +251,23 @@ MATVEC_LONG_ROW = 100_001
 # path's shapes (the witness at w = 4, H at w = 4 and w = 16)
 RECODE_BATCHES = (1, 257, 1 << 20)
 RECODE_WINDOWS = (4, 16)
+# The batch prover: K7/K9 and K13 over B witnesses held bitwise against
+# their plain versions at these B on cut shapes (K7/K9 at WINDOW_BATCHES'
+# last two (lanes, planes, steps); K13 at MATVEC_BATCHES' last two row
+# counts), then at the chunk BATCH_CHUNK of the real size (K7/K9 at the h
+# MSM's and the b2 narrow MSM's chunk, the plain version over the first
+# BATCH_PLAIN_STEPS steps; K13 on the key's A)
+BATCH_SIZES = (2, 3)
+BATCH_CHUNK = 4
+BATCH_PLAIN_STEPS = 8
+# the batch phase: BATCH_WITNESSES real-size witnesses at chunk BATCH_CHUNK,
+# and the peak device memory of one chunk at each of PEAK_CHUNKS
+BATCH_WITNESSES = 8
+PEAK_CHUNKS = (1, 2, 4)
+# the launchers whose launches a batch chunk makes as often as one proof:
+# the tables once a chunk of steps, the accumulates once for the chunk's
+# witnesses, the folds and the lane trees once over the chunk's lanes
+PER_CHUNK_AS_ONE_PROOF = WINDOW_KERNELS + FOLD_KERNELS + ("g1_add", "g2_add")
 
 
 def log(msg: str) -> None:
@@ -643,6 +682,92 @@ def check_window_kernels(torch, g2, shapes, peak_muls_per_s, device):
     return rows
 
 
+def batch_window_case(torch, gen, g2, batch, steps, lanes, n_digits, device):
+    """K7/K9 inputs for `batch` witnesses against one set of bases: the
+    first witness is window_case's (with its special lanes), the others
+    random partials and digits; the planes (n_digits, batch, steps + 2,
+    lanes) laid out as K14 gives a batch's, each scalar's digits adjacent."""
+    elem = (2,) if g2 else ()
+    bases, acc0, mags0, negs0, s0 = window_case(torch, gen, g2, steps, lanes, n_digits, device)
+    accs = [acc0] + [tuple(rand_canon(torch, gen, (n_digits, lanes) + elem, device) for _ in range(3))
+                     for _ in range(batch - 1)]
+    acc = tuple(torch.stack([a[c] for a in accs]) for c in range(3))
+    mags = torch.empty((batch, steps + 2, lanes, n_digits), dtype=torch.int32, device=device)
+    negs = torch.empty((batch, steps + 2, lanes, n_digits), dtype=torch.bool, device=device)
+    mags[0], negs[0] = mags0.permute(1, 2, 0), negs0.permute(1, 2, 0)
+    for b in range(1, batch):
+        m, n = digit_planes(torch, gen, n_digits, steps + 2, lanes, device)
+        mags[b], negs[b] = m.permute(1, 2, 0), n.permute(1, 2, 0)
+    return bases, acc, mags.permute(3, 0, 1, 2), negs.permute(3, 0, 1, 2), s0
+
+
+def check_window_batch(torch, g2, shape, peak_muls_per_s, device):
+    """K7 (G1) or K9 (G2) over a batch of witnesses against one table:
+    at BATCH_SIZES on the cut shapes, held bitwise against the plain
+    version and against the unbatched kernel run once a witness; then at
+    BATCH_CHUNK witnesses of the path's chunk `shape` (digit planes, steps,
+    lanes): the plain version over the first BATCH_PLAIN_STEPS steps held
+    bitwise, and the whole chunk timed against the unbatched kernel run
+    once a witness on the same inputs, bitwise equal.  Returns the row's
+    "batch" entry."""
+    from zkp2p_tpu_torch.ops import cuda_msm_window as W
+
+    gen = torch.Generator(device=device).manual_seed(SEED + (27 if g2 else 26))
+    g = "g2" if g2 else "g1"
+    name_a = f"{g}_window_accumulate"
+    table_of, accumulate = getattr(W, f"{g}_window_table"), getattr(W, name_a)
+    accumulate_plain = getattr(W, name_a + "_plain")
+    ks = "K9" if g2 else "K7"
+
+    def each(acc, table, mags, negs, s0):
+        outs = [accumulate(tuple(c[b] for c in acc), table, mags[:, b], negs[:, b], s0) for b in range(mags.shape[1])]
+        return tuple(torch.stack([o[c] for o in outs]) for c in range(3))
+
+    cut = WINDOW_BATCHES[1:]
+    for batch in BATCH_SIZES:
+        for lanes, n_digits, steps in cut:
+            bases, acc, mags, negs, s0 = batch_window_case(torch, gen, g2, batch, steps, lanes, n_digits, device)
+            table = table_of(bases, N_TABLE)
+            got = accumulate(acc, table, mags, negs, s0)
+            if max_abs_err(torch, got, accumulate_plain(acc, table, mags, negs, s0)) or max_abs_err(
+                    torch, got, each(acc, table, mags, negs, s0)):
+                raise AssertionError(f"{name_a} at batch {batch} ({n_digits} x {lanes}, {steps} steps) differs from "
+                                     f"its plain version or from the unbatched kernel")
+    log(f"{ks} batched: bitwise equal to plain and to the unbatched kernel at B {BATCH_SIZES} x {cut} "
+        f"(lanes, planes, steps)")
+
+    n_digits, steps, lanes = shape
+    bases, acc, mags, negs, s0 = batch_window_case(torch, gen, g2, BATCH_CHUNK, steps, lanes, n_digits, device)
+    table = table_of(bases, N_TABLE)
+    cut_table = tuple(c[:BATCH_PLAIN_STEPS] for c in table)
+    got = accumulate(acc, cut_table, mags, negs, s0)
+    if max_abs_err(torch, got, accumulate_plain(acc, cut_table, mags, negs, s0)):
+        raise AssertionError(f"{name_a} at batch {BATCH_CHUNK} ({n_digits} x {lanes}, {BATCH_PLAIN_STEPS} steps) "
+                             f"differs from its plain version")
+    del got, cut_table
+    ms, got = cuda_ms(torch, lambda: accumulate(acc, table, mags, negs, s0), 3)
+    each_ms, want = cuda_ms(torch, lambda: each(acc, table, mags, negs, s0), 3)
+    if max_abs_err(torch, got, want):
+        raise AssertionError(f"{name_a} at batch {BATCH_CHUNK} ({n_digits} x {lanes}, {steps} steps) differs from "
+                             f"the unbatched kernel")
+    fq = 3 if g2 else 1
+    elem_bytes = 64 * (2 if g2 else 1)
+    adds = int(torch.count_nonzero(mags[:, :, s0:s0 + steps]))
+    n = steps * lanes
+    # partials in and out a witness, the table once, the planes a witness
+    nbytes = BATCH_CHUNK * (6 * elem_bytes * n_digits * lanes + 5 * n_digits * n) + 3 * N_TABLE * elem_bytes * n
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = adds * MONTS["add"] * fq * MULS_PER_MONT / peak_muls_per_s
+    row = dict(batch=BATCH_CHUNK, shape=[n_digits, BATCH_CHUNK, steps, N_TABLE, lanes], max_abs_err=0, ms=ms,
+               unbatched_ms=each_ms, plain_steps=BATCH_PLAIN_STEPS, adds=adds, ns_per_add=ms * 1e6 / max(adds, 1),
+               bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes > t_ops else "operations",
+               cut_batches=list(BATCH_SIZES))
+    log(f"{ks} at {BATCH_CHUNK} witnesses of the {n_digits} x {lanes} x {steps} chunk: bitwise equal to plain "
+        f"({BATCH_PLAIN_STEPS} steps) and to the unbatched kernel; {ms:.4f} ms (unbatched, one launch a witness: "
+        f"{each_ms:.4f}; bound {row['bound_ms']:.4f} by {row['bound_by']})")
+    return row
+
+
 def check_window_msm(torch, g2, device):
     """The G1 MSM through K6/K7, or the G2 MSM through K8/K9, against the
     step loop over K2/K3 (bitwise) and against host discrete logs (bases
@@ -1035,10 +1160,24 @@ def check_matvec_kernel(torch, device):
                 raise AssertionError(f"fr_matvec ({rows} rows) row {i} ({len(js)} nonzeros) differs from Python ints")
     log(f"K13 fr_matvec: bitwise equal to plain at {MATVEC_BATCHES} rows (special rows; a row of "
         f"{MATVEC_LONG_ROW} nonzeros); sample rows equal to Python ints")
+    for rows in MATVEC_BATCHES[1:]:
+        long_row = MATVEC_LONG_ROW if rows == 257 else 0
+        csr, w = matvec_case(torch, gen, rows, long_row, device)
+        for batch in BATCH_SIZES:
+            wb = torch.stack([w] + [rand_canon(torch, gen, tuple(w.shape[:1]), device) for _ in range(batch - 1)])
+            got = cuda_matvec.fr_matvec(*csr, wb)
+            each = torch.stack([cuda_matvec.fr_matvec(*csr, x) for x in wb])
+            if max_abs_err(torch, got, cuda_matvec.fr_matvec_plain(*csr, wb)) or max_abs_err(torch, got, each):
+                raise AssertionError(f"fr_matvec at batch {batch} ({rows} rows) differs from its plain version or "
+                                     f"from the unbatched kernel")
+    log(f"K13 batched: bitwise equal to plain and to the unbatched kernel at B {BATCH_SIZES} x "
+        f"{MATVEC_BATCHES[1:]} rows")
     return {"fr_matvec": {"check": (
         f"bitwise equal to plain at {list(MATVEC_BATCHES)} rows with an empty row, a repeated wire, coefficients "
         f"and witness values 0, 1, r-1 and a row of {MATVEC_LONG_ROW} nonzeros, sample rows equal to Python ints, "
-        f"and on the synthetic key's A and B over 2^{VENMO['log_m']} rows (shape, at_shapes)"),
+        f"and on the synthetic key's A and B over 2^{VENMO['log_m']} rows (shape, at_shapes); batched at B "
+        f"{list(BATCH_SIZES)} on {list(MATVEC_BATCHES[1:])} rows and at B {BATCH_CHUNK} on the key's A (batch), "
+        f"bitwise equal to plain and to the unbatched kernel"),
         "library_ms_reason": "no PyTorch call computes a sparse product over Fr (torch.sparse adds floats or "
                              "integers that wrap)"}}
 
@@ -1080,6 +1219,32 @@ def time_matvec_path(torch, key, witness, peak_muls_per_s, device):
         log(f"K13 on the key's {name.upper()} ({nnz} nonzeros over {m} rows; longest row {fan_in}; CSR adds "
             f"{extra} bytes on the card{', coefficients sorted into a copy' if copied else ''}): bitwise equal "
             f"to plain; {ms:.4f} ms (plain {plain_ms:.1f}, bound {at['bound_ms']:.4f} by {at['bound_by']})")
+    # the batch prover's chunk: BATCH_CHUNK witnesses against the key's A in one launch
+    from zkp2p_tpu_torch.field.tfield import FR
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 42)
+    csr = gp.key_csr(key, "a")
+    nnz = csr.wire.numel()
+    wb = torch.stack([w] + [FR.to_mont(rand_canon(torch, gen, tuple(w.shape[:1]), device))
+                            for _ in range(BATCH_CHUNK - 1)])
+    out = torch.empty(BATCH_CHUNK, m, 16, dtype=torch.int32, device=device)
+    ms, got = cuda_ms(torch, lambda: cuda_matvec.fr_matvec(*csr, wb, out=out), 10)
+    each_ms, each = cuda_ms(torch, lambda: torch.stack([cuda_matvec.fr_matvec(*csr, x) for x in wb]), 3)
+    if max_abs_err(torch, got, each):
+        raise AssertionError("fr_matvec at batch on the key's A differs from the unbatched kernel")
+    del each
+    plain_ms, want = cuda_ms(torch, lambda: cuda_matvec.fr_matvec_plain(*csr, wb), 1, warmup=False)
+    if max_abs_err(torch, got, want):
+        raise AssertionError("fr_matvec at batch on the key's A differs from its plain version")
+    del want
+    nbytes = nnz * (64 + 4) + csr.offsets.nbytes + BATCH_CHUNK * (w.numel() * 4 + m * 64)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, BATCH_CHUNK * nnz * MULS_PER_MONT / peak_muls_per_s
+    row["batch"] = dict(batch=BATCH_CHUNK, shape=[BATCH_CHUNK, m, nnz], matrix="A", max_abs_err=0, ms=ms,
+                        unbatched_ms=each_ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+                        bound_by="bytes" if t_bytes > t_ops else "operations")
+    log(f"K13 at {BATCH_CHUNK} witnesses on the key's A: bitwise equal to plain and to the unbatched kernel; "
+        f"{ms:.4f} ms (unbatched, one launch a witness: {each_ms:.4f}; plain {plain_ms:.1f}; bound "
+        f"{row['batch']['bound_ms']:.4f} by {row['batch']['bound_by']})")
     return row
 
 
@@ -1571,6 +1736,144 @@ def real_size_proofs(torch, key, witness, ix, tables, rs, device, timed, warmup=
     return runs, launches, torch.cuda.max_memory_allocated() / 2**30
 
 
+def batch_witness(key, seed):
+    """A real-size witness for the synthetic key, as synthetic_key makes
+    its own: narrow wires below 2^11 (the width guard), wide below R,
+    wire 0 the constant one."""
+    import numpy as np
+
+    n = key.n_wires
+    rng = np.random.default_rng(seed)
+    limbs = rng.integers(0, 1 << 16, size=(n, 16), dtype=np.uint16)
+    limbs[:, 15] = rng.integers(0, 0x3064, size=n, dtype=np.uint16)
+    nar = np.zeros(n, dtype=bool)
+    nar[key.a_nsel.cpu().numpy()] = True
+    limbs[nar, 1:] = 0
+    limbs[nar, 0] &= (1 << 11) - 1
+    limbs[0] = 0
+    limbs[0, 0] = 1
+    return np.ascontiguousarray(limbs).view("<u8").reshape(n, 4).copy()
+
+
+def key_resident_bytes(torch, key) -> int:
+    """Device bytes the key holds: its tensors and the splits and CSR forms
+    built once per key (each storage counted once)."""
+    seen, total = set(), 0
+
+    def walk(v):
+        nonlocal total
+        if isinstance(v, torch.Tensor):
+            st = v.untyped_storage()
+            if st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                total += st.nbytes()
+        elif isinstance(v, (tuple, list)):
+            for x in v:
+                walk(x)
+        elif isinstance(v, dict):
+            for x in v.values():
+                walk(x)
+
+    walk(list(vars(key).values()))
+    return total
+
+
+def batch_phase(torch, key, witness, ix, tables, jac_launches, device):
+    """The batch prover at real size: BATCH_WITNESSES distinct seeded
+    witnesses (the first the phase-4 witness), one warm-up chunk, then in
+    turns with the same (r, s): prove_gpu_batch at chunk BATCH_CHUNK
+    (launches counted), prove_gpu on each witness, prove_gpu_batch again;
+    all proof bytes equal.  Each batch proof's five MSMs against their
+    discrete-log values (H's scalars from the looped proof of the same
+    witness) and its accumulators equal to the looped proof's.  Launches
+    a chunk: the tables, accumulates, folds and lane trees as one proof's;
+    K13 and K14 2, K12 2 x the passes.  Then the peak device memory of one
+    chunk at each of PEAK_CHUNKS, and the key's resident bytes.  Returns
+    the real_size_batch and batch_same_run lines and the counted run's
+    launches."""
+    from zkp2p_tpu_torch.field.bn254 import R
+    from zkp2p_tpu_torch.ops import cuda_build
+    from zkp2p_tpu_torch.ops.ntt import pass_plan
+    from zkp2p_tpu_torch.prover.groth16_gpu import batch_spans, prove_gpu, prove_gpu_batch
+    from zkp2p_tpu_torch.snark.groth16 import proof_bytes
+
+    t0 = time.perf_counter()
+    ws = [witness] + [batch_witness(key, SEED + 100 + i) for i in range(1, BATCH_WITNESSES)]
+    pyr = random.Random(SEED + 6)
+    rs = [(pyr.randrange(1, R), pyr.randrange(1, R)) for _ in ws]
+    log(f"batch phase: {len(ws)} witnesses made ({time.perf_counter() - t0:.1f} s)")
+    n_chunks = len(batch_spans(len(ws), BATCH_CHUNK))
+
+    def batch(stages):
+        return prove_gpu_batch(key, ws, rs=rs, chunk=BATCH_CHUNK, device=device, stages=stages)
+
+    warm_s, _ = wall_s(torch, lambda: prove_gpu_batch(key, ws[:BATCH_CHUNK], rs=rs[:BATCH_CHUNK], chunk=BATCH_CHUNK,
+                                                      device=device))
+    log(f"batch warm-up ({BATCH_CHUNK} witnesses): {warm_s:.2f} s")
+    cuda_build.reset_launches()
+    st_a = {}
+    batch_a_s, proofs_a = wall_s(torch, lambda: batch(st_a))
+    launches = dict(cuda_build.LAUNCHES)
+    log(f"prove_gpu_batch ({len(ws)} witnesses, chunk {BATCH_CHUNK}): {batch_a_s:.3f} s")
+    loop_s, loop_stage_s = [], []
+    for i, w in enumerate(ws):
+        st = {}
+        t, proof = wall_s(torch, lambda: prove_gpu(key, w, r=rs[i][0], s=rs[i][1], device=device, stages=st))
+        loop_s.append(t)
+        loop_stage_s.append({k[2:]: v for k, v in st.items() if k.startswith("s_")})
+        if proof_bytes(proof) != proof_bytes(proofs_a[i]):
+            raise AssertionError(f"batch proof {i} differs from prove_gpu's on the same witness, r and s")
+        if st["acc"] != st_a["acc"][i]:
+            raise AssertionError(f"batch accumulators of witness {i} differ from prove_gpu's")
+        check_msms(torch, key, w, ix, tables, {"h": st["h"], "acc": st_a["acc"][i]})
+        del st
+    log(f"prove_gpu on each witness: {sum(loop_s):.3f} s ({', '.join(f'{t:.3f}' for t in loop_s)}); proofs and "
+        f"accumulators equal to the batch's; all {len(ws)} x 5 MSMs equal their host discrete-log values")
+    st_b = {}
+    batch_b_s, proofs_b = wall_s(torch, lambda: batch(st_b))
+    if [proof_bytes(p) for p in proofs_b] != [proof_bytes(p) for p in proofs_a]:
+        raise AssertionError("the second prove_gpu_batch run differs from the first")
+    log(f"prove_gpu_batch again: {batch_b_s:.3f} s; equal bytes")
+
+    per_chunk = {k: launches["zk_" + k] / n_chunks for k in (*PER_CHUNK_AS_ONE_PROOF, "fr_matvec", "signed_recode",
+                                                             "fr_ntt_pass", "mont_mul")}
+    want = {k: jac_launches["zk_" + k] for k in PER_CHUNK_AS_ONE_PROOF}
+    want.update(fr_matvec=2, signed_recode=2, fr_ntt_pass=2 * len(pass_plan(key.log_m)))
+    bad = {k: (per_chunk[k], v) for k, v in want.items() if per_chunk[k] != v}
+    if bad:
+        raise AssertionError(f"launches a batch chunk (got, expected): {bad}")
+    stray = [k for k in NOT_ON_JACOBIAN if launches["zk_" + k]]
+    if stray:
+        raise AssertionError(f"launchers launched on the batch path, which does not run them: {stray}")
+    log(f"launches a batch chunk of {BATCH_CHUNK}: {json.dumps(per_chunk)} (a proof: "
+        f"{json.dumps({k: jac_launches['zk_' + k] for k in per_chunk})})")
+
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    resident = key_resident_bytes(torch, key)
+    peaks = {}
+    for c in PEAK_CHUNKS:
+        torch.cuda.reset_peak_memory_stats()
+        prove_gpu_batch(key, ws[:c], rs=rs[:c], chunk=c, device=device)
+        torch.cuda.synchronize()
+        peaks[c] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"peak device memory of one chunk of {c}: {peaks[c]:.2f} GiB")
+    log(f"key resident: {resident / 2**30:.2f} GiB; allocated before the peak runs: {allocated / 2**30:.2f} GiB; "
+        f"batch phase {time.perf_counter() - t0:.1f} s")
+
+    n = len(ws)
+    real = dict(shape="venmo 1024/6400", log_m=key.log_m, n_wires=key.n_wires, witnesses=n, chunk=BATCH_CHUNK,
+                proofs_per_s=[n / batch_a_s, n / batch_b_s], batch_s=[batch_a_s, batch_b_s],
+                chunk_stage_s=[{k[2:]: v for k, v in c.items() if k.startswith("s_")} for c in st_a["chunks"]],
+                peak_device_gib_by_chunk=peaks, key_resident_bytes=resident, allocated_before_peak_runs=allocated,
+                launches_per_chunk=per_chunk)
+    same = dict(order=["batch", "loop", "batch"], s=[batch_a_s, sum(loop_s), batch_b_s],
+                proofs_per_s=[n / batch_a_s, n / sum(loop_s), n / batch_b_s], loop_proof_s=loop_s,
+                loop_stage_s_median={k: statistics.median(r[k] for r in loop_stage_s) for k in loop_stage_s[0]},
+                proof_bytes_equal=True)
+    return real, same, launches
+
+
 def run(torch, device, peak_muls, sm_clock_hz):
     """Phases 1-5 on `device`; returns what main prints."""
     from zkp2p_tpu_torch.ops import cuda_build
@@ -1640,6 +1943,9 @@ def run(torch, device, peak_muls, sm_clock_hz):
     rows["mont_pow"] = check_mont_pow(torch, peak_muls, sm_clock_hz, device)
     for g2 in (False, True):
         rows.update(check_window_kernels(torch, g2, window_shapes[g2], peak_muls, device))
+        first = next(iter(window_shapes[g2].values()))
+        rows[f"{'g2' if g2 else 'g1'}_window_accumulate"]["batch"] = check_window_batch(
+            torch, g2, first, peak_muls, device)
         check_window_msm(torch, g2, device)
     for g2 in (False, True):
         rows.update(check_fold_kernels(torch, g2, fold_shapes[g2], peak_muls, sm_clock_hz, device))
@@ -1676,6 +1982,9 @@ def run(torch, device, peak_muls, sm_clock_hz):
     msm_b2_same_run = compare_msm_b2(torch, key, device)
     proof_same_run = compare_proofs(torch, key, witness, rs, device)
 
+    # the batch phase
+    real_batch, batch_same_run, batch_launches = batch_phase(torch, key, witness, ix, tables, jac_launches, device)
+
     # phase 5 (no warm-up proof: the Jacobian proofs and the test vector's
     # affine proof ran every kernel and allocation size before it)
     aff_runs, aff_launches, aff_peak_gib = real_size_proofs(torch, key, witness, ix, tables, rs, device, 1,
@@ -1683,12 +1992,12 @@ def run(torch, device, peak_muls, sm_clock_hz):
     # last, so that no timed proof runs after the profiler
     profile = profile_proof(torch, lambda: prove_gpu(
         key, witness, r=rs.randrange(1, 1 << 250), s=rs.randrange(1, 1 << 250), device=device))
-    by_path = {"jacobian": jac_launches, "affine": aff_launches}
+    by_path = {"jacobian": jac_launches, "affine": aff_launches, "batch": batch_launches}
     for path, names in PATH_KERNELS.items():
         missing = [k for k in names if by_path[path]["zk_" + k] == 0]
         if missing:
             raise AssertionError(f"launchers never launched on the {path} path: {missing}")
-    for path, names in (("jacobian", NOT_ON_JACOBIAN), ("affine", NOT_ON_AFFINE)):
+    for path, names in (("jacobian", NOT_ON_JACOBIAN), ("affine", NOT_ON_AFFINE), ("batch", NOT_ON_JACOBIAN)):
         stray = [k for k in names if by_path[path]["zk_" + k]]
         if stray:
             raise AssertionError(f"launchers launched on the {path} path, which no longer runs them: {stray}")
@@ -1699,9 +2008,9 @@ def run(torch, device, peak_muls, sm_clock_hz):
         raise AssertionError(f"launchers launched on no path: {unused}")
     passes = 2 * len(pass_plan(V["log_m"]))  # the iNTT's and the NTT's, all three rows in each
     for launcher, want in (("zk_fr_ntt_pass", passes), ("zk_fr_matvec", 2), ("zk_signed_recode", 2)):
-        if any(v[launcher] != want for v in by_path.values()):
-            raise AssertionError(f"{launcher} launched {[v[launcher] for v in by_path.values()]} times a proof, "
-                                 f"expected {want}")
+        if any(v[launcher] != want for v in (jac_launches, aff_launches)):
+            raise AssertionError(f"{launcher} launched {[v[launcher] for v in (jac_launches, aff_launches)]} times "
+                                 f"a proof, expected {want}")
     k1_jac = jac_launches["zk_mont_mul"]
     log(f"K1 mont_mul launches a proof: {k1_jac} on the Jacobian path, {aff_launches['zk_mont_mul']} on the "
         f"affine path")
@@ -1735,7 +2044,8 @@ def run(torch, device, peak_muls, sm_clock_hz):
                        **summary(aff_runs, aff_peak_gib))
     lines = {"profile": profile, "kernels": kernels, "real_size": real, "real_size_affine": real_affine,
              "witness_same_run": witness_same_run, "ntt_same_run": ntt_same_run, "msm_h_same_run": msm_h_same_run,
-             "msm_b2_same_run": msm_b2_same_run, "proof_same_run": proof_same_run}
+             "msm_b2_same_run": msm_b2_same_run, "proof_same_run": proof_same_run,
+             "real_size_batch": real_batch, "batch_same_run": batch_same_run}
     return lines
 
 

@@ -18,7 +18,7 @@ from zkp2p_tpu_torch.curve import tcurve
 from zkp2p_tpu_torch.field.tfield import FQ, FR
 from zkp2p_tpu_torch.ops import (cuda_build, cuda_curve, cuda_matvec, cuda_mont, cuda_msm_fold, cuda_msm_window,
                                   cuda_ntt, cuda_recode, msm, ntt)
-from zkp2p_tpu_torch.prover.groth16_gpu import key_from_numpy, prove_gpu
+from zkp2p_tpu_torch.prover.groth16_gpu import key_from_numpy, prove_gpu, prove_gpu_batch
 from zkp2p_tpu_torch.prover.vector import VECTOR_PATH, load_vector
 from zkp2p_tpu_torch.utils.device import resolve_device
 
@@ -80,6 +80,8 @@ def test_entry_points_without_cuda_raise(monkeypatch):
     key = key_from_numpy(arrays, meta, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         prove_gpu(key, witness, r=r, s=s)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prove_gpu_batch(key, [witness, witness], rs=[(r, s)] * 2)
 
 
 def test_chip_smoke_without_cuda_exits_nonzero_and_prints_nothing():
@@ -122,6 +124,10 @@ def test_wrappers_on_cpu_take_the_plain_path_and_count_nothing():
         got = accumulate(acc, table, mags, negs, 1)
         want = accumulate_plain(acc, table, mags, negs, 1)
         assert all(torch.equal(x, y) for x, y in zip(got, want))
+        acc_b = tuple(torch.stack([c, c]) for c in acc)  # a batch of two witnesses
+        planes_b = (torch.stack([mags, mags.flip(-1)], 1), torch.stack([negs, negs.flip(-1)], 1))
+        got = accumulate(acc_b, table, *planes_b, 1)
+        assert all(torch.equal(x, y) for x, y in zip(got, accumulate_plain(acc_b, table, *planes_b, 1)))
     F = cuda_msm_fold
     for elem, fold, fold_plain in (((), F.g1_horner_fold, F.g1_horner_fold_plain),
                                    ((2,), F.g2_horner_fold, F.g2_horner_fold_plain)):
@@ -137,6 +143,8 @@ def test_wrappers_on_cpu_take_the_plain_path_and_count_nothing():
     coeff, w = _rand((6,), 80), _rand((4,), 81)
     csr = cuda_matvec.csr_from_rows(coeff, torch.tensor([0, 3, 1, 3, 0, 2]), torch.tensor([2, 0, 2, 1, 0, 3]), 5)
     assert torch.equal(cuda_matvec.fr_matvec(*csr, w), cuda_matvec.fr_matvec_plain(*csr, w))
+    wb = torch.stack([w, w.flip(0)])
+    assert torch.equal(cuda_matvec.fr_matvec(*csr, wb), cuda_matvec.fr_matvec_plain(*csr, wb))
     std = _rand((7,), 82)
     for window in (4, 16):
         got = msm.signed_digit_planes(std, window)

@@ -134,6 +134,56 @@ def test_abc_evals_cpu_matches_jax_and_builds_the_csr_once(monkeypatch):
     assert np.array_equal(got.numpy(), np.stack([np.asarray(x) for x in want]).astype(np.int32))
 
 
+# ------------------------------------------------------------------ batches
+# The batch prover's chunk: B witnesses against one matrix, K13 with a
+# batch axis.  Each witness's rows must equal its unbatched product.
+
+
+@pytest.mark.parametrize("batch", [1, 2, 3, 5])
+def test_batched_fr_matvec_plain_matches_each_witness(batch):
+    log_m = 8
+    coeff, wire, row, w = matrix_case(500 + batch, log_m, False)
+    rng = np.random.default_rng(600 + batch)
+    ws = [w] + [rand_fr(rng, w.shape[0], SPECIAL[::-1]) for _ in range(batch - 1)]
+    t = [torch.from_numpy(v) for v in (coeff, wire, row)]
+    csr = cuda_matvec.csr_from_rows(*t, 1 << log_m)
+    wb = torch.from_numpy(np.stack(ws))
+    got = cuda_matvec.fr_matvec(*csr, wb)
+    assert got.shape == (batch, 1 << log_m, 16)
+    for b in range(batch):
+        assert torch.equal(got[b], cuda_matvec.fr_matvec(*csr, wb[b]))
+    assert np.array_equal(got[-1].numpy(), jax_segment_sums(coeff, wire, row, ws[-1], 1 << log_m).astype(np.int32))
+    out = torch.full((batch, 1 << log_m, 16), -1, dtype=torch.int32)
+    assert cuda_matvec.fr_matvec(*csr, wb, out=out) is out and torch.equal(out, got)
+
+
+def test_batched_witness_side_matches_each_witness():
+    log_m = 9
+    a = matrix_case(41, log_m, True)
+    b = matrix_case(42, log_m, False)
+    n = a[3].shape[0]
+    vals = [witness_values(44 + i, n) for i in range(3)]
+    rows = np.stack([u64_rows(v) for v in vals])
+    fields = {}
+    for name, (coeff, wire, row, _) in (("a", a), ("b", b)):
+        fields.update({f"{name}_coeff": coeff, f"{name}_wire": wire, f"{name}_row": row})
+    key = SimpleNamespace(log_m=log_m, _split={}, **{k: torch.from_numpy(v) for k, v in fields.items()})
+    w_mont = gp.witness_to_device(rows, "cpu")
+    assert w_mont.shape == (3, n, 16)
+    abc = gp.abc_evals(key, w_mont)
+    h = gp.h_evals(key, w_mont)
+    assert abc.shape == (3, 3, 1 << log_m, 16) and h.shape == (3, 1 << log_m, 16)
+    for i, v in enumerate(vals):
+        one = gp.witness_to_device(v, "cpu")
+        assert torch.equal(w_mont[i], one)
+        assert torch.equal(abc[:, i], gp.abc_evals(key, one))
+        assert torch.equal(h[i], gp.h_evals(key, one))
+    bad = rows.copy()
+    bad[1, 5] = R_WORDS
+    with pytest.raises(ValueError, match="witness row 5 is not reduced"):
+        gp.witness_to_device(bad, "cpu")
+
+
 # ------------------------------------------------------------------ witness
 
 

@@ -251,3 +251,57 @@ def test_msm_chunked_matches_jax(curve, n, lanes, chunk_of):
     else:
         assert all(np.array_equal(g.numpy().astype(np.int64), np.asarray(w).astype(np.int64))
                    for g, w in zip(got, want))
+
+
+# ------------------------------------------------------------------ batches
+# The batch prover's chunk: B witnesses' planes against one table (K7/K9
+# with a batch axis) and one set of bases (the reference's vmap with the
+# key unbatched).  Each witness's result must equal its unbatched one.
+
+BATCH_CASES = [("g1", "full", 2), ("g1", "narrow", 3), ("g1", "crafted", 3), ("g2", "narrow", 2),
+               ("g2", "crafted", 3)]
+
+
+def _batch_planes(cv, name, batch):
+    """`batch` witnesses' planes over the bases of _case(cv, name): the
+    case's own planes first, then the same digits rolled along the lanes
+    with the signs flipped."""
+    pts, mags, negs, lanes = _case(cv, name)
+    ms, ns = [mags], [negs]
+    for b in range(1, batch):
+        ms.append(torch.roll(mags, b, dims=-1))
+        ns.append(torch.roll(negs, b, dims=-1) ^ (b % 2 == 1))
+    return pts, torch.stack(ms, 1), torch.stack(ns, 1), lanes
+
+
+@pytest.mark.parametrize("curve,name,batch", BATCH_CASES,
+                         ids=[f"{cv}-{n}-B{b}" for cv, n, b in BATCH_CASES])
+def test_batched_accumulate_plain_matches_each_witness(curve, name, batch):
+    cv = CURVES[curve]
+    pts, mags, negs, lanes = _batch_planes(cv, name, batch)
+    per = [_padded(cv, pts, mags[:, b], negs[:, b], lanes) for b in range(batch)]
+    bases = per[0][0]
+    planes = torch.stack([p[1] for p in per], 1)  # (n_digits, B, steps, lanes)
+    neg_t = torch.stack([p[2] for p in per], 1)
+    table = cv.table((bases[0][1:3], bases[1][1:3]), N_TABLE)
+    acc = tuple(torch.stack(c) for c in zip(*(cv.C.infinity(planes.shape[:1] + (lanes,), "cpu")
+                                               for _ in range(batch))))
+    got = cv.accumulate(acc, table, planes, neg_t, 1)
+    assert got[0].shape == (batch, planes.shape[0], lanes) + cv.elem
+    for b in range(batch):
+        want = cv.accumulate(tuple(c[b] for c in acc), table, per[b][1], per[b][2], 1)
+        assert equal(tuple(c[b] for c in got), want)
+
+
+@pytest.mark.parametrize("curve,name,batch", BATCH_CASES,
+                         ids=[f"{cv}-{n}-B{b}" for cv, n, b in BATCH_CASES])
+def test_batched_msm_matches_each_witness(curve, name, batch, chunk_of):
+    cv = CURVES[curve]
+    pts, mags, negs, lanes = _batch_planes(cv, name, batch)
+    chunk_of(cv, 2, lanes)
+    bases = tuple(to_t(c) for c in cv.arrays(pts))
+    got = msm.msm_windowed_signed(cv.C, bases, mags, negs, lanes=lanes, window=4)
+    assert got[0].shape == (batch,) + cv.elem
+    for b in range(batch):
+        want = msm.msm_windowed_signed(cv.C, bases, mags[:, b], negs[:, b], lanes=lanes, window=4)
+        assert equal(tuple(c[b] for c in got), want)

@@ -35,6 +35,13 @@
 // Bound by 32-bit multiplies: 16 Montgomery products an add; in practice
 // by their latency (see the launch bounds below).
 //
+// A batch of B witnesses against one key (the batch prover's chunk) is
+// one launch of K7 or K9: the partials gain a leading batch axis (B,
+// n_digits, lanes), the digit planes a batch axis read at its stride, and
+// gridDim.y runs over the batch.  The chunk's table is built once (one K6
+// or K8 launch) and read by all B; a block's work, registers and shared
+// staging are those of the unbatched kernel, which is B = 1.
+//
 // K8/K9 are K6/K7 over Fq2 (3 Montgomery products an Fq2 product): a
 // Jacobian point is 48 words, and K2 over Fq2 already takes 255
 // registers and spills.  So neither holds its addend: the base of K8's
@@ -98,9 +105,10 @@ __device__ __forceinline__ Fe fe_load_shared(const int4* q) {
 // digit-minor (a lane's digits adjacent), which a warp of 16 digit rows
 // then reads as one coalesced segment.
 struct Planes {
-  const int32_t* mags;  // (n_digits, steps, lanes) magnitudes in [0, n_table]
+  const int32_t* mags;  // (n_digits, batch, steps, lanes) magnitudes in [0, n_table]
   const uint8_t* negs;  // the same shape, 1 where the digit is negative
-  long long mag_sd, mag_ss, mag_sl, neg_sd, neg_ss, neg_sl;  // digit, step and lane strides
+  long long mag_sd, mag_sb, mag_ss, mag_sl;  // digit, batch, step and lane strides
+  long long neg_sd, neg_sb, neg_ss, neg_sl;
 };
 
 // Four blocks an SM: at most 128 registers, with a small spill (chip_smoke
@@ -109,6 +117,8 @@ struct Planes {
 // the msm_h chunk faster than the unconstrained registers (2 blocks an
 // SM), 3 blocks, or 5-8 blocks with their larger spills.
 // Shared memory: [2 buffers][3 coordinates][n_table][LB lanes][4 x int4].
+// blockIdx.y is the witness of the batch: acc and out at its offset, the
+// planes at its stride; the table is the batch's.
 __global__ void __launch_bounds__(128, 4)
 k_g1_window_accumulate(const int32_t* __restrict__ ax, const int32_t* __restrict__ ay,
                        const int32_t* __restrict__ az, const int32_t* __restrict__ tx,
@@ -123,6 +133,9 @@ k_g1_window_accumulate(const int32_t* __restrict__ ax, const int32_t* __restrict
   const int l = l0 + lb;
   const bool active = l < lanes;
   const int stage = 3 * n_table * LB * 4;  // int4 per buffer
+  const long long b = blockIdx.y;
+  const long long b_off = b * (blockDim.x / LB) * lanes * 16;  // blockDim.x / LB digit rows
+  ax += b_off, ay += b_off, az += b_off, ox += b_off, oy += b_off, oz += b_off;
 
   auto prefetch = [&](int t, int buf) {
     int4* dst = smem + buf * stage;
@@ -142,8 +155,8 @@ k_g1_window_accumulate(const int32_t* __restrict__ ax, const int32_t* __restrict
   const long long at = ((long long)d * lanes + l) * 16;
   Jac<Fe> acc;
   if (active) acc = Jac<Fe>{fe_load(ax + at), fe_load(ay + at), fe_load(az + at)};
-  const int32_t* mag_p = pl.mags + d * pl.mag_sd + s0 * pl.mag_ss + l * pl.mag_sl;
-  const uint8_t* neg_p = pl.negs + d * pl.neg_sd + s0 * pl.neg_ss + l * pl.neg_sl;
+  const int32_t* mag_p = pl.mags + d * pl.mag_sd + b * pl.mag_sb + s0 * pl.mag_ss + l * pl.mag_sl;
+  const uint8_t* neg_p = pl.negs + d * pl.neg_sd + b * pl.neg_sb + s0 * pl.neg_ss + l * pl.neg_sl;
 
   prefetch(0, 0);
   cp_async_commit();
@@ -229,8 +242,8 @@ k_g2_window_table(const int32_t* __restrict__ bx, const int32_t* __restrict__ by
 }
 
 // One thread per (d, l), lane-major (i = d * lanes + l), in 128-thread
-// blocks.  Launch bounds (128, 2): 255 registers, 544 / 584 bytes of
-// spill stores / loads (ptxas).  On an H100 80GB HBM3 (700 W) at the b2
+// blocks; blockIdx.y is the witness of the batch.  Launch bounds (128,
+// 2): 255 registers, 544 / 584 bytes of spill stores / loads (ptxas).  On an H100 80GB HBM3 (700 W) at the b2
 // narrow chunk (3 planes x 4,096 lanes x 85 steps, 928,150 adds) it ran
 // 8.35 ms, 9.0 ns an add; bounds (128, 1), (128, 3) (168 registers, 1.5
 // KB of spill) and (128, 4) (128 registers, 2.9 KB) ran 8.33, 8.57 and
@@ -250,10 +263,13 @@ k_g2_window_accumulate(const int32_t* __restrict__ ax, const int32_t* __restrict
   if (i >= (long long)n_digits * lanes) return;
   const int d = (int)(i / lanes);
   const int l = (int)(i - (long long)d * lanes);
+  const long long b = blockIdx.y;
+  const long long b_off = b * n_digits * lanes * 32;
+  ax += b_off, ay += b_off, az += b_off, ox += b_off, oy += b_off, oz += b_off;
   const Fe2* tag = nullptr;
   Jac<Fe2> acc{f_load(tag, ax, i), f_load(tag, ay, i), f_load(tag, az, i)};
-  const int32_t* mag_p = pl.mags + d * pl.mag_sd + s0 * pl.mag_ss + l * pl.mag_sl;
-  const uint8_t* neg_p = pl.negs + d * pl.neg_sd + s0 * pl.neg_ss + l * pl.neg_sl;
+  const int32_t* mag_p = pl.mags + d * pl.mag_sd + b * pl.mag_sb + s0 * pl.mag_ss + l * pl.mag_sl;
+  const uint8_t* neg_p = pl.negs + d * pl.neg_sd + b * pl.neg_sb + s0 * pl.neg_ss + l * pl.neg_sl;
   for (int t = 0; t < steps; ++t) {
     const int mag = __ldg(mag_p + t * pl.mag_ss);
     if (!mag) continue;
@@ -277,19 +293,22 @@ int zk_g1_window_table(const void* bx, const void* by, void* ox, void* oy, void*
   return (int)cudaGetLastError();
 }
 
-// acc (n_digits, lanes, 16) x3 in, out the same; table (steps, n_table,
-// lanes, 16) x3; the planes read at steps s0 .. s0 + steps - 1.
-// lanes_per_block x n_digits <= 128 threads and lanes_per_block x n_table
-// <= 128 (shared memory <= 48 KB) are the caller's to keep.
+// acc (batch, n_digits, lanes, 16) x3 in, out the same; table (steps,
+// n_table, lanes, 16) x3; the planes (n_digits, batch, steps, lanes) at the
+// given strides, read at steps s0 .. s0 + steps - 1.  lanes_per_block x
+// n_digits <= 128 threads and lanes_per_block x n_table <= 128 (shared
+// memory <= 48 KB) are the caller's to keep.
 int zk_g1_window_accumulate(const void* ax, const void* ay, const void* az, const void* tx, const void* ty,
                             const void* tz, const void* mags, const void* negs, void* ox, void* oy, void* oz,
-                            int n_digits, int lanes, int lanes_per_block, int n_table, int steps, long long s0,
-                            long long mag_sd, long long mag_ss, long long mag_sl, long long neg_sd,
-                            long long neg_ss, long long neg_sl, const void* consts, void* stream) {
-  if (n_digits <= 0 || lanes <= 0 || steps <= 0) return 0;
+                            int batch, int n_digits, int lanes, int lanes_per_block, int n_table, int steps,
+                            long long s0, long long mag_sd, long long mag_sb, long long mag_ss, long long mag_sl,
+                            long long neg_sd, long long neg_sb, long long neg_ss, long long neg_sl,
+                            const void* consts, void* stream) {
+  if (batch <= 0 || n_digits <= 0 || lanes <= 0 || steps <= 0) return 0;
   FieldConst c = *reinterpret_cast<const FieldConst*>(consts);
-  Planes pl{(const int32_t*)mags, (const uint8_t*)negs, mag_sd, mag_ss, mag_sl, neg_sd, neg_ss, neg_sl};
-  unsigned grid = (unsigned)((lanes + lanes_per_block - 1) / lanes_per_block);
+  Planes pl{(const int32_t*)mags, (const uint8_t*)negs, mag_sd, mag_sb, mag_ss, mag_sl,
+            neg_sd, neg_sb, neg_ss, neg_sl};
+  dim3 grid((unsigned)((lanes + lanes_per_block - 1) / lanes_per_block), (unsigned)batch);
   size_t smem = (size_t)2 * 3 * n_table * lanes_per_block * 64;
   k_g1_window_accumulate<<<grid, lanes_per_block * n_digits, smem, (cudaStream_t)stream>>>(
       (const int32_t*)ax, (const int32_t*)ay, (const int32_t*)az, (const int32_t*)tx, (const int32_t*)ty,
@@ -307,18 +326,21 @@ int zk_g2_window_table(const void* bx, const void* by, void* ox, void* oy, void*
   return (int)cudaGetLastError();
 }
 
-// acc (n_digits, lanes, 2, 16) x3 in, out the same; table (steps,
-// n_table, lanes, 2, 16) x3; the planes read at steps s0 .. s0 + steps - 1.
+// acc (batch, n_digits, lanes, 2, 16) x3 in, out the same; table (steps,
+// n_table, lanes, 2, 16) x3; the planes as zk_g1_window_accumulate's.
 int zk_g2_window_accumulate(const void* ax, const void* ay, const void* az, const void* tx, const void* ty,
                             const void* tz, const void* mags, const void* negs, void* ox, void* oy, void* oz,
-                            int n_digits, int lanes, int n_table, int steps, long long s0, long long mag_sd,
-                            long long mag_ss, long long mag_sl, long long neg_sd, long long neg_ss,
-                            long long neg_sl, const void* consts, void* stream) {
-  if (n_digits <= 0 || lanes <= 0 || steps <= 0) return 0;
+                            int batch, int n_digits, int lanes, int n_table, int steps, long long s0,
+                            long long mag_sd, long long mag_sb, long long mag_ss, long long mag_sl,
+                            long long neg_sd, long long neg_sb, long long neg_ss, long long neg_sl,
+                            const void* consts, void* stream) {
+  if (batch <= 0 || n_digits <= 0 || lanes <= 0 || steps <= 0) return 0;
   FieldConst c = *reinterpret_cast<const FieldConst*>(consts);
-  Planes pl{(const int32_t*)mags, (const uint8_t*)negs, mag_sd, mag_ss, mag_sl, neg_sd, neg_ss, neg_sl};
+  Planes pl{(const int32_t*)mags, (const uint8_t*)negs, mag_sd, mag_sb, mag_ss, mag_sl,
+            neg_sd, neg_sb, neg_ss, neg_sl};
   long long n = (long long)n_digits * lanes;
-  k_g2_window_accumulate<<<(unsigned)((n + 127) / 128), 128, 0, (cudaStream_t)stream>>>(
+  dim3 grid((unsigned)((n + 127) / 128), (unsigned)batch);
+  k_g2_window_accumulate<<<grid, 128, 0, (cudaStream_t)stream>>>(
       (const int32_t*)ax, (const int32_t*)ay, (const int32_t*)az, (const int32_t*)tx, (const int32_t*)ty,
       (const int32_t*)tz, pl, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, n_digits, lanes, n_table, steps, s0, c);
   return (int)cudaGetLastError();

@@ -61,13 +61,14 @@ SOURCES = {
     "msm_window": {
         # bases x/y, table x/y/z, n, lanes, n_table, field consts (host), stream
         "zk_g1_window_table": (_VP,) * 5 + (_I64, _I32, _I32, _VP, _VP),
-        # acc x/y/z, table x/y/z, mags, negs, out x/y/z, n_digits, lanes,
-        # lanes_per_block, n_table, steps, s0, plane strides (3 + 3), consts, stream
-        "zk_g1_window_accumulate": (_VP,) * 11 + (_I32,) * 5 + (_I64,) * 7 + (_VP, _VP),
+        # acc x/y/z, table x/y/z, mags, negs, out x/y/z, batch, n_digits,
+        # lanes, lanes_per_block, n_table, steps, s0, plane strides (4 + 4),
+        # consts, stream
+        "zk_g1_window_accumulate": (_VP,) * 11 + (_I32,) * 6 + (_I64,) * 9 + (_VP, _VP),
         # the G2 table: as zk_g1_window_table
         "zk_g2_window_table": (_VP,) * 5 + (_I64, _I32, _I32, _VP, _VP),
         # as zk_g1_window_accumulate without lanes_per_block
-        "zk_g2_window_accumulate": (_VP,) * 11 + (_I32,) * 4 + (_I64,) * 7 + (_VP, _VP),
+        "zk_g2_window_accumulate": (_VP,) * 11 + (_I32,) * 5 + (_I64,) * 9 + (_VP, _VP),
     },
     "msm_fold": {
         # init x/y/z, planes x/y/z, out x/y/z, lanes, n_planes, window, consts, stream
@@ -80,8 +81,8 @@ SOURCES = {
         "zk_fr_ntt_pass": (_VP,) * 4 + (_I64,) + (_I32,) * 5 + (_VP, _VP),
     },
     "matvec": {
-        # coeff, wire, offsets, w, out, rows, consts, stream
-        "zk_fr_matvec": (_VP,) * 5 + (_I64, _VP, _VP),
+        # coeff, wire, offsets, w, out, rows, n_wires, batch, consts, stream
+        "zk_fr_matvec": (_VP,) * 5 + (_I64, _I64, _I32, _VP, _VP),
     },
     "recode": {
         # limbs, mags, negs, n, window, stream

@@ -13,6 +13,10 @@ row i holding nonzeros offsets[i] .. offsets[i+1]-1.  ``csr_from_rows``
 builds it from the key's (coeff, wire, row) triples, sorting by row (a
 stable sort) only when the rows are not sorted already.
 
+The witness may carry a leading batch axis, (B, n_wires, 16) against one
+matrix (the batch prover's chunk), and the product is then (B, rows, 16),
+one launch for the whole batch.
+
 ``fr_matvec`` launches K13 for CUDA tensors and runs ``fr_matvec_plain``
 for CPU tensors; nothing else.  The plain version is the reference's
 math on the same CSR arguments (gather, ``mont_mul_plain``,
@@ -59,21 +63,27 @@ def csr_from_rows(coeff: torch.Tensor, wire: torch.Tensor, row: torch.Tensor, ro
 def fr_matvec_plain(coeff: torch.Tensor, wire: torch.Tensor, offsets: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain torch version of K13, any device: the products of the
     gathered witness values (mont_mul_plain, PLAIN_CHUNK nonzeros at a
-    time), then lazy_segment_sum_mod over the rows."""
+    time), then lazy_segment_sum_mod over the rows; a batch (B, n_wires,
+    16) of witnesses sums its B x rows segments in one pass."""
     rows = offsets.numel() - 1
     nnz = wire.numel()
-    vals = torch.empty(nnz, NUM_LIMBS, dtype=torch.int32, device=w.device)
+    batch = w.shape[:-2]
+    wb = w.reshape(-1, *w.shape[-2:])
+    vals = torch.empty(wb.shape[0], nnz, NUM_LIMBS, dtype=torch.int32, device=w.device)
     for j in range(0, nnz, PLAIN_CHUNK):
-        ws = w.index_select(0, wire[j:j + PLAIN_CHUNK].long())
-        vals[j:j + PLAIN_CHUNK] = mont_mul_plain(FR, coeff[j:j + PLAIN_CHUNK], ws)
+        ws = wb.index_select(1, wire[j:j + PLAIN_CHUNK].long())
+        vals[:, j:j + PLAIN_CHUNK] = mont_mul_plain(FR, coeff[j:j + PLAIN_CHUNK], ws)
     row_ids = torch.repeat_interleave(torch.arange(rows, device=w.device), offsets.diff())
-    return lazy_segment_sum_mod(FR, vals, row_ids, rows)
+    seg = (row_ids + rows * torch.arange(wb.shape[0], device=w.device)[:, None]).flatten()
+    out = lazy_segment_sum_mod(FR, vals.reshape(-1, NUM_LIMBS), seg, wb.shape[0] * rows)
+    return out.reshape(*batch, rows, NUM_LIMBS)
 
 
 def fr_matvec(coeff: torch.Tensor, wire: torch.Tensor, offsets: torch.Tensor, w: torch.Tensor,
               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Rows (rows, 16) of the product of the CSR matrix (coeff, wire,
-    offsets) with w (n_wires, 16), int32 Montgomery limbs, canonical.
+    offsets) with w (n_wires, 16), int32 Montgomery limbs, canonical; for
+    a batch w (B, n_wires, 16), the (B, rows, 16) products in one launch.
     Writes `out` (new if None; must not overlap w) and returns it.  CUDA
     tensors launch K13; CPU tensors take the plain version."""
     operands = [t for t in (coeff, wire, offsets, w, out) if t is not None]
@@ -84,22 +94,24 @@ def fr_matvec(coeff: torch.Tensor, wire: torch.Tensor, offsets: torch.Tensor, w:
         return res if out is None else out.copy_(res)
     if len(devs) != 1 or w.device.type != "cuda":
         raise ValueError(f"fr_matvec: operands on {sorted(str(d) for d in devs)}; expected one cuda device")
-    if coeff.shape != (wire.numel(), NUM_LIMBS) or w.dim() != 2 or w.shape[-1] != NUM_LIMBS:
+    if coeff.shape != (wire.numel(), NUM_LIMBS) or w.dim() not in (2, 3) or w.shape[-1] != NUM_LIMBS:
         raise ValueError(f"fr_matvec: coeff {tuple(coeff.shape)}, wire {tuple(wire.shape)}, w {tuple(w.shape)}")
     if wire.dtype != torch.int32 or offsets.dtype != torch.int64 or not (wire.is_contiguous()
                                                                          and offsets.is_contiguous()):
         raise TypeError("fr_matvec: wire ids must be contiguous int32 and offsets contiguous int64")
     for t, name in ((coeff, "coeff"), (w, "w")):
         check_cuda_operand(t, f"fr_matvec {name}")
+    batch = tuple(w.shape[:-2])
     if out is None:
-        out = torch.empty(rows, NUM_LIMBS, dtype=torch.int32, device=w.device)
-    elif out.shape != (rows, NUM_LIMBS):
-        raise ValueError(f"fr_matvec: out {tuple(out.shape)} for {rows} rows")
+        out = torch.empty(batch + (rows, NUM_LIMBS), dtype=torch.int32, device=w.device)
+    elif out.shape != batch + (rows, NUM_LIMBS):
+        raise ValueError(f"fr_matvec: out {tuple(out.shape)} for {batch + (rows,)} rows")
     check_cuda_operand(out, "fr_matvec out")
-    if rows:
+    n_batch = batch[0] if batch else 1
+    if rows and n_batch:
         cuda_build.launch(
             "matvec", "zk_fr_matvec",
             coeff.data_ptr(), wire.data_ptr(), offsets.data_ptr(), w.data_ptr(), out.data_ptr(), rows,
-            field_consts(FR).ctypes.data,
+            w.shape[-2], n_batch, field_consts(FR).ctypes.data,
         )
     return out

@@ -21,6 +21,9 @@ and ``(2, 16)`` for G2): bases ``(T, lanes, *elem)`` with (0, 0) =
 infinity; a table ``(T, n, lanes, *elem)`` per coordinate, entry k =
 (k+1)P in Jacobian; partials ``(n_digits, lanes, *elem)``; digit planes
 ``(n_digits, steps, lanes)``, magnitudes int32 in [0, n] and a bool sign.
+The accumulate also takes a batch of B witnesses against one table (the
+batch prover's chunk): partials ``(B, n_digits, lanes, *elem)`` and
+planes ``(n_digits, B, steps, lanes)``, one launch for the batch.
 """
 
 from __future__ import annotations
@@ -80,11 +83,14 @@ def _accumulate_plain(g2: bool, acc: Coords, table: Coords, mags: torch.Tensor, 
                       s0: int) -> Coords:
     """Per step, the entry each digit's magnitude selects (infinity for 0),
     Y negated (-0 stays 0) for a negative digit, added by
-    point_op_plain("add")."""
+    point_op_plain("add").  Planes (n_digits, *batch, steps, lanes)
+    against partials (*batch, n_digits, lanes, *elem)."""
     ones = (1,) * len(_elem(g2))
-    lane_ix = torch.arange(mags.shape[2], device=mags.device)[None, :]
+    lane_ix = torch.arange(mags.shape[-1], device=mags.device)
     for t in range(table[0].shape[0]):
-        mag, neg = mags[:, s0 + t].long(), negs[:, s0 + t].reshape(mags.shape[0], -1, *ones)
+        # (n_digits, *batch, lanes) -> (*batch, n_digits, lanes)
+        mag = mags.select(-2, s0 + t).movedim(0, -2).long()
+        neg = negs.select(-2, s0 + t).movedim(0, -2).reshape(mag.shape + ones)
         zero = (mag == 0).reshape(mag.shape + ones)
         x, y, z = (torch.where(zero, 0, c[t][(mag - 1).clamp(min=0), lane_ix]) for c in table)
         acc = point_op_plain("add", g2, *acc, x, torch.where(neg, (FQ2 if g2 else FQ).neg(y), y), z)
@@ -162,26 +168,35 @@ def _accumulate(g2: bool, acc: Coords, table: Coords, mags: torch.Tensor, negs: 
     if dev.type == "cpu":
         return _accumulate_plain(g2, acc, table, mags, negs, s0)
     elem = _elem(g2)
-    n_digits, steps, lanes = mags.shape
+    if mags.dim() not in (3, 4):
+        raise ValueError(f"{name}: planes {tuple(mags.shape)}, expected (n_digits, [batch,] steps, lanes)")
+    n_digits, *batch, steps, lanes = mags.shape
+    batch = tuple(batch)
     T, n_table = table[0].shape[:2]
     if negs.shape != mags.shape or negs.dtype != torch.bool or not 0 <= s0 <= s0 + T <= steps:
         raise ValueError(f"{name}: planes {tuple(mags.shape)}/{tuple(negs.shape)} {negs.dtype}, "
                          f"steps {s0}..{s0 + T}")
     if not g2 and not (n_digits <= _BLOCK and 1 <= n_table <= _BLOCK):
         raise ValueError(f"{name}: {n_digits} digit planes and n = {n_table}; at most {_BLOCK} each")
-    ins = [_limbs(c, (n_digits, lanes) + elem, f"{name} acc") for c in acc]
+    ins = [_limbs(c, batch + (n_digits, lanes) + elem, f"{name} acc") for c in acc]
     ins += [_limbs(c, (T, n_table, lanes) + elem, f"{name} table") for c in table]
     if mags.dtype != torch.int32:
         raise TypeError(f"{name}: magnitudes must be int32, got {mags.dtype}")
-    if not (n_digits and lanes and T):
+    n_batch = batch[0] if batch else 1
+    if not (n_batch and n_digits and lanes and T):
         return tuple(ins[:3])
-    out = tuple(torch.empty((n_digits, lanes) + elem, dtype=torch.int32, device=dev) for _ in range(3))
+    out = tuple(torch.empty(batch + (n_digits, lanes) + elem, dtype=torch.int32, device=dev) for _ in range(3))
+
+    def strides(p):  # digit, batch, step, lane; an unbatched plane has batch stride 0
+        sd, *sb, ss, sl = p.stride()
+        return (sd, sb[0] if sb else 0, ss, sl)
+
     # K7 stages a block's lanes in shared memory; K9 takes one thread per (digit, lane)
     lanes_per_block = () if g2 else (min(_BLOCK // n_digits, _BLOCK // n_table),)
     cuda_build.launch(
         "msm_window", "zk_" + name,
         *(c.data_ptr() for c in ins), mags.data_ptr(), negs.data_ptr(), *(o.data_ptr() for o in out),
-        n_digits, lanes, *lanes_per_block, n_table, T, s0, *mags.stride(), *negs.stride(),
+        n_batch, n_digits, lanes, *lanes_per_block, n_table, T, s0, *strides(mags), *strides(negs),
         field_consts(FQ).ctypes.data,
     )
     return out
@@ -204,11 +219,13 @@ def g1_window_accumulate(acc: Coords, table: Coords, mags: torch.Tensor, negs: t
     (T, n, lanes, 16) x3, the entry its digit selects: digit planes
     mags/negs (n_digits, steps, lanes) read at steps s0 .. s0+T-1.  Returns
     the new partials (K7); acc is not written.  The planes are read in
-    place at their strides."""
+    place at their strides.  A batch of B witnesses against the one
+    table: acc (B, n_digits, lanes, 16) x3, planes (n_digits, B, steps,
+    lanes), one launch."""
     return _accumulate(False, acc, table, mags, negs, s0)
 
 
 def g2_window_accumulate(acc: Coords, table: Coords, mags: torch.Tensor, negs: torch.Tensor, s0: int) -> Coords:
-    """g1_window_accumulate over G2: acc (n_digits, lanes, 2, 16) x3, table
-    (T, n, lanes, 2, 16) x3 (K9)."""
+    """g1_window_accumulate over G2: acc ([B,] n_digits, lanes, 2, 16) x3,
+    table (T, n, lanes, 2, 16) x3 (K9)."""
     return _accumulate(True, acc, table, mags, negs, s0)

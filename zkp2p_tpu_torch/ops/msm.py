@@ -16,7 +16,13 @@ G2; ``ops.cuda_msm_fold``).  The step loops over point kernels
 the tests and ``chip_smoke.py`` hold the kernels against.  The planes
 come from ``signed_digit_planes``: one launch of K14
 (``ops.cuda_recode``) on a CUDA tensor, the Kogge-Stone recode
-``signed_digit_planes_from_limbs`` (its comparator) on a CPU tensor."""
+``signed_digit_planes_from_limbs`` (its comparator) on a CPU tensor.
+
+``msm_windowed_signed`` also takes a batch of witnesses' planes against
+one set of bases (the reference's ``vmap`` with the bases unbatched):
+planes ``(n_digits, B, n)`` give B points.  Each chunk's tables are then
+built once and accumulated for all B in one launch; the fold takes the
+batch as more lanes and the tree folds each witness's lanes."""
 
 from __future__ import annotations
 
@@ -159,13 +165,15 @@ def _accumulate_chunked(curve: TCurve, pts: AffPoint, planes: torch.Tensor, neg_
                         window: int) -> JacPoint:
     """_accumulate_steps in chunks of steps: one table launch (K6 for G1,
     K8 for G2) builds a chunk's tables, one accumulate launch (K7, K9)
-    adds them into the partials.  The same partials, bit for bit."""
-    n_digits, steps, lanes = planes.shape
+    adds them into the partials.  The same partials, bit for bit.  Planes
+    (n_digits, B, steps, lanes) of a batch give (B, n_digits, lanes)
+    partials, each chunk's table built once for the batch."""
+    n_digits, *batch, steps, lanes = planes.shape
     n_table = 1 << (window - 1)
     table_of, accumulate = ((g2_window_table, g2_window_accumulate) if curve.g2
                             else (g1_window_table, g1_window_accumulate))
     chunk = chunk_steps(lanes, n_table, math.prod(curve.elem))
-    acc = curve.infinity((n_digits, lanes), planes.device)
+    acc = curve.infinity((*batch, n_digits, lanes), planes.device)
     for s0 in range(0, steps, chunk):
         table = table_of((pts[0][s0:s0 + chunk], pts[1][s0:s0 + chunk]), n_table)
         acc = accumulate(acc, table, planes, neg_t, s0)
@@ -174,9 +182,10 @@ def _accumulate_chunked(curve: TCurve, pts: AffPoint, planes: torch.Tensor, neg_
 
 def _lane_partials(curve: TCurve, bases: AffPoint, mags: torch.Tensor, negs: torch.Tensor, lanes: int,
                    window: int, accumulate) -> JacPoint:
-    """The (n_digits, lanes) partials of an MSM: the bases padded with
-    (0, 0) to whole lane steps, accumulated by `accumulate`."""
-    n_digits = mags.shape[0]
+    """The (*batch, n_digits, lanes) partials of an MSM of planes
+    (n_digits, *batch, n): the bases padded with (0, 0) to whole lane
+    steps, accumulated by `accumulate`."""
+    n_digits, *batch = mags.shape[:-1]
     n = bases[0].shape[0]
     device = bases[0].device
     lanes = min(lanes, n)
@@ -188,14 +197,17 @@ def _lane_partials(curve: TCurve, bases: AffPoint, mags: torch.Tensor, negs: tor
         negs = F.pad(negs, [0, pad])
     steps = (n + pad) // lanes
     pts = tuple(c.reshape((steps, lanes) + curve.elem) for c in bases)
-    return accumulate(curve, pts, mags.reshape(n_digits, steps, lanes), negs.reshape(n_digits, steps, lanes), window)
+    shape = (n_digits, *batch, steps, lanes)
+    return accumulate(curve, pts, mags.reshape(shape), negs.reshape(shape), window)
 
 
 def _windowed(curve: TCurve, bases: AffPoint, mags: torch.Tensor, negs: torch.Tensor, lanes: int, window: int,
               accumulate) -> JacPoint:
     acc = _lane_partials(curve, bases, mags, negs, lanes, window, accumulate)
-    lanes = acc[0].shape[1]
-    per_lane = horner_fold_planes(curve, curve.infinity((lanes,), bases[0].device), acc, window)
+    batch, lanes = mags.shape[1:-1], acc[0].shape[-1 - len(curve.elem)]
+    # the fold takes the batch's lanes as more lanes: (n_digits, *batch, lanes)
+    planes = tuple(c.movedim(len(batch), 0) for c in acc)
+    per_lane = horner_fold_planes(curve, curve.infinity((*batch, lanes), bases[0].device), planes, window)
     return tree_reduce(curve, per_lane, lanes)
 
 
@@ -208,7 +220,8 @@ def msm_windowed_signed(
     window: int = 4,
 ) -> JacPoint:
     """sum_i k_i * P_i for affine bases ((0, 0) = infinity) and signed
-    digit planes (mags, negs) of shape (n_digits, n): one Jacobian point.
+    digit planes (mags, negs) of shape (n_digits, n): one Jacobian point;
+    planes (n_digits, B, n) of a batch of scalar vectors: B points.
     G1 and G2 accumulate a chunk of steps a kernel pair (K6/K7, K8/K9)
     and fold the planes in one kernel (K10, K11).  The lanes fold by the pairwise tree, for G1 and G2 alike (the
     reference's fold_lanes_per_curve takes the tree whenever its point

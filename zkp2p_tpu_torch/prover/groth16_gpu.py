@@ -21,6 +21,14 @@ sorted-prefix bucket MSM (``ops.msm_bucket``) over w=16 planes.
 
 Given the same (witness, r, s) the proof equals the reference's
 ``prove_host`` and ``prove_tpu`` byte for byte.
+
+``prove_gpu_batch`` (the reference's ``prove_tpu_batch``) runs the same
+pipeline over a leading batch axis of witnesses against one resident
+key, a chunk of witnesses at a time: one upload, one K13 launch each for
+Az and Bz, one K12 launch a pass over the chunk's 3B rows, one K14
+launch each for the witness's planes and H's, and each MSM's tables
+built once a chunk of steps and accumulated for the whole chunk in one
+K7/K9 launch (the reference's ``vmap`` leaves the key unbatched).
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ from __future__ import annotations
 import secrets
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -235,16 +243,25 @@ def _check_inferred_widths(dpk: DeviceProvingKey, witness, w_std: Optional[np.nd
     )
 
 
+def _as_u64(witness) -> np.ndarray:
+    """A host witness as its (n, 4) u64 rows (ints reduced mod R first)."""
+    return witness if _is_u64_witness(witness) else _scalars_to_u64([int(w) % R for w in witness])
+
+
 def witness_to_device(witness, device) -> torch.Tensor:
     """Host witness -> (n_wires, 16) Montgomery limbs on `device`: the
     (n, 4) u64 rows cross as they are (ints pack into them first), are
     split into 16-bit limbs on the device, and one K1 product takes them
-    to Montgomery form."""
-    if _is_u64_witness(witness):
-        _check_u64_reduced(witness)
+    to Montgomery form.  A (B, n, 4) u64 stack of a batch's rows crosses
+    in one copy and gives (B, n_wires, 16)."""
+    if isinstance(witness, np.ndarray) and witness.dtype == np.uint64 and witness.ndim == 3:
+        for w in witness:
+            _check_u64_reduced(w)
         rows = witness
     else:
-        rows = _scalars_to_u64([int(w) % R for w in witness])
+        if _is_u64_witness(witness):
+            _check_u64_reduced(witness)
+        rows = _as_u64(witness)
     rows = np.ascontiguousarray(rows)
     if not rows.flags.writeable:
         rows = rows.copy()
@@ -292,9 +309,10 @@ def key_csr(dpk: DeviceProvingKey, name: str) -> Csr:
 def abc_evals(dpk: DeviceProvingKey, w_mont: torch.Tensor) -> torch.Tensor:
     """Az, Bz and Cz = Az*Bz on the domain, the rows of one (3, m, 16)
     batch: Az and Bz each one K13 launch over the key's CSR rows, Cz one
-    K1 product."""
+    K1 product.  A batch of witnesses (B, n_wires, 16) fills one
+    (3, B, m, 16) buffer with the same three launches."""
     m = 1 << dpk.log_m
-    abc = torch.empty(3, m, NUM_LIMBS, dtype=torch.int32, device=w_mont.device)
+    abc = torch.empty((3,) + tuple(w_mont.shape[:-2]) + (m, NUM_LIMBS), dtype=torch.int32, device=w_mont.device)
     fr_matvec(*key_csr(dpk, "a"), w_mont, out=abc[0])
     fr_matvec(*key_csr(dpk, "b"), w_mont, out=abc[1])
     abc[2] = FR.mul(abc[0], abc[1])
@@ -312,17 +330,27 @@ def h_evals(dpk: DeviceProvingKey, w_mont: torch.Tensor, stages=None) -> torch.T
     passes, then the NTT's, whose first pass multiplies by the table
     g^i / m as it loads (the iNTT's 1/m and the coset shift in one
     product); each pass is one K12 launch over all three rows (2^23:
-    3 + 3 launches)."""
+    3 + 3 launches).  A batch of witnesses (B, n_wires, 16) gives (B, m,
+    16): its 3B rows go through the same launches, and a*b - c runs a
+    witness at a time (the plain subtraction's int64 temporaries)."""
     log_m = dpk.log_m
+    m = 1 << log_m
     abc = _timed(stages, "matvec", lambda: abc_evals(dpk, w_mont))
-    a_cos, b_cos, c_cos = _timed(stages, "ntt", lambda: coset_ladder(abc, coset_gen(log_m), log_m))
-    return FR.sub(FR.mul(a_cos, b_cos), c_cos)
+    cos = _timed(stages, "ntt", lambda: coset_ladder(abc.reshape(-1, m, NUM_LIMBS), coset_gen(log_m), log_m))
+    a_cos, b_cos, c_cos = cos.reshape(abc.shape)
+    if a_cos.dim() == 2:
+        return FR.sub(FR.mul(a_cos, b_cos), c_cos)
+    h = torch.empty_like(a_cos)
+    for i in range(h.shape[0]):
+        h[i] = FR.sub(FR.mul(a_cos[i], b_cos[i]), c_cos[i])
+    return h
 
 
 def _h_and_planes(dpk: DeviceProvingKey, w_mont: torch.Tensor, h_window: int, stages=None):
     """H evaluations, the signed w=4 digit planes of the witness and the
     signed w=h_window planes of H; the narrow class takes the last
-    NARROW_PLANES witness planes."""
+    NARROW_PLANES witness planes.  For a batch (B, n_wires, 16) the planes
+    are (n_digits, B, n), one K14 launch each for the witnesses and H."""
     h = _timed(stages, "h_evals", lambda: h_evals(dpk, w_mont, stages))
 
     def planes():
@@ -332,7 +360,7 @@ def _h_and_planes(dpk: DeviceProvingKey, w_mont: torch.Tensor, h_window: int, st
         return (w_planes, narrow), h_planes
 
     w_all, h_planes = _timed(stages, "planes", planes)
-    if stages is not None:
+    if stages is not None and h.dim() == 2:  # a batch's H (B x 512 MiB at 2^23) is not kept
         stages["h"] = h
     return w_all, h_planes
 
@@ -397,7 +425,9 @@ def _take_bases(bases, pos):
 def _prove_device(dpk: DeviceProvingKey, w_mont: torch.Tensor, msm_affine: bool, msm_h: str, stages=None):
     """The five MSMs -> (a, b1, b2, c, h) Jacobian accumulators.  b1/b2/c
     run over their pruned lanes; with width metadata each witness MSM is
-    a narrow-class and a wide-class MSM joined by one add."""
+    a narrow-class and a wide-class MSM joined by one add.  A batch of
+    witnesses w_mont (B, n_wires, 16) gives (B,) accumulators, the key's
+    splits built once per key as for one witness."""
     h_bucket = msm_h == "bucket"
     h_window = H_BUCKET_WINDOW if h_bucket else WINDOW
     (w_planes, w_narrow), h_planes = _h_and_planes(dpk, w_mont, h_window, stages)
@@ -445,10 +475,12 @@ def _assemble(dpk: DeviceProvingKey, acc, r: int, s: int) -> Proof:
     return Proof(a=pi_a, b=pi_b, c=pi_c)
 
 
-def accumulators_to_host(acc) -> Tuple:
-    """The five device accumulators -> host affine (a, b1, b2, c, h)."""
-    a, b1, c, h = (g1_jac_to_host(p)[0] for p in (acc[0], acc[1], acc[3], acc[4]))
-    return a, b1, g2_jac_to_host(acc[2])[0], c, h
+def accumulators_to_host(acc):
+    """The five device accumulators -> host affine (a, b1, b2, c, h); for
+    a batch's (B,) accumulators, a list of B such tuples."""
+    a, b1, c, h = (g1_jac_to_host(p) for p in (acc[0], acc[1], acc[3], acc[4]))
+    rows = list(zip(a, b1, g2_jac_to_host(acc[2]), c, h))
+    return rows if acc[0][0].dim() > 1 else rows[0]
 
 
 def prove_gpu(
@@ -491,3 +523,77 @@ def prove_gpu(
     if stages is not None:
         stages["acc"] = host
     return proof
+
+
+def batch_spans(n: int, chunk: int) -> List[List[int]]:
+    """The witness indices of each chunk of a batch of n (the reference's
+    ``prove_tpu_batch`` rule): spans of `chunk` witnesses, the last padded
+    by repeating its final witness so that every chunk has one shape;
+    chunk 0, or n <= chunk, is one span of all n."""
+    if chunk <= 0 or n <= chunk:
+        return [list(range(n))]
+    spans = [list(range(i, min(i + chunk, n))) for i in range(0, n, chunk)]
+    spans[-1] += [spans[-1][-1]] * (chunk - len(spans[-1]))
+    return spans
+
+
+def prove_gpu_batch(
+    dpk: DeviceProvingKey,
+    witnesses: Sequence,
+    rs: Optional[Sequence[Tuple[int, int]]] = None,
+    chunk: int = 4,
+    device=None,
+    stages: Optional[dict] = None,
+) -> List[Proof]:
+    """Groth16 proofs of a batch of witnesses against one key (port of the
+    reference's ``prove_tpu_batch``): one proof per witness, in order.
+    Each witness is a sequence of ints or (n, 4) uint64 rows; `rs` holds
+    one (r, s) pair per witness (drawn as the reference draws them, r
+    then s, 1 + randbelow(R - 1) each, when None).
+
+    The witnesses run `chunk` at a time through the device pipeline over
+    a leading batch axis (``batch_spans``; the last chunk is padded with
+    copies of its final witness, which give no proof; chunk 0 runs the
+    whole batch as one chunk); the default 4 is the reference's.  Every
+    witness passes the width guard before any device work.  The MSMs run
+    the reference's default arms (Jacobian accumulate, windowed h MSM).
+    Runs on CUDA unless device="cpu"; the key must be on that device.
+    When `stages` is a dict it receives "chunks", one dict of stage
+    seconds a chunk under prove_gpu's names, and "acc", the five host
+    accumulators of each witness.  A proof equals prove_gpu's for the
+    same (witness, r, s), byte for byte."""
+    witnesses = list(witnesses)
+    n = len(witnesses)
+    if not n:
+        raise ValueError("prove_gpu_batch: no witnesses")
+    if isinstance(chunk, bool) or not isinstance(chunk, int) or chunk < 0:
+        raise ValueError(f"chunk must be an int >= 0 (0: the whole batch as one chunk), got {chunk!r}")
+    dev = resolve_device(device)
+    if dpk.device != dev:
+        raise ValueError(f"key is on {dpk.device}, prover asked to run on {dev}")
+    if rs is None:
+        rs = [(1 + secrets.randbelow(R - 1), 1 + secrets.randbelow(R - 1)) for _ in range(n)]
+    rs = [(int(r), int(s)) for r, s in rs]
+    if len(rs) != n:
+        raise ValueError(f"prove_gpu_batch: {len(rs)} (r, s) pairs for {n} witnesses")
+    for wit in witnesses:
+        _check_inferred_widths(dpk, wit, w_std=wit if _is_u64_witness(wit) else None)
+    proofs: List[Proof] = []
+    accs = []
+    for span in batch_spans(n, chunk):
+        st = None if stages is None else {}
+        rows = _timed(st, "witness", lambda: np.stack([_as_u64(witnesses[i]) for i in span]))
+        w_mont = _timed(st, "witness", lambda: witness_to_device(rows, dev))
+        del rows
+        acc = _prove_device(dpk, w_mont, False, "windowed", st)
+        del w_mont
+        host = _timed(st, "assemble", lambda: accumulators_to_host(acc))
+        real = sorted(set(span))  # the padding repeats the span's last witness
+        for i, h in zip(real, host):
+            proofs.append(_timed(st, "assemble", lambda: _assemble(dpk, h, *rs[i])))
+            accs.append(h)
+        if stages is not None:
+            stages.setdefault("chunks", []).append(st)
+    if stages is not None:
+        stages["acc"] = accs
+    return proofs
