@@ -9,11 +9,13 @@ and prints no result line):
 1. Build: every kernel source under zkp2p_tpu_torch/csrc/ with nvcc for
    sm_90a, one process per source, all started together, timed as
    set-up.
-2. Kernels against plain: each of the seventeen launchers (K1 mont_mul;
-   K2 add, K3 add_mixed, K4 double for G1 and G2; K5 mont_pow; K6/K8 the
-   G1 and G2 window tables, K7/K9 the G1 and G2 window accumulates;
-   K10/K11 the G1 and G2 Horner folds; K12 the NTT pass; K13 the CSR
-   sparse matvec over Fr; K14 the signed digit recode) on
+2. Kernels against plain: each of the twenty-three launchers (K1
+   mont_mul; K2 add, K3 add_mixed, K4 double for G1 and G2; K5 mont_pow;
+   K6/K8 the G1 and G2 window tables, K7/K9 the G1 and G2 window
+   accumulates; K10/K11 the G1 and G2 Horner folds; K12 the NTT pass;
+   K13 the CSR sparse matvec over Fr; K14 the signed digit recode; K15
+   batch_inverse and jac_to_affine; K16 the G1 and G2 affine add and
+   affine accumulate) on
    random canonical inputs with the special cases (zero, one, p-1; P+P,
    P+(-P), infinity, the (0, 0) affine sentinel; for K7/K9 also acc
    equal to its entry and to its negation, and e = 16 digits) at batches
@@ -65,6 +67,30 @@ and prints no result line):
    plain version over their first 8 steps held bitwise, the whole chunk
    timed against the unbatched kernel a witness (bitwise equal); K13 at 4
    witnesses on the key's A (phase 4), timed, held bitwise against both.
+   K15 batch_inverse at 1, 257 and 2^16 elements of Fq, Fr and Fq2 with
+   0, 1, p-1 and the Montgomery one, held bitwise against the kernels'
+   grouping in plain torch (batch_inverse_blocked) and, on its nonzero
+   lanes, against the grid-wide plain route, K5 and Python pow (a zero
+   gives 0); K15 jac_to_affine and K16's add and accumulate, G1 and G2,
+   at 1, 257 and 2^16 with the special lanes (a first add from infinity,
+   an addend at infinity, P + P, P + (-P), the same x with another y, a
+   doubling with y = 0, zero digits, a (0, 0) base) and on strided and
+   broadcast operands, held bitwise against their plain versions.  Then
+   K15 at batch 1 against K5 in turns (K5, K15, K15, K5), timed with its
+   chain floor; batch_inverse and jac_to_affine at each table chunk of
+   the affine path (narrow 42 x 8 x 16,384, a wide 17 x 8 x 2,048, b1
+   wide 18 x 8 x 512, b2 narrow 85 x 8 x 4,096 and b2 wide 18 x 8 x 512
+   in Fq2) and batch_inverse at a bucket level (2^22 x 16); the K16
+   accumulate at each chunk (3 x 16,384 x 42, 64 x 2,048 x 17, 64 x 512
+   x 18, 3 x 4,096 x 85 and 64 x 512 x 18 in Fq2), its plain version
+   over the first 4 steps; the G1 add at a bucket level (2^22 x 16
+   planes, the strided halves of 2^23 x 16) and the G2 add at 2^16:
+   each timed with its bound and its plain version (over the first 2^16
+   elements above that), held bitwise.  The whole affine MSMs through
+   K6/K8 + K15 + K16 at 2^16 (G1 and G2, 64 planes and the narrow 3) and
+   the bucket MSM at w = 16 through the grouped planes, held bitwise
+   against the old routes (_affine_steps; the bucket a plane at a time)
+   and against host discrete logs.
 3. Test vector: prove_gpu on zkp2p_tpu_torch/data/port_vector.npz gives
    the committed proof byte for byte, with the default (Jacobian) MSM
    arms and with the affine ones (msm_affine=True, msm_h="bucket").
@@ -105,30 +131,40 @@ and prints no result line):
    tables, accumulates, folds and lane trees (K2, K6-K11) as many as one
    proof's, K13 and K14 2, K12 6; the peak device memory of one chunk of
    1, 2 and 4 witnesses, and the key's resident bytes.
-5. Real size, affine path: the same key and witness, one timed proof
-   with msm_affine=True, msm_h="bucket" (the batch-affine accumulate and
-   the w=16 sorted-prefix bucket h MSM; no warm-up: every kernel and
-   allocation size ran before it), its five MSMs checked the same way.
+5. Real size, affine path: the same key and witness, one warm-up and
+   three timed proofs with msm_affine=True, msm_h="bucket" (the
+   batch-affine accumulate through K6/K8, K15 and K16, and the w=16
+   sorted-prefix bucket h MSM, its planes in groups of PLANE_GROUP,
+   every add K16), the first's five MSMs checked the same way; then
+   proofs with the same r and s, their bytes held equal: the affine path
+   through the kernels, through the old routes (_affine_steps with K3
+   tables, K1 products and K5 inversions; the bucket a plane at a time),
+   through the kernels again, through the kernels with the bucket's
+   planes in groups of 1, 2, 4, 8 and 16 (PLANE_GROUPS), and the
+   Jacobian path, each with its peak device memory (the affine_same_run
+   line).
 
 The launch counts are reset just before the first timed proof of each
 path and read just after it; every kernel of a path must have launched in
-its run (on the Jacobian path K1, K2 and K6-K14, and neither K3 nor K4;
-on the affine path K1-K3, K5, K10-K14, and not K4: after the fold
-kernels K4 launches on no path, and is asserted to launch 0 times); K12
-launches once a pass of the iNTT and of the NTT on each path, K13 and
-K14 twice a proof on each path, and K1 at most 5 times on the Jacobian
-path (printed); on the batch path, besides the per-chunk counts above,
-neither K3 nor K4.
+its run (on the Jacobian path K1, K2 and K6-K14; on the affine path K1,
+K2, K6, K8, K10-K14, K15's jac_to_affine, K16's G1 add and both
+accumulates), and the launchers of OFF_PATH (K3, K4, K5, K15's
+batch_inverse, K16's G2 add) on no path; K12 launches once a pass of the
+iNTT and of the NTT on each path, K13 and K14 twice a proof on each path,
+and K1 at most 5 times a proof on each path (printed); on the batch path,
+besides the per-chunk counts above, nothing of OFF_PATH or the affine
+path.
 
 Before the last line it prints the card's name and power limit, a
-profile of one more Jacobian proof, run after every timed proof (the
-device's busy share and the ops with the most device time, from
-torch.profiler), one JSON line with the
-seventeen kernels (checks, launches on each path, times and bounds), one
-each with the two paths' per-stage times, K1 launches and peak device
+profile each of one more Jacobian and one more affine proof, run after
+every timed proof (the device's busy share and the ops with the most
+device time, from torch.profiler), one JSON line with the
+twenty-three kernels (checks, launches on each path, times and bounds),
+one each with the two paths' per-stage times, launches and peak device
 memory, and one each with the same-run comparisons of the witness side
-(witness_same_run), the H ladder (ntt_same_run), the h MSM, the b2 MSM
-and the proof, and the batch phase's lines: real_size_batch (proofs/s,
+(witness_same_run), the H ladder (ntt_same_run), the h MSM, the b2 MSM,
+the proof, the affine MSMs at 2^16 (affine_msm_same_run) and the affine
+proof (affine_same_run), and the batch phase's lines: real_size_batch (proofs/s,
 per-chunk stage seconds, peak memory a chunk size) and batch_same_run
 (the batch against prove_gpu in a loop).  The last line is
 {"ok": true, "device": {...}}.
@@ -164,6 +200,8 @@ G2_TABLE = 256
 HOLES = 16  # (0, 0) infinity bases placed in the a and h queries
 JACOBIAN_TIMED = 3  # timed real-size proofs of the Jacobian path
 AFFINE_ARMS = {"msm_affine": True, "msm_h": "bucket"}
+# the bucket h MSM's plane group sizes timed against the default in one call
+PLANE_GROUPS = (1, 2, 4, 8, 16)
 H_CHECK_LOG_M = 16
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 INT_MULS_PER_SM_CLK = 64  # 32-bit integer multiply-adds per SM per clock (Hopper: 64 INT32 lanes per SM)
@@ -201,10 +239,22 @@ REPLACES = {
     "fr_ntt_pass": "zkp2p_tpu/ops/pallas_mont.py:201",
     "fr_matvec": "zkp2p_tpu/ops/pallas_mont.py:201 (segment sum: zkp2p_tpu/field/jfield.py:431)",
     "signed_recode": "zkp2p_tpu/ops/msm.py:129 (XLA, no Pallas row)",
+    "batch_inverse": "zkp2p_tpu/ops/pallas_mont.py:155 (in zkp2p_tpu/ops/msm_affine.py:69 batch_inverse)",
+    "jac_to_affine": "zkp2p_tpu/ops/pallas_mont.py:155 (in zkp2p_tpu/ops/msm_affine.py:104 jac_to_affine_batch)",
+    "g1_affine_add": "zkp2p_tpu/ops/pallas_mont.py:201 (XLA around it: zkp2p_tpu/ops/msm_affine.py:163)",
+    "g2_affine_add": "zkp2p_tpu/ops/pallas_mont.py:201 (XLA around it: zkp2p_tpu/ops/msm_affine.py:163)",
+    "g1_affine_accumulate": "zkp2p_tpu/ops/pallas_mont.py:201 (XLA around it: zkp2p_tpu/ops/msm_affine.py:221)",
+    "g2_affine_accumulate": "zkp2p_tpu/ops/pallas_mont.py:201 (XLA around it: zkp2p_tpu/ops/msm_affine.py:221)",
 }
 WINDOW_KERNELS = ("g1_window_table", "g1_window_accumulate", "g2_window_table", "g2_window_accumulate")
 FOLD_KERNELS = ("g1_horner_fold", "g2_horner_fold")
+# K15 and K16, and the ones the affine path runs (K15's jac_to_affine,
+# K16's G1 add for the bucket MSM, both accumulates)
+AFFINE_KERNELS = ("batch_inverse", "jac_to_affine", "g1_affine_add", "g2_affine_add", "g1_affine_accumulate",
+                  "g2_affine_accumulate")
+AFFINE_PATH_KERNELS = ("jac_to_affine", "g1_affine_add", "g1_affine_accumulate", "g2_affine_accumulate")
 SOURCE = {"mont_mul": "mont_mul.cu", "mont_pow": "mont_pow.cu",
+          **dict.fromkeys(AFFINE_KERNELS[:2], "batch_inv.cu"), **dict.fromkeys(AFFINE_KERNELS[2:], "affine_add.cu"),
           **dict.fromkeys(WINDOW_KERNELS, "msm_window.cu"),
           **dict.fromkeys(FOLD_KERNELS, "msm_fold.cu"), "fr_ntt_pass": "ntt.cu",
           "fr_matvec": "matvec.cu", "signed_recode": "recode.cu"}  # the rest: point_ops.cu
@@ -216,18 +266,47 @@ PATH_KERNELS = {
     "jacobian": ("mont_mul", "fr_ntt_pass") + WITNESS_KERNELS + _POINT_KERNELS + WINDOW_KERNELS,
     "batch": ("mont_mul", "fr_ntt_pass") + WITNESS_KERNELS + _POINT_KERNELS + WINDOW_KERNELS,
     "affine": ("mont_mul", "fr_ntt_pass") + WITNESS_KERNELS + _POINT_KERNELS
-    + ("g1_add_mixed", "g2_add_mixed", "mont_pow"),
+    + ("g1_window_table", "g2_window_table") + AFFINE_PATH_KERNELS,
 }
-# K1's launches left on a Jacobian proof: to_mont of the witness, Cz =
+# K1's launches left on a proof, either path: to_mont of the witness, Cz =
 # Az*Bz, a*b after the ladder, from_mont of the witness and of H
 K1_JACOBIAN_MAX = 5
-# K6/K8 build the windowed path's tables; K10/K11 do every path's doublings
-NOT_ON_JACOBIAN = ("g1_add_mixed", "g2_add_mixed", "g1_double", "g2_double")
-NOT_ON_AFFINE = ("g1_double", "g2_double")
+# held against their plain versions in phase 2, launched on no path: K3
+# and K4 (K6/K8 build every path's tables, K10/K11 do the doublings), K5
+# and K15's batch_inverse (the affine path inverts inside K15's
+# jac_to_affine and K16), K16's G2 add (the bucket MSM is G1-only)
+OFF_PATH = ("g1_add_mixed", "g2_add_mixed", "g1_double", "g2_double", "mont_pow", "batch_inverse", "g2_affine_add")
+NOT_ON_JACOBIAN = OFF_PATH + AFFINE_PATH_KERNELS
+NOT_ON_AFFINE = OFF_PATH + ("g1_window_accumulate", "g2_window_accumulate")
 # K6-K9: (lanes, digit planes, steps) held bitwise against plain, before
 # the path's chunk shapes
 WINDOW_BATCHES = ((1, 64, 3), (257, 64, 3), (257, 3, 3))
 N_TABLE = 8  # window 4
+# K15/K16: batches held bitwise against plain; the elements that share
+# one inversion in K15 (256 threads x 4), K16's block (the accumulate's
+# thread owns one lane; the add's takes K16_PER elements)
+AFFINE_BATCHES = (1, 257, 1 << 16)
+INV_BLOCK = 1024
+K16_BLOCK = {False: 256, True: 128}
+K16_PER = 4
+# above this many elements the plain versions run over the first ones
+# (each output depends on its own element's inputs alone), and the K16
+# accumulate's over a chunk's first AFFINE_PLAIN_STEPS steps
+PLAIN_SLICE = 1 << 16
+AFFINE_PLAIN_STEPS = 4
+# a w = 16 bucket h MSM's first prefix level: 2^22 pairs in each of 16 planes
+BUCKET_LEVEL = (1 << 22, 16)
+# the dependent chain of one Euclid round (csrc/affine.cuh: fe_inv): the
+# 8-word compare-subtract, the x subtract and add-back, one strip (8
+# multiply-adds, a shift)
+CHAIN_OPS_PER_ROUND = 8 + 16 + 10
+# the whole affine MSMs held against the old route and the host: (name,
+# log2 of the points, digit planes, lane cap as the prover sets it), and
+# the bucket MSM at w = 16 at 2^AFFINE_MSM_LOG
+AFFINE_MSMS = {False: (("64 planes", 16, 64, 4096), ("narrow", 16, 3, 16384)),
+               True: (("64 planes", 16, 64, 2048), ("narrow", 16, 3, 4096))}
+AFFINE_MSM_LOG = 16
+AFFINE_TIMED = 3  # timed real-size proofs of the affine path
 # the whole MSM through K6/K7 (G1) and K8/K9 (G2) against the step loop:
 # (name, log2 of the points, digit planes, lane cap as the prover sets it)
 WINDOW_MSMS = {
@@ -552,6 +631,369 @@ def check_mont_pow(torch, peak_muls_per_s, sm_clock_hz, device):
     log(f"K5 mont_pow: {row['ms']:.4f} ms at batch 1, {row[f'ms_{K5_TIMED[1]}']:.4f} ms at {K5_TIMED[1]}; "
         "bitwise equal to plain at both")
     return row
+
+
+# ---------------------------------------------------- K15, K16 (affine arm)
+
+
+def inverse_inputs(torch, gen, n, mod, deg, device):
+    """Random canonical elements (n,) or Fq2 (n, 2), with 0, 1, p-1 and the
+    Montgomery one in the first lanes (Fq2: in both parts, and (p-1, 0))."""
+    from zkp2p_tpu_torch.field.bn254 import MONT_R
+    from zkp2p_tpu_torch.ops import cuda_mont
+
+    x = rand_canon(torch, gen, (n, 2) if deg == 2 else (n,), device)
+    if n >= 5:
+        for k, v in enumerate((0, 1, mod - 1, MONT_R % mod)):
+            x[k] = torch.tensor(cuda_mont.limbs_of(v), device=device)
+        if deg == 2:
+            x[4, 0], x[4, 1] = torch.tensor(cuda_mont.limbs_of(mod - 1), device=device), 0
+    return x
+
+
+def affine_points(torch, gen, g2, shape, device):
+    """One affine triple of random canonical coordinates, about 1 in 16
+    at infinity with (0, 0) coordinates."""
+    elem = (2,) if g2 else ()
+    x, y = (rand_canon(torch, gen, tuple(shape) + elem, device) for _ in range(2))
+    inf = torch.randint(0, 16, tuple(shape), generator=gen, device=device) == 0
+    x[inf] = 0
+    y[inf] = 0
+    return x, y, inf
+
+
+def affine_inputs(torch, gen, g2, shape, device):
+    """Two affine triples of random canonical coordinates (about 1 in 16
+    at infinity, with (0, 0) coordinates) and, from 8 elements up, the
+    special lanes of the first axis: a at infinity (lane 0), P + P (1),
+    P + (-P) (2), b at infinity (3), both (4), the same x with another y
+    (5), the doubling of a point with y = 0 (6)."""
+    from zkp2p_tpu_torch.field.tfield import FQ
+
+    elem = (2,) if g2 else ()
+    a = [rand_canon(torch, gen, tuple(shape) + elem, device) for _ in range(2)]
+    b = [rand_canon(torch, gen, tuple(shape) + elem, device) for _ in range(2)]
+    ainf = torch.randint(0, 16, tuple(shape), generator=gen, device=device) == 0
+    binf = torch.randint(0, 16, tuple(shape), generator=gen, device=device) == 0
+    if shape[0] >= 8:
+        ainf[:7], binf[:7] = False, False
+        ainf[0] = binf[3] = ainf[4] = binf[4] = True
+        b[0][1], b[1][1] = a[0][1], a[1][1]
+        b[0][2], b[1][2] = a[0][2], FQ.neg(a[1][2])
+        b[0][5] = a[0][5]
+        a[1][6] = 0
+        b[0][6], b[1][6] = a[0][6], a[1][6]
+    for c in a:
+        c[ainf] = 0
+    for c in b:
+        c[binf] = 0
+    return (a[0], a[1], ainf), (b[0], b[1], binf)
+
+
+def affine_table_case(torch, gen, g2, steps, lanes, n_digits, device):
+    """K16 accumulate inputs: affine partials (n_digits, lanes) and a
+    random affine table (steps, N_TABLE, lanes), digit-minor planes of
+    steps + 2 steps read from step 1, and, from 5 lanes up, the special
+    lanes: acc equal to the entry its digit picks (lane 0, the doubling)
+    and to that entry negated (lane 1, infinity), a (0, 0) base (lane 2),
+    acc at infinity (lane 3), zero digits (lane 4)."""
+    from zkp2p_tpu_torch.field.tfield import FQ
+
+    elem = (2,) if g2 else ()
+    table = [rand_canon(torch, gen, (steps, N_TABLE, lanes) + elem, device) for _ in range(2)]
+    mags, negs = digit_planes(torch, gen, n_digits, steps + 2, lanes, device)
+    (ax, ay, ainf), _ = affine_inputs(torch, gen, g2, (n_digits, lanes), device)
+    s0 = 1
+    if lanes >= 5 and n_digits >= 2:
+        mags[0, s0, 0], negs[0, s0, 0] = 3, False
+        mags[1, s0, 1], negs[1, s0, 1] = 5, False
+        ainf[:2, :2] = False
+        ax[0, 0], ay[0, 0] = table[0][0, 2, 0], table[1][0, 2, 0]
+        ax[1, 1], ay[1, 1] = table[0][0, 4, 1], FQ.neg(table[1][0, 4, 1])
+        table[0][:, :, 2] = table[1][:, :, 2] = 0
+        ainf[:, 3] = True
+        ax[:, 3] = ay[:, 3] = 0
+        mags[:, :, 4], negs[:, :, 4] = 0, True
+    return (ax, ay, ainf), tuple(table), mags, negs, s0
+
+
+def check_affine_kernels(torch, shapes, peak_muls_per_s, sm_clock_hz, device):
+    """K15 (batch inversion, Jacobian -> affine) and K16 (the affine add
+    and accumulate, G1 and G2) against their plain versions, bitwise:
+    K15 against the grid-wide plain route (nonzero lanes; zero gives 0)
+    and the kernels' grouping (every lane), at AFFINE_BATCHES over Fq, Fr
+    and Fq2 with the special values, its nonzero lanes against K5 and a
+    sample against Python pow; K16 at AFFINE_BATCHES with the special
+    lanes, also on strided and broadcast operands.  Then each at the
+    shapes the path gives it (`shapes`), timed with its bound and plain
+    version (on the first PLAIN_SLICE elements, or the accumulate's first
+    AFFINE_PLAIN_STEPS steps, above them), and K15 at batch 1 against K5
+    in turns."""
+    from zkp2p_tpu_torch.curve.tcurve import G1C, G2C
+    from zkp2p_tpu_torch.field.bn254 import MONT_R, P, R
+    from zkp2p_tpu_torch.field.tfield import FQ, FQ2, FR, limbs_to_int
+    from zkp2p_tpu_torch.ops import cuda_affine, cuda_mont
+    from zkp2p_tpu_torch.ops import msm_affine as MA
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 30)
+    pyr = random.Random(SEED + 31)
+    fields = {"fq": (FQ, P, 1), "fr": (FR, R, 1), "fq2": (FQ2, P, 2)}
+
+    def inv_check(F, mod, deg, x):
+        got = MA.batch_inverse(F, x)
+        z = F.is_zero(x)
+        m = min(x.shape[0], PLAIN_SLICE)
+        blocked = MA.batch_inverse_blocked(F, x[:m], INV_BLOCK)
+        glob = MA._batch_inverse_steps(MA.plain_ops(F), x[:m])
+        err = max_abs_err(torch, got[:m], blocked)
+        err = max(err, max_abs_err(torch, got[:m][~z[:m]], glob[~z[:m]]))
+        if err or got[z].any():
+            raise AssertionError(f"batch_inverse ({deg}, n={x.shape[0]}) differs from its plain versions")
+        if deg == 1:
+            k5 = cuda_mont.mont_pow(F, x[:m], mod - 2)
+            if max_abs_err(torch, got[:m][~z[:m]], k5[~z[:m]]):
+                raise AssertionError(f"batch_inverse (n={x.shape[0]}) differs from K5")
+            rinv = pow(MONT_R, -1, mod)
+            gx, gg = x[:32].cpu().numpy(), got[:32].cpu().numpy()
+            for i in range(len(gg)):
+                v = limbs_to_int(gx[i]) * rinv % mod
+                if limbs_to_int(gg[i]) * rinv % mod != pow(v, mod - 2, mod):
+                    raise AssertionError(f"batch_inverse lane {i} differs from Python pow")
+
+    for F, mod, deg in fields.values():
+        for n in AFFINE_BATCHES:
+            inv_check(F, mod, deg, inverse_inputs(torch, gen, n, mod, deg, device))
+    log("K15 batch_inverse: bitwise equal to both plain versions on Fq, Fr and Fq2 at "
+        f"{AFFINE_BATCHES}; equal to K5 and to Python pow")
+
+    curves = {False: G1C, True: G2C}
+    for g2, curve in curves.items():
+        P_F = MA.plain_ops(curve.F)
+        for n in AFFINE_BATCHES:
+            elem = (2,) if g2 else ()
+            X, Y, Z = (rand_canon(torch, gen, (n,) + elem, device) for _ in range(3))
+            Z[::7] = 0
+            got = MA.jac_to_affine_batch(curve.F, (X, Y, Z))
+            if max_abs_err(torch, got, MA._jac_to_affine_steps(P_F, (X, Y, Z))):
+                raise AssertionError(f"jac_to_affine ({'G2' if g2 else 'G1'}, n={n}) differs from its plain version")
+            a, b = affine_inputs(torch, gen, g2, (n,), device)
+            got = MA.affine_add_complete(curve.F, a, b)
+            if max_abs_err(torch, got, MA._affine_add_steps(P_F, a, b)):
+                raise AssertionError(f"{'g2' if g2 else 'g1'}_affine_add (n={n}) differs from its plain version")
+        # strided halves and a broadcast row, as the bucket MSM gives them
+        a, _ = affine_inputs(torch, gen, g2, (514, 3), device)
+        ev, od = tuple(c[0::2] for c in a), tuple(c[1::2] for c in a)
+        for x, y in ((ev, od), (tuple(c[-1:].expand_as(e) for c, e in zip(od, ev)), ev)):
+            if max_abs_err(torch, MA.affine_add_complete(curve.F, x, y), MA._affine_add_steps(P_F, x, y)):
+                raise AssertionError(f"{'g2' if g2 else 'g1'}_affine_add on strided operands differs from plain")
+        for lanes, n_digits, steps in ((1, 64, 3), (257, 64, 3), (257, 3, 3)):
+            acc, table, mags, negs, s0 = affine_table_case(torch, gen, g2, steps, lanes, n_digits, device)
+            got = MA.affine_accumulate(curve, acc, table, mags, negs, s0)
+            want = MA._affine_accumulate_steps(P_F, acc, table, mags, negs, s0)
+            got_c = MA.affine_accumulate(curve, acc, table, mags.contiguous(), negs.contiguous(), s0)
+            if max(max_abs_err(torch, got, want), max_abs_err(torch, got_c, want)):
+                raise AssertionError(f"{'g2' if g2 else 'g1'}_affine_accumulate ({n_digits} x {lanes}) differs "
+                                     "from its plain version")
+    log(f"K15 jac_to_affine, K16 affine add and accumulate (G1, G2): bitwise equal to plain at {AFFINE_BATCHES}, "
+        "special lanes, strided and broadcast operands included")
+
+    # the dependent chain of one inversion (csrc/affine.cuh: fe_inv): its
+    # rounds on this card's inputs, as inv_model counts them
+    rounds = [cuda_affine.inv_model(pyr.randrange(1, P), P)[1] for _ in range(64)]
+    avg_rounds = statistics.mean(rounds)
+
+    def chain_ms(products, n_rounds):
+        return (products * CHAIN_MADS_PER_MONT + n_rounds * CHAIN_OPS_PER_ROUND) * MAD_LATENCY_CLK / sm_clock_hz * 1e3
+
+    def plain_ms(fn):
+        return cuda_ms(torch, fn, 1, warmup=False)
+
+    rows = {}
+    # K15 at batch 1 against K5, in turns (K5, K15, K15, K5)
+    x1 = inverse_inputs(torch, gen, 1, P, 1, device)
+    x1[0, 0] |= 1  # nonzero
+    k5_fn = lambda: cuda_mont.mont_pow(FQ, x1, P - 2)  # noqa: E731
+    k15_fn = lambda: MA.batch_inverse(FQ, x1)  # noqa: E731
+    t = [cuda_ms(torch, fn, 50)[0] for fn in (k5_fn, k15_fn, k15_fn, k5_fn)]
+    if max_abs_err(torch, k5_fn(), k15_fn()):
+        raise AssertionError("batch_inverse at batch 1 differs from K5")
+    n_rounds = cuda_affine.inv_model(limbs_to_int(x1[0].cpu().numpy()), P)[1]
+    p_ms, _ = plain_ms(lambda: MA.batch_inverse_blocked(FQ, x1, INV_BLOCK))
+    rows["batch_inverse"] = dict(
+        max_abs_err=0, shape=[1], ms=min(t[1], t[2]), plain_ms=p_ms, ms_turns_k5_k15_k15_k5=t,
+        chain_floor_ms=chain_ms(1, n_rounds), rounds=n_rounds, avg_rounds_random=avg_rounds,
+        **bound(1, 1, 128, peak_muls_per_s))
+    log(f"K15 at batch 1: {min(t[1], t[2]):.4f} ms against K5 {min(t[0], t[3]):.4f} ms (turns {t}); "
+        f"{n_rounds} Euclid rounds")
+
+    def timed_inverse(label, F, mod, deg, n):
+        x = inverse_inputs(torch, gen, n, mod, deg, device)
+        ms, got = cuda_ms(torch, lambda: MA.batch_inverse(F, x), 5)
+        m = min(n, PLAIN_SLICE)
+        p_ms, want = plain_ms(lambda: MA.batch_inverse_blocked(F, x[:m], INV_BLOCK))
+        if max_abs_err(torch, got[:m], want):
+            raise AssertionError(f"batch_inverse at {label} differs from its plain version")
+        monts = 3 + (4 if deg == 2 else 0) + 1 / INV_BLOCK
+        return dict(shape=[n] + ([2] if deg == 2 else []), ms=ms, plain_ms=p_ms, plain_elements=m, max_abs_err=0,
+                    **bound(n, monts, 128 * deg, peak_muls_per_s))
+
+    at = rows["batch_inverse"].setdefault("at_shapes", {})
+    at["2^16"] = timed_inverse("2^16", FQ, P, 1, 1 << 16)
+    for name, (n_digits, steps, lanes, g2) in shapes.items():
+        at[f"{name} table"] = timed_inverse(name, FQ2 if g2 else FQ, P, 2 if g2 else 1, steps * N_TABLE * lanes)
+    at["bucket level"] = timed_inverse("bucket level", FQ, P, 1, BUCKET_LEVEL[0] * BUCKET_LEVEL[1])
+    log("K15 batch_inverse timed at " + ", ".join(f"{k} {v['ms']:.4f} ms" for k, v in at.items()))
+
+    # K15 jac_to_affine at the path's table chunks
+    first = True
+    for name, (n_digits, steps, lanes, g2) in shapes.items():
+        curve = curves[g2]
+        elem = (2,) if g2 else ()
+        X, Y, Z = (rand_canon(torch, gen, (steps, N_TABLE, lanes) + elem, device) for _ in range(3))
+        Z[:, :, 2] = 0
+        ms, got = cuda_ms(torch, lambda: MA.jac_to_affine_batch(curve.F, (X, Y, Z)), 5)
+        m = min(steps, max(1, PLAIN_SLICE // (N_TABLE * lanes)))
+        p_ms, want = plain_ms(lambda: MA._jac_to_affine_steps(MA.plain_ops(curve.F), (X[:m], Y[:m], Z[:m])))
+        if max_abs_err(torch, tuple(c[:m] for c in got), want):
+            raise AssertionError(f"jac_to_affine at the {name} table differs from its plain version")
+        n = steps * N_TABLE * lanes
+        monts = 7 if not g2 else 3 + 4 + 12
+        row = dict(shape=[steps, N_TABLE, lanes] + list(elem), ms=ms, plain_ms=p_ms, plain_steps=m, max_abs_err=0,
+                   **bound(n, monts, 5 * 64 * (2 if g2 else 1), peak_muls_per_s))
+        if first:
+            rows["jac_to_affine"] = dict(row, chunk=name)
+            first = False
+        else:
+            rows["jac_to_affine"].setdefault("at_shapes", {})[name] = row
+        log(f"K15 jac_to_affine at the {name} table {row['shape']}: {ms:.4f} ms (plain {p_ms:.1f} over {m} "
+            f"steps, bound {row['bound_ms']:.4f})")
+
+    # K16 accumulate at the path's chunks
+    for name, (n_digits, steps, lanes, g2) in shapes.items():
+        curve = curves[g2]
+        kname = f"{'g2' if g2 else 'g1'}_affine_accumulate"
+        acc, table, mags, negs, s0 = affine_table_case(torch, gen, g2, steps, lanes, n_digits, device)
+        ms, got = cuda_ms(torch, lambda: MA.affine_accumulate(curve, acc, table, mags, negs, s0), 3)
+        S = min(steps, AFFINE_PLAIN_STEPS)
+        part = tuple(c[:S] for c in table)
+        got_s = MA.affine_accumulate(curve, acc, part, mags, negs, s0)
+        p_ms, want = plain_ms(lambda: MA._affine_accumulate_steps(MA.plain_ops(curve.F), acc, part, mags, negs, s0))
+        if max_abs_err(torch, got_s, want):
+            raise AssertionError(f"{kname} at the {name} chunk differs from its plain version")
+        fq = 3 if g2 else 1  # Fq products an Fq(2) product
+        elem_bytes = 64 * (2 if g2 else 1)
+        chunk = mags[:, s0:s0 + steps]
+        live = int(torch.count_nonzero(chunk))
+        # the table entries this run's digits read: the distinct nonzero
+        # magnitudes at each (step, lane)
+        entries = int(torch.nn.functional.one_hot(chunk.long(), N_TABLE + 1).any(0)[..., 1:].sum())
+        threads = n_digits * lanes * steps
+        ops = (threads * (3 + (4 if g2 else 0)) + live * 3 * fq) * MULS_PER_MONT
+        nbytes = 2 * (2 * elem_bytes + 1) * n_digits * lanes + 2 * elem_bytes * entries + 5 * threads
+        t_ops, t_bytes = ops / peak_muls_per_s, nbytes / HBM_BYTES_PER_S
+        block = K16_BLOCK[g2]
+        depth = 2 * block.bit_length() + 3 + (2 if g2 else 0)  # tree up and down, apply, Fq2 norm and conjugate
+        row = dict(shape=[n_digits, steps, N_TABLE, lanes] + ([2] if g2 else []), ms=ms, plain_ms=p_ms,
+                   plain_steps=S, max_abs_err=0, live_adds=live, table_entries_read=entries,
+                   us_per_step=ms * 1e3 / steps,
+                   chain_floor_ms_per_step=chain_ms(depth, avg_rounds),
+                   bound_ms=max(t_ops, t_bytes) * 1e3, bound_by="bytes" if t_bytes > t_ops else "operations")
+        if kname not in rows:
+            rows[kname] = dict(row, chunk=name)
+        else:
+            rows[kname].setdefault("at_shapes", {})[name] = row
+        log(f"K16 {kname} at the {name} chunk ({n_digits} x {lanes} x {steps} steps): {ms:.4f} ms, "
+            f"{row['us_per_step']:.1f} us a step (chain floor {row['chain_floor_ms_per_step'] * 1e3:.1f} us), "
+            f"bound {row['bound_ms']:.4f}; plain {p_ms:.1f} ms over {S} steps, bitwise equal")
+
+    # K16 add: a bucket level (G1, the path's) and 2^16 (G2, on no path)
+    for g2, (rows_n, inner) in ((False, BUCKET_LEVEL), (True, (1 << 16, 1))):
+        curve = curves[g2]
+        kname = f"{'g2' if g2 else 'g1'}_affine_add"
+        pts = affine_points(torch, gen, g2, (2 * rows_n, inner), device)
+        ev, od = tuple(c[0::2] for c in pts), tuple(c[1::2] for c in pts)
+        ms, got = cuda_ms(torch, lambda: MA.affine_add_complete(curve.F, ev, od), 3)
+        m = max(1, PLAIN_SLICE // inner)
+        p_ms, want = plain_ms(lambda: MA._affine_add_steps(MA.plain_ops(curve.F), tuple(c[:m] for c in ev),
+                                                            tuple(c[:m] for c in od)))
+        if max_abs_err(torch, tuple(c[:m] for c in got), want) or max_abs_err(
+                torch, tuple(c[-m:] for c in got),
+                MA._affine_add_steps(MA.plain_ops(curve.F), tuple(c[-m:] for c in ev), tuple(c[-m:] for c in od))):
+            raise AssertionError(f"{kname} at {rows_n} x {inner} differs from its plain version")
+        fq = 3 if g2 else 1  # Fq products an Fq(2) product
+        elem_bytes = 64 * (2 if g2 else 1)
+        n = rows_n * inner
+        # the accumulate's chain and each thread's walk along its values
+        depth = 2 * K16_BLOCK[g2].bit_length() + 3 + (2 if g2 else 0) + 2 * (K16_PER - 1)
+        rows[kname] = dict(shape=[rows_n, inner] + ([2] if g2 else []), ms=ms, plain_ms=p_ms, plain_elements=m * inner,
+                           max_abs_err=0, chain_floor_ms=chain_ms(depth, avg_rounds),
+                           **bound(n, 3 + (4 if g2 else 0) + 3 * fq, 3 * (2 * elem_bytes + 1), peak_muls_per_s))
+        log(f"K16 {kname} at {rows_n} x {inner}: {ms:.4f} ms (bound {rows[kname]['bound_ms']:.4f}, plain "
+            f"{p_ms:.1f} over {m * inner} elements), bitwise equal")
+        del pts, ev, od, got
+    for k in ("batch_inverse", "jac_to_affine", "g1_affine_add", "g2_affine_add", "g1_affine_accumulate",
+              "g2_affine_accumulate"):
+        rows[k]["check"] = ("bitwise equal to plain at batches " + ", ".join(map(str, AFFINE_BATCHES))
+                            + " with the special values and lanes, and at the shapes timed; K15 also to K5 and "
+                              "Python pow")
+    return rows
+
+
+def check_affine_msm(torch, device):
+    """The windowed affine MSM through K6/K8 + K15 + K16 against the old
+    route (_affine_steps: K3 tables, K1 products and K5 inversions) and
+    against host discrete logs, G1 and G2, at 2^16 with 64 planes and
+    with the narrow class's 3 (lanes as the prover caps them); the bucket
+    MSM (w = 16) through the grouped planes and K16 against the per-plane
+    old route and the host, at 2^16."""
+    from zkp2p_tpu_torch.curve import host
+    from zkp2p_tpu_torch.curve.tcurve import G1C, G2C, g1_jac_to_host, g1_to_affine_arrays, g2_jac_to_host, g2_to_affine_arrays
+    from zkp2p_tpu_torch.field.bn254 import R
+    from zkp2p_tpu_torch.ops import msm, msm_affine, msm_bucket
+
+    out = {}
+    for g2 in (False, True):
+        gen = torch.Generator(device=device).manual_seed(SEED + (38 if g2 else 32))
+        pyr = random.Random(SEED + (39 if g2 else 33))
+        curve, to_arr, to_host, gmul, G = ((G2C, g2_to_affine_arrays, g2_jac_to_host, host.g2_mul, host.G2_GENERATOR)
+                                           if g2 else
+                                           (G1C, g1_to_affine_arrays, g1_jac_to_host, host.g1_mul, host.G1_GENERATOR))
+        rows = 16 if g2 else 64
+        t = [pyr.randrange(1, R) for _ in range(rows)]
+        T = to_arr([gmul(G, v) for v in t] + [None], device)
+        cases = [(name, log_n, planes, cap, 4) for name, log_n, planes, cap in AFFINE_MSMS[g2]]
+        if not g2:
+            cases.append(("bucket w16", AFFINE_MSM_LOG, 16, None, 16))
+        for name, log_n, planes, cap, window in cases:
+            n = 1 << log_n
+            idx = torch.randint(0, rows + 1, (n,), generator=gen, device=device)  # row `rows`: the (0, 0) hole
+            bases = tuple(c[idx] for c in T)
+            scalars = rand_canon(torch, gen, (n,), device)
+            if window == 4 and planes < 64:
+                scalars = torch.zeros_like(scalars)
+                scalars[:, 0] = torch.randint(0, 1 << (4 * planes - 1), (n,), generator=gen, device=device,
+                                              dtype=torch.int32)
+            mags, negs = msm.signed_digit_planes(scalars, window)
+            mags, negs = mags[-planes:], negs[-planes:]
+            if window == 16:
+                new_s, got = wall_s(torch, lambda: msm_bucket.msm_bucket_affine(curve, bases, mags, negs, window=16))
+                old_s, want = wall_s(torch, lambda: msm_bucket.msm_bucket_affine_steps(curve, bases, mags, negs,
+                                                                                      window=16))
+            else:
+                lanes = msm.default_lanes(n, cap=cap)
+                new_s, got = wall_s(torch, lambda: msm_affine.msm_windowed_affine(curve, bases, mags, negs,
+                                                                                 lanes=lanes, window=4))
+                old_s, want = wall_s(torch, lambda: msm_affine._windowed_affine(
+                    curve, bases, mags, negs, lanes, 4, msm_affine._affine_steps))
+            label = f"{'G2' if g2 else 'G1'} {name} at 2^{log_n}"
+            if max_abs_err(torch, got, want):
+                raise AssertionError(f"the affine MSM ({label}) differs from the old route")
+            if to_host(got) != [gmul(G, expected_msm(torch, scalars, idx, t, rows))]:
+                raise AssertionError(f"the affine MSM ({label}) differs from its discrete-log value")
+            out[label] = {"kernels_s": new_s, "old_route_s": old_s}
+            log(f"affine MSM {label}: kernels {new_s:.3f} s, old route {old_s:.3f} s; bitwise equal, equal to the "
+                "host")
+    return out
 
 
 def digit_planes(torch, gen, n_digits, steps, lanes, device):
@@ -1499,6 +1941,54 @@ def compare_proofs(torch, key, witness, rs, device):
     return {"order": list(patches), "stage_s": out, "proof_bytes_equal": True}
 
 
+def compare_affine_routes(torch, key, witness, rs, device):
+    """Real-size proofs with the same r and s: the affine path through the
+    kernels (K6/K8 tables, K15, K16, the bucket's planes in groups of
+    PLANE_GROUP), through the old routes (_affine_steps: K3 tables, K1
+    products, K5 inversions; the bucket a plane at a time by
+    _affine_add_steps), through the kernels again, through the kernels
+    with the bucket's planes in each group size of PLANE_GROUPS, and the
+    Jacobian path.  The stage seconds, launches and peak device memory of
+    each; the proofs held byte for byte equal."""
+    import contextlib
+    from unittest import mock
+
+    from zkp2p_tpu_torch.ops import cuda_build, msm_affine, msm_bucket
+    from zkp2p_tpu_torch.prover import groth16_gpu as gp
+    from zkp2p_tpu_torch.snark.groth16 import proof_bytes
+
+    r, s = rs.randrange(1, 1 << 250), rs.randrange(1, 1 << 250)
+    old = ((msm_affine, "_affine_chunked", msm_affine._affine_steps), (msm_bucket, "_group_sums", msm_bucket._plane_sums))
+    ways = (("kernels", AFFINE_ARMS, ()), ("old_routes", AFFINE_ARMS, old), ("kernels_again", AFFINE_ARMS, ()),
+            *((f"kernels_plane_group_{g}", AFFINE_ARMS, ((msm_bucket, "PLANE_GROUP", g),)) for g in PLANE_GROUPS),
+            ("jacobian", {}, ()))
+    out, proofs = {}, []
+    for way, arms, patched in ways:
+        stages = {}
+        with contextlib.ExitStack() as stack:
+            for module, attr, fn in patched:
+                stack.enter_context(mock.patch.object(module, attr, fn))
+            cuda_build.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            stages["s_total"], proof = wall_s(
+                torch, lambda: gp.prove_gpu(key, witness, r=r, s=s, device=device, stages=stages, **arms))
+            launches = {k[len("zk_"):]: v for k, v in cuda_build.LAUNCHES.items() if v}
+        proofs.append(proof_bytes(proof))
+        out[way] = {"stage_s": {k[2:]: v for k, v in stages.items() if k.startswith("s_")}, "launches": launches,
+                    "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log(f"real-size proof ({way}): {json.dumps(out[way])}")
+    if any(p != proofs[0] for p in proofs):
+        raise AssertionError("the real-size affine proofs through the kernels and the old routes, and the Jacobian "
+                             "proof, differ")
+    log(f"affine path, same r and s: kernels {out['kernels']['stage_s']['total']:.3f} s, old routes "
+        f"{out['old_routes']['stage_s']['total']:.2f} s, kernels {out['kernels_again']['stage_s']['total']:.3f} s, "
+        f"Jacobian {out['jacobian']['stage_s']['total']:.3f} s; equal bytes")
+    log("bucket plane groups, msm_h s (peak GiB): " + ", ".join(
+        f"{g} {out[f'kernels_plane_group_{g}']['stage_s']['msm_h']:.4f} "
+        f"({out[f'kernels_plane_group_{g}']['peak_device_gib']:.2f})" for g in PLANE_GROUPS))
+    return {"order": [w for w, _, _ in ways], "plane_group": msm_bucket.PLANE_GROUP, **out, "proof_bytes_equal": True}
+
+
 def bound(n, monts_per_elem, bytes_per_elem, peak_muls_per_s):
     t_bytes = n * bytes_per_elem / HBM_BYTES_PER_S
     t_ops = n * monts_per_elem * MULS_PER_MONT / peak_muls_per_s
@@ -1927,6 +2417,20 @@ def run(torch, device, peak_muls, sm_clock_hz):
             "b2 wide": (64, min(chunk_steps(b2w_lanes, N_TABLE, 32), -(-V["b_wide"] // b2w_lanes)), b2w_lanes),
         },
     }
+    # K15/K16's chunks (digit planes, steps, lanes, G2): the affine arm's
+    # narrow, a wide and b1 wide classes (lanes rounded down to a power of
+    # 2, as msm_windowed_affine does), and b2's narrow and wide; K15's
+    # jac_to_affine normalises each chunk's (steps, 8, lanes) table
+    def pow2(n):
+        return 1 << (n.bit_length() - 1)
+
+    affine_shapes = {}
+    for name, n, cap, g2 in (("narrow", V["c_narrow"] + 1, 16384, False), ("a wide", wide_n, 4096, False),
+                             ("b1 wide", V["b_wide"], 4096, False), ("b2 narrow", V["b_narrow"], 4096, True),
+                             ("b2 wide", V["b_wide"], 2048, True)):
+        lanes = pow2(default_lanes(n, cap=cap))
+        steps = min(chunk_steps(lanes, N_TABLE, 32 if g2 else 16), -(-n // lanes))
+        affine_shapes[name] = (3 if "narrow" in name else 64, steps, lanes, g2)
     # K10/K11's folds (lanes, planes, window): the h MSM's, the wide
     # classes' (a's lanes and b1's), the narrow classes', the bucket h
     # MSM's (one lane, w = 16); b2's wide and narrow MSMs'
@@ -1949,6 +2453,8 @@ def run(torch, device, peak_muls, sm_clock_hz):
         check_window_msm(torch, g2, device)
     for g2 in (False, True):
         rows.update(check_fold_kernels(torch, g2, fold_shapes[g2], peak_muls, sm_clock_hz, device))
+    rows.update(check_affine_kernels(torch, affine_shapes, peak_muls, sm_clock_hz, device))
+    affine_msm_same_run = check_affine_msm(torch, device)
     rows.update(check_ntt_kernel(torch, peak_muls, device))
     rows.update(check_matvec_kernel(torch, device))
     rows.update(check_recode_kernel(torch, device))
@@ -1985,13 +2491,15 @@ def run(torch, device, peak_muls, sm_clock_hz):
     # the batch phase
     real_batch, batch_same_run, batch_launches = batch_phase(torch, key, witness, ix, tables, jac_launches, device)
 
-    # phase 5 (no warm-up proof: the Jacobian proofs and the test vector's
-    # affine proof ran every kernel and allocation size before it)
-    aff_runs, aff_launches, aff_peak_gib = real_size_proofs(torch, key, witness, ix, tables, rs, device, 1,
-                                                            warmup=False, **AFFINE_ARMS)
+    # phase 5
+    aff_runs, aff_launches, aff_peak_gib = real_size_proofs(torch, key, witness, ix, tables, rs, device,
+                                                            AFFINE_TIMED, **AFFINE_ARMS)
+    affine_same_run = compare_affine_routes(torch, key, witness, rs, device)
     # last, so that no timed proof runs after the profiler
     profile = profile_proof(torch, lambda: prove_gpu(
         key, witness, r=rs.randrange(1, 1 << 250), s=rs.randrange(1, 1 << 250), device=device))
+    profile_affine = profile_proof(torch, lambda: prove_gpu(
+        key, witness, r=rs.randrange(1, 1 << 250), s=rs.randrange(1, 1 << 250), device=device, **AFFINE_ARMS))
     by_path = {"jacobian": jac_launches, "affine": aff_launches, "batch": batch_launches}
     for path, names in PATH_KERNELS.items():
         missing = [k for k in names if by_path[path]["zk_" + k] == 0]
@@ -2001,9 +2509,9 @@ def run(torch, device, peak_muls, sm_clock_hz):
         stray = [k for k in names if by_path[path]["zk_" + k]]
         if stray:
             raise AssertionError(f"launchers launched on the {path} path, which no longer runs them: {stray}")
-    # K4 (g1_double, g2_double) is asserted above to launch on neither path
+    # OFF_PATH is asserted above to launch on no path
     unused = [k for k in cuda_build.LAUNCHERS if not any(v[k] for v in by_path.values())
-              and k[len("zk_"):] not in set(NOT_ON_JACOBIAN) & set(NOT_ON_AFFINE)]
+              and k[len("zk_"):] not in OFF_PATH]
     if unused:
         raise AssertionError(f"launchers launched on no path: {unused}")
     passes = 2 * len(pass_plan(V["log_m"]))  # the iNTT's and the NTT's, all three rows in each
@@ -2011,11 +2519,12 @@ def run(torch, device, peak_muls, sm_clock_hz):
         if any(v[launcher] != want for v in (jac_launches, aff_launches)):
             raise AssertionError(f"{launcher} launched {[v[launcher] for v in (jac_launches, aff_launches)]} times "
                                  f"a proof, expected {want}")
-    k1_jac = jac_launches["zk_mont_mul"]
-    log(f"K1 mont_mul launches a proof: {k1_jac} on the Jacobian path, {aff_launches['zk_mont_mul']} on the "
-        f"affine path")
-    if k1_jac > K1_JACOBIAN_MAX:
-        raise AssertionError(f"K1 launched {k1_jac} times on the Jacobian path, at most {K1_JACOBIAN_MAX} expected")
+    k1_jac, k1_aff = jac_launches["zk_mont_mul"], aff_launches["zk_mont_mul"]
+    log(f"K1 mont_mul launches a proof: {k1_jac} on the Jacobian path, {k1_aff} on the affine path")
+    if max(k1_jac, k1_aff) > K1_JACOBIAN_MAX:
+        raise AssertionError(f"K1 launched {k1_jac} / {k1_aff} times on the Jacobian / affine path, at most "
+                             f"{K1_JACOBIAN_MAX} expected")
+    log("launches of the affine proof: " + json.dumps({k: v for k, v in aff_launches.items() if v}))
 
     kernels = []
     for launcher in cuda_build.LAUNCHERS:
@@ -2040,11 +2549,13 @@ def run(torch, device, peak_muls, sm_clock_hz):
     shape = {"shape": "venmo 1024/6400", "log_m": V["log_m"], "n_wires": V["n_wires"]}
     real = dict(shape, path="jacobian", build_s=build_s, key_setup_s=setup_s, k1_launches=k1_jac,
                 **summary(runs, peak_gib))
-    real_affine = dict(shape, path="affine", arms=AFFINE_ARMS, k1_launches=aff_launches["zk_mont_mul"],
+    real_affine = dict(shape, path="affine", arms=AFFINE_ARMS, k1_launches=k1_aff,
+                       launches={k[len("zk_"):]: v for k, v in aff_launches.items() if v},
                        **summary(aff_runs, aff_peak_gib))
-    lines = {"profile": profile, "kernels": kernels, "real_size": real, "real_size_affine": real_affine,
+    lines = {"profile": profile, "profile_affine": profile_affine, "kernels": kernels, "real_size": real, "real_size_affine": real_affine,
              "witness_same_run": witness_same_run, "ntt_same_run": ntt_same_run, "msm_h_same_run": msm_h_same_run,
              "msm_b2_same_run": msm_b2_same_run, "proof_same_run": proof_same_run,
+             "affine_msm_same_run": affine_msm_same_run, "affine_same_run": affine_same_run,
              "real_size_batch": real_batch, "batch_same_run": batch_same_run}
     return lines
 

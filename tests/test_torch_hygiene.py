@@ -15,9 +15,9 @@ import pytest
 import torch
 
 from zkp2p_tpu_torch.curve import tcurve
-from zkp2p_tpu_torch.field.tfield import FQ, FR
-from zkp2p_tpu_torch.ops import (cuda_build, cuda_curve, cuda_matvec, cuda_mont, cuda_msm_fold, cuda_msm_window,
-                                  cuda_ntt, cuda_recode, msm, ntt)
+from zkp2p_tpu_torch.field.tfield import FQ, FQ2, FR
+from zkp2p_tpu_torch.ops import (cuda_affine, cuda_build, cuda_curve, cuda_matvec, cuda_mont, cuda_msm_fold,
+                                  cuda_msm_window, cuda_ntt, cuda_recode, msm, msm_affine, ntt)
 from zkp2p_tpu_torch.prover.groth16_gpu import key_from_numpy, prove_gpu, prove_gpu_batch
 from zkp2p_tpu_torch.prover.vector import VECTOR_PATH, load_vector
 from zkp2p_tpu_torch.utils.device import resolve_device
@@ -149,7 +149,30 @@ def test_wrappers_on_cpu_take_the_plain_path_and_count_nothing():
     for window in (4, 16):
         got = msm.signed_digit_planes(std, window)
         assert all(torch.equal(x, y) for x, y in zip(got, msm.signed_digit_planes_from_limbs(std, window)))
-    assert set(cuda_build.LAUNCHES) == set(cuda_build.LAUNCHERS) and len(cuda_build.LAUNCHERS) == 17
+    # K15/K16's dispatchers: the plain routes on CPU tensors
+    x = _rand((5,), 90)
+    assert torch.equal(msm_affine.batch_inverse(FQ, x), msm_affine._batch_inverse_steps(FQ, x))
+    x2 = _rand((5, 2), 91)
+    assert torch.equal(msm_affine.batch_inverse(FQ2, x2), msm_affine._batch_inverse_steps(FQ2, x2))
+    for g2, C in ((False, tcurve.G1C), (True, tcurve.G2C)):
+        shape = (5, 2) if g2 else (5,)
+        jac = tuple(_rand(shape, 92 + k) for k in range(3))
+        assert all(torch.equal(x, y) for x, y in zip(msm_affine.jac_to_affine_batch(C.F, jac),
+                                                      msm_affine._jac_to_affine_steps(C.F, jac)))
+        a = (_rand(shape, 95), _rand(shape, 96), torch.tensor([True, False, False, True, False]))
+        b = (_rand(shape, 97), _rand(shape, 98), torch.tensor([False, False, True, True, False]))
+        assert all(torch.equal(x, y) for x, y in zip(msm_affine.affine_add_complete(C.F, a, b),
+                                                      msm_affine._affine_add_steps(C.F, a, b)))
+        acc = tuple(c.reshape((1,) + c.shape) for c in a)
+        table = tuple(_rand((2, 4) + shape, 99 + k) for k in range(2))
+        mags = torch.from_numpy(np.random.default_rng(6).integers(0, 5, size=(1, 3, 5)).astype(np.int32))
+        negs = mags % 2 == 0
+        assert all(torch.equal(x, y) for x, y in zip(msm_affine.affine_accumulate(C, acc, table, mags, negs, 1),
+                                                      msm_affine._affine_accumulate_steps(C.F, acc, table, mags,
+                                                                                         negs, 1)))
+    assert set(cuda_build.LAUNCHES) == set(cuda_build.LAUNCHERS) and len(cuda_build.LAUNCHERS) == 23
+    assert {"batch_inv", "affine_add"} <= set(cuda_build.SOURCES)
+    assert all((cuda_build.CSRC_DIR / f"{stem}.cu").is_file() for stem in cuda_build.SOURCES)
     assert all(v == 0 for v in cuda_build.LAUNCHES.values())
 
 
@@ -178,6 +201,34 @@ def test_wrappers_refuse_other_devices():
         for i, p in ((init, stacked.to("meta")), (init.to("meta"), stacked), (init.to("meta"), stacked.to("meta"))):
             with pytest.raises(ValueError):
                 fold((i,) * 3, (p,) * 3, 4)
+
+
+def test_affine_wrappers_refuse_other_devices():
+    """K15/K16's dispatchers send a tensor that is not on the CPU to the
+    kernel, whose wrapper takes CUDA tensors only."""
+    for g2, C in ((False, tcurve.G1C), (True, tcurve.G2C)):
+        elem = (2, 16) if g2 else (16,)
+        z = torch.zeros((3,) + elem, dtype=torch.int32, device="meta")
+        inf = torch.zeros(3, dtype=torch.bool, device="meta")
+        with pytest.raises(ValueError):
+            msm_affine.batch_inverse(C.F, z)
+        with pytest.raises(ValueError):
+            msm_affine.jac_to_affine_batch(C.F, (z, z, z))
+        with pytest.raises(ValueError):
+            msm_affine.affine_add_complete(C.F, (z, z, inf), (z, z, inf))
+        with pytest.raises(ValueError):  # one operand on the CPU, one elsewhere
+            cpu = (torch.zeros(z.shape, dtype=torch.int32), torch.zeros(z.shape, dtype=torch.int32),
+                   torch.zeros(3, dtype=torch.bool))
+            msm_affine.affine_add_complete(C.F, cpu, (z, z, inf))
+        acc = (z[None], z[None], inf[None])
+        table = (torch.zeros((1, 8, 3) + elem, dtype=torch.int32, device="meta"),) * 2
+        planes = torch.zeros(1, 2, 3, dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError):
+            msm_affine.affine_accumulate(C, acc, table, planes, planes.bool(), 0)
+    x = torch.zeros(3, 16, dtype=torch.int32)
+    for call in (lambda: cuda_affine.batch_inverse(FQ, x, 1), lambda: cuda_affine.jac_to_affine((x, x, x), 1)):
+        with pytest.raises(ValueError):  # the launch wrappers take CUDA tensors only
+            call()
 
 
 def test_ntt_pass_refuses_other_devices():

@@ -88,6 +88,22 @@ SOURCES = {
         # limbs, mags, negs, n, window, stream
         "zk_signed_recode": (_VP,) * 3 + (_I64, _I32, _VP),
     },
+    "batch_inv": {
+        # x, out, n, deg, field consts (host), R^3 words (host), stream
+        "zk_batch_inverse": (_VP, _VP, _I64, _I32, _VP, _VP, _VP),
+        # X, Y, Z, out x/y, n, deg, consts, R^3 words, stream
+        "zk_jac_to_affine": (_VP,) * 5 + (_I64, _I32, _VP, _VP, _VP),
+    },
+    "affine_add": {
+        # a x/y/inf and its row strides, b the same, out x/y/inf, rows,
+        # inner, consts, R^3 words, stream
+        "zk_g1_affine_add": ((_VP,) * 3 + (_I64,) * 2) * 2 + (_VP,) * 3 + (_I64,) * 2 + (_VP,) * 3,
+        "zk_g2_affine_add": ((_VP,) * 3 + (_I64,) * 2) * 2 + (_VP,) * 3 + (_I64,) * 2 + (_VP,) * 3,
+        # acc x/y/inf, table x/y, mags, negs, out x/y/inf, n_digits, lanes,
+        # n_table, steps, s0, plane strides (3 + 3), consts, R^3 words, stream
+        "zk_g1_affine_accumulate": (_VP,) * 10 + (_I32,) * 4 + (_I64,) * 7 + (_VP,) * 3,
+        "zk_g2_affine_accumulate": (_VP,) * 10 + (_I32,) * 4 + (_I64,) * 7 + (_VP,) * 3,
+    },
 }
 
 LAUNCHERS = tuple(name for fns in SOURCES.values() for name in fns)
