@@ -9,6 +9,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -16,8 +17,8 @@ import torch
 
 from zkp2p_tpu_torch.curve import tcurve
 from zkp2p_tpu_torch.field.tfield import FQ, FQ2, FR
-from zkp2p_tpu_torch.ops import (cuda_affine, cuda_build, cuda_curve, cuda_matvec, cuda_mont, cuda_msm_fold,
-                                  cuda_msm_window, cuda_ntt, cuda_recode, msm, msm_affine, ntt)
+from zkp2p_tpu_torch.ops import (cuda_affine, cuda_build, cuda_curve, cuda_fixed_base, cuda_matvec, cuda_mont,
+                                  cuda_msm_fold, cuda_msm_window, cuda_ntt, cuda_recode, msm, msm_affine, ntt)
 from zkp2p_tpu_torch.prover.groth16_gpu import key_from_numpy, prove_gpu, prove_gpu_batch
 from zkp2p_tpu_torch.prover.vector import VECTOR_PATH, load_vector
 from zkp2p_tpu_torch.utils.device import resolve_device
@@ -82,6 +83,49 @@ def test_entry_points_without_cuda_raise(monkeypatch):
         prove_gpu(key, witness, r=r, s=s)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         prove_gpu_batch(key, [witness, witness], rs=[(r, s)] * 2)
+
+
+def test_key_entry_points_without_cuda_raise(monkeypatch, tmp_path):
+    """setup_device, setup_from_rows, load_dpk, device_pk and
+    device_pk_from_zkey put the key on CUDA unless given device="cpu":
+    without CUDA they raise before any work, and run on the CPU when
+    asked."""
+    from zkp2p_tpu_torch.formats.zkey import ZkeyData
+    from zkp2p_tpu_torch.prover import keycache
+    from zkp2p_tpu_torch.prover.groth16_gpu import device_pk, device_pk_from_zkey
+    from zkp2p_tpu_torch.prover.setup_device import setup_device, setup_from_rows
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cs = SimpleNamespace(constraints=[SimpleNamespace(a={1: 1}, b={1: 1}, c={1: 1})], num_public=1, num_wires=2,
+                         wire_width={})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        setup_device(cs)
+    coo = (np.zeros((1, 16), np.int32), np.zeros(1, np.int64), np.zeros(1, np.int64))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        setup_from_rows(coo, coo, coo, 2, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        keycache.load_dpk(str(tmp_path / "absent.npz"))
+    key, vk = setup_device(cs, device="cpu")
+    assert key.device == torch.device("cpu") and vk.n_public == 1
+    keycache.save_dpk(str(tmp_path / "k.npz"), key, vk)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        keycache.load_dpk(str(tmp_path / "k.npz"))
+    assert keycache.load_dpk(str(tmp_path / "k.npz"), device="cpu")[0].device == torch.device("cpu")
+    pk = SimpleNamespace(n_public=1, alpha_1=None, beta_1=None, beta_2=None, delta_1=None, delta_2=None,
+                         a_query=[None, None], b1_query=[None, None], b2_query=[None, None], c_query=[None, None],
+                         h_query=[None] * 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_pk(pk, cs)
+    z = np.zeros((0, 16), np.int32)
+    zk = ZkeyData(n_vars=2, n_public=1, domain_size=4, alpha_1=None, beta_1=None, beta_2=None, gamma_2=None,
+                  delta_1=None, delta_2=None, ic=[None, None], coeff_matrix=np.zeros(0, np.int64),
+                  coeff_row=np.zeros(0, np.int64), coeff_wire=np.zeros(0, np.int64), coeff_value=z,
+                  a_query=(np.zeros((2, 16), np.int32),) * 2, b1_query=(np.zeros((2, 16), np.int32),) * 2,
+                  b2_query=(np.zeros((2, 2, 16), np.int32),) * 2, c_query=(z, z),
+                  h_query=(np.zeros((4, 16), np.int32),) * 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_pk_from_zkey(zk)
+    assert device_pk_from_zkey(zk, device="cpu").device == torch.device("cpu")
 
 
 def test_chip_smoke_without_cuda_exits_nonzero_and_prints_nothing():
@@ -170,8 +214,15 @@ def test_wrappers_on_cpu_take_the_plain_path_and_count_nothing():
         assert all(torch.equal(x, y) for x, y in zip(msm_affine.affine_accumulate(C, acc, table, mags, negs, 1),
                                                       msm_affine._affine_accumulate_steps(C.F, acc, table, mags,
                                                                                          negs, 1)))
-    assert set(cuda_build.LAUNCHES) == set(cuda_build.LAUNCHERS) and len(cuda_build.LAUNCHERS) == 23
-    assert {"batch_inv", "affine_add"} <= set(cuda_build.SOURCES)
+    # K17's dispatcher: the plain comb on CPU tensors
+    for g2 in (False, True):
+        table = tuple(_rand((cuda_fixed_base.WINDOWS * cuda_fixed_base.DIGITS,) + ((2,) if g2 else ()), 100 + k)
+                      for k in range(2))
+        k = _rand((3,), 102)
+        assert all(torch.equal(x, y) for x, y in zip(cuda_fixed_base.fixed_base(g2, table, k),
+                                                      cuda_fixed_base.fixed_base_plain(g2, table, k)))
+    assert set(cuda_build.LAUNCHES) == set(cuda_build.LAUNCHERS) and len(cuda_build.LAUNCHERS) == 25
+    assert {"batch_inv", "affine_add", "fixed_base"} <= set(cuda_build.SOURCES)
     assert all((cuda_build.CSRC_DIR / f"{stem}.cu").is_file() for stem in cuda_build.SOURCES)
     assert all(v == 0 for v in cuda_build.LAUNCHES.values())
 
@@ -229,6 +280,18 @@ def test_affine_wrappers_refuse_other_devices():
     for call in (lambda: cuda_affine.batch_inverse(FQ, x, 1), lambda: cuda_affine.jac_to_affine((x, x, x), 1)):
         with pytest.raises(ValueError):  # the launch wrappers take CUDA tensors only
             call()
+
+
+def test_fixed_base_refuses_other_devices():
+    for g2 in (False, True):
+        elem = (2, 16) if g2 else (16,)
+        table = torch.zeros((cuda_fixed_base.WINDOWS * cuda_fixed_base.DIGITS,) + elem, dtype=torch.int32)
+        k = torch.zeros(3, 16, dtype=torch.int32)
+        for t, kk in ((table.to("meta"), k), (table, k.to("meta")), (table.to("meta"), k.to("meta"))):
+            with pytest.raises(ValueError):
+                cuda_fixed_base.fixed_base(g2, (t, t), kk)
+        with pytest.raises(ValueError):  # a table of the wrong shape
+            cuda_fixed_base.fixed_base(g2, (table[:-1], table[:-1]), k)
 
 
 def test_ntt_pass_refuses_other_devices():

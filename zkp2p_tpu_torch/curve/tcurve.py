@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..field.bn254 import P
-from ..field.tfield import FQ, FQ2, NUM_LIMBS
+from ..field.tfield import FQ, FQ2, NUM_LIMBS, mont_limbs
 from ..field.tower import Fq2
 from ..ops import cuda_curve
 from .host import G1Point, G2Point, g1_jac_to_affine, g2_jac_to_affine
@@ -79,31 +79,34 @@ G2C = TCurve(FQ2, g2=True)
 # ------------------------------------------------- host <-> device bridges
 
 
+def g1_limbs(points: Sequence[G1Point]) -> np.ndarray:
+    """Host affine G1 -> a (2, n, 16) int32 stack of Montgomery limbs; None -> (0, 0)."""
+    pts = list(points)
+    xs = [0 if p is None else p[0] for p in pts]
+    ys = [0 if p is None else p[1] for p in pts]
+    return np.stack([mont_limbs(xs, P), mont_limbs(ys, P)]).reshape(2, len(pts), NUM_LIMBS)
+
+
+def g2_limbs(points: Sequence[G2Point]) -> np.ndarray:
+    """Host affine G2 -> a (2, n, 2, 16) int32 stack of Montgomery limbs."""
+    pts = list(points)
+    coords = []
+    for k in (0, 1):
+        vals = []
+        for p in pts:
+            vals += [0, 0] if p is None else [p[k].c0, p[k].c1]
+        coords.append(mont_limbs(vals, P).reshape(len(pts), 2, NUM_LIMBS))
+    return np.stack(coords)
+
+
 def g1_to_affine_arrays(points: Sequence[G1Point], device) -> AffPoint:
     """Host affine G1 -> (n, 16) Montgomery limb tensors; None -> (0, 0)."""
-    n = len(points)
-    xs = np.zeros((n, NUM_LIMBS), dtype=np.int32)
-    ys = np.zeros((n, NUM_LIMBS), dtype=np.int32)
-    for i, pt in enumerate(points):
-        if pt is None:
-            continue
-        xs[i] = FQ.to_mont_host(pt[0])
-        ys[i] = FQ.to_mont_host(pt[1])
-    return torch.from_numpy(xs).to(device), torch.from_numpy(ys).to(device)
+    return tuple(torch.from_numpy(c).to(device) for c in g1_limbs(points))
 
 
 def g2_to_affine_arrays(points: Sequence[G2Point], device) -> AffPoint:
     """Host affine G2 -> (n, 2, 16) Montgomery limb tensors."""
-    n = len(points)
-    xs = np.zeros((n, 2, NUM_LIMBS), dtype=np.int32)
-    ys = np.zeros((n, 2, NUM_LIMBS), dtype=np.int32)
-    for i, pt in enumerate(points):
-        if pt is None:
-            continue
-        x, y = pt
-        xs[i, 0], xs[i, 1] = FQ.to_mont_host(x.c0), FQ.to_mont_host(x.c1)
-        ys[i, 0], ys[i, 1] = FQ.to_mont_host(y.c0), FQ.to_mont_host(y.c1)
-    return torch.from_numpy(xs).to(device), torch.from_numpy(ys).to(device)
+    return tuple(torch.from_numpy(c).to(device) for c in g2_limbs(points))
 
 
 def _fq(limbs) -> int:

@@ -55,3 +55,8 @@ def fr_domain_root(log_size: int) -> int:
     for _ in range(FR_TWO_ADICITY - log_size):
         w = (w * w) % R
     return w
+
+
+# The BN curve parameter u and the optimal ate pairing's loop count 6u + 2.
+BN_U = 4965661367192848881
+ATE_LOOP_COUNT = 6 * BN_U + 2

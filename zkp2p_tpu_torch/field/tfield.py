@@ -33,6 +33,14 @@ def int_to_limbs(x: int, n: int = NUM_LIMBS) -> np.ndarray:
     return np.array(cuda_mont.limbs_of(x, n), dtype=np.int32)
 
 
+def mont_limbs(vals, modulus: int) -> np.ndarray:
+    """Host ints -> (n, 16) int32 Montgomery limbs (one bytes join, no
+    per-limb loop)."""
+    vals = list(vals)
+    buf = b"".join((int(v) * MONT_R % modulus).to_bytes(32, "little") for v in vals)
+    return np.frombuffer(buf, "<u2").astype(np.int32).reshape(len(vals), NUM_LIMBS)
+
+
 def limbs_to_int(a) -> int:
     a = np.asarray(a, dtype=np.int64)
     return sum(int(v) << (LIMB_BITS * i) for i, v in enumerate(a))

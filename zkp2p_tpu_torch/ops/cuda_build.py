@@ -104,6 +104,11 @@ SOURCES = {
         "zk_g1_affine_accumulate": (_VP,) * 10 + (_I32,) * 4 + (_I64,) * 7 + (_VP,) * 3,
         "zk_g2_affine_accumulate": (_VP,) * 10 + (_I32,) * 4 + (_I64,) * 7 + (_VP,) * 3,
     },
+    "fixed_base": {
+        # table x/y, scalars (standard form), out x/y/z, n, field consts (host), stream
+        "zk_g1_fixed_base": (_VP,) * 6 + (_I64, _VP, _VP),
+        "zk_g2_fixed_base": (_VP,) * 6 + (_I64, _VP, _VP),
+    },
 }
 
 LAUNCHERS = tuple(name for fns in SOURCES.values() for name in fns)

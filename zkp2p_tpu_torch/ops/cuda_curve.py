@@ -119,7 +119,11 @@ def _add_core_math(f, p, q, U1, U2, S1, S2, Z1Z2):
 
     same_x = f.is_zero(H)
     same_y = f.is_zero(Rr)
-    res = _psel(f, same_x & same_y, _double_math(f, *p), res)
+    dbl = same_x & same_y
+    # on the CPU, as the kernels branch, the doubling only when a lane
+    # needs it; elsewhere always (no host sync)
+    if dbl.device.type != "cpu" or bool(dbl.any()):
+        res = _psel(f, dbl, _double_math(f, *p), res)
     zero = torch.zeros_like(res[0])
     res = _psel(f, same_x & ~same_y, (zero, zero, zero), res)
     res = _psel(f, f.is_zero(p[2]), q, res)

@@ -58,9 +58,18 @@ def carry(x: torch.Tensor, out_limbs: int) -> torch.Tensor:
 def mul_cols(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Schoolbook product columns (uncarried): (..., La) x (..., Lb) ->
     (..., La+Lb), column k = sum_{i+j=k} a_i b_j (< 2^37 for 16 limbs).
-    The outer product is skewed so row i lands at columns i..i+Lb-1."""
+    On the CPU row i of the product is added in at columns i..i+Lb-1
+    (the fewest bytes through memory); elsewhere the outer product is
+    skewed so row i lands at columns i..i+Lb-1 (the fewest launches).
+    The columns are exact integers either way."""
     La, Lb = a.shape[-1], b.shape[-1]
     W = La + Lb
+    if a.device.type == "cpu":
+        shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+        out = torch.zeros(*shape, W, dtype=torch.int64)
+        for i in range(La):
+            out[..., i:i + Lb] += a[..., i:i + 1] * b
+        return out
     prods = a.unsqueeze(-1) * b.unsqueeze(-2)
     bshape = prods.shape[:-2]
     flat = F.pad(prods, (0, W + 1 - Lb)).reshape(*bshape, La * (W + 1))

@@ -42,16 +42,16 @@ import numpy as np
 import torch
 
 from ..curve.host import G1Point, G2Point, g1_add, g1_mul, g1_neg, g2_add, g2_mul
-from ..curve.tcurve import G1C, G2C, AffPoint, g1_jac_to_host, g2_jac_to_host
+from ..curve.tcurve import G1C, G2C, AffPoint, g1_jac_to_host, g1_limbs, g2_jac_to_host, g2_limbs
 from ..field.bn254 import R
-from ..field.tfield import FR, NUM_LIMBS, lazy_segment_sum_mod
+from ..field.tfield import FR, NUM_LIMBS, lazy_segment_sum_mod, mont_limbs
 from ..field.tower import Fq2
 from ..ops.cuda_matvec import Csr, csr_from_rows, fr_matvec
 from ..ops.msm import default_lanes, msm_windowed_signed, signed_digit_planes
 from ..ops.msm_affine import msm_windowed_affine
 from ..ops.msm_bucket import msm_bucket_affine
 from ..ops.ntt import coset_ladder
-from ..snark.groth16 import Proof, coset_gen
+from ..snark.groth16 import Proof, coset_gen, domain_size_for, qap_rows
 from ..utils.device import resolve_device
 
 WINDOW = 4
@@ -163,6 +163,168 @@ def key_from_numpy(arrays: Dict[str, np.ndarray], meta: Dict[str, object], devic
         inferred_narrow_wires=bytes(blob) if blob else None,
         **kw,
     )
+
+
+# ------------------------------------------------------------ key import
+
+# Width classing: wires with a constraint-backed bound below 2^NARROW_WIDTH
+# need only NARROW_PLANES signed w=4 digit planes.
+NARROW_WIDTH = 11
+
+
+def widths_array(cs) -> np.ndarray:
+    """cs.wire_width (wire -> bits) as a dense per-wire bound array, 254 =
+    unbounded.  Duck-typed: reads cs.num_wires and cs.wire_width."""
+    widths = np.full(cs.num_wires, 254, dtype=np.int32)
+    for w, bits in getattr(cs, "wire_width", {}).items():
+        widths[w] = bits
+    return widths
+
+
+def class_sels(widths: Optional[np.ndarray], wire_ids: np.ndarray):
+    """(narrow positions, wide positions) into a base array whose row p
+    holds the point of wire wire_ids[p]: the one classing rule of every
+    key path (the import from points or a zkey, and the setup)."""
+    wire_ids = np.asarray(wire_ids)
+    if widths is None:
+        return np.zeros(0, dtype=np.int32), np.arange(len(wire_ids), dtype=np.int32)
+    narrow = np.asarray(widths)[wire_ids] <= NARROW_WIDTH
+    return np.flatnonzero(narrow).astype(np.int32), np.flatnonzero(~narrow).astype(np.int32)
+
+
+def _prune_sel(flags) -> np.ndarray:
+    """The positions of the set flags; [0] (one infinity lane) when none is."""
+    sel = np.flatnonzero(np.asarray(flags, dtype=bool)).astype(np.int32)
+    return sel if sel.size else np.zeros(1, dtype=np.int32)
+
+
+def _rows_to_arrays(rows: Sequence[dict], m: int):
+    """Sparse QAP rows (wire -> coefficient dicts) -> (coefficients as
+    Montgomery limbs, wire ids, row ids), row by row in each dict's
+    order; an all-zero matrix is one zero coefficient in row m - 1."""
+    vals, wires, row_ids = [], [], []
+    for j, terms in enumerate(rows):
+        for wire, coeff in terms.items():
+            vals.append(coeff % R)
+            wires.append(wire)
+            row_ids.append(j)
+    if not vals:
+        vals, wires, row_ids = [0], [0], [m - 1]
+    return mont_limbs(vals, R), np.array(wires, dtype=np.int32), np.array(row_ids, dtype=np.int32)
+
+
+def _selections(widths, n_wires: int, b_sel: np.ndarray, c_sel: np.ndarray) -> Dict[str, np.ndarray]:
+    out = {"b_sel": b_sel, "c_sel": c_sel}
+    for q, wires in (("a", np.arange(n_wires, dtype=np.int32)), ("b", b_sel), ("c", c_sel)):
+        out[q + "_nsel"], out[q + "_wsel"] = class_sels(widths, wires)
+    return out
+
+
+def device_pk_from_rows(pk, a_rows: Sequence[dict], b_rows: Sequence[dict], m: int, n_wires: int,
+                        widths: Optional[np.ndarray] = None, device=None) -> DeviceProvingKey:
+    """A host proving key (query point lists, as the reference's
+    ``ProvingKey``; duck-typed) and the QAP's A and B rows -> the key on
+    `device` (CUDA unless "cpu"): b1/b2/c pruned to their non-infinity
+    wires, h padded with infinity to m points, the width classes of
+    `widths` (None: unclassed)."""
+    a = _rows_to_arrays(a_rows, m)
+    b = _rows_to_arrays(b_rows, m)
+    b_sel = _prune_sel([p1 is not None or p2 is not None for p1, p2 in zip(pk.b1_query, pk.b2_query)])
+    c_sel = _prune_sel([p is not None for p in pk.c_query])
+    arrays = dict(
+        a_coeff=a[0], a_wire=a[1], a_row=a[2], b_coeff=b[0], b_wire=b[1], b_row=b[2],
+        a_bases=g1_limbs(pk.a_query),
+        b1_bases=g1_limbs(pk.b1_query[i] for i in b_sel),
+        b2_bases=g2_limbs(pk.b2_query[i] for i in b_sel),
+        c_bases=g1_limbs(pk.c_query[i] for i in c_sel),
+        h_bases=g1_limbs(list(pk.h_query) + [None] * (m - len(pk.h_query))),
+        **_selections(widths, n_wires, b_sel, c_sel),
+    )
+    meta = dict(n_public=pk.n_public, n_wires=n_wires, log_m=m.bit_length() - 1, alpha_1=pk.alpha_1,
+                beta_1=pk.beta_1, beta_2=pk.beta_2, delta_1=pk.delta_1, delta_2=pk.delta_2)
+    return key_from_numpy(arrays, meta, device=device)
+
+
+def device_pk(pk, cs, device=None) -> DeviceProvingKey:
+    """A host proving key and its constraint system -> the key on
+    `device`, width-classed by the circuit's wire widths.  Duck-typed
+    over the ConstraintSystem (constraints, num_public, num_wires,
+    wire_width)."""
+    rows = qap_rows(cs)
+    return device_pk_from_rows(pk, [t[0] for t in rows], [t[1] for t in rows], domain_size_for(len(rows)),
+                               cs.num_wires, widths=widths_array(cs), device=device)
+
+
+def infer_zkey_widths(zk) -> np.ndarray:
+    """The narrow class of an imported zkey, from circom's bit-constraint
+    rows x*(x-1) = 0 (Num2Bits: A = {x: 1}, B = {x: 1, one: -1}; also
+    with A and B swapped): such an x gets width 1, wire 0 too, every
+    other wire 254.  The zkey holds no C matrix, so x*(x-1) = y matches
+    as well: a key with inferred widths checks every witness against
+    them (``_check_inferred_widths``).  A repeated (row, wire) entry
+    counts with its last value, as the reference reads it."""
+    widths = np.full(zk.n_vars, 254, dtype=np.int32)
+    widths[0] = 1
+    mats = {}
+    for mat in (0, 1):
+        row, wire, val = zk.coeff_entries(mat)
+        # last write wins: keep the last entry of each (row, wire)
+        key = row.astype(np.int64) * (zk.n_vars + 1) + wire
+        _, last = np.unique(key[::-1], return_index=True)
+        keep = np.sort(len(key) - 1 - last)
+        mats[mat] = (row[keep], wire[keep], val[keep])
+    one = mont_limbs([1], R)[0]
+    minus_one = mont_limbs([R - 1], R)[0]
+    for x, y in ((0, 1), (1, 0)):
+        xr, xw, xv = mats[x]
+        yr, yw, yv = mats[y]
+        n_rows = int(max(xr.max(initial=-1), yr.max(initial=-1))) + 1
+        xcount = np.bincount(xr, minlength=n_rows)
+        ycount = np.bincount(yr, minlength=n_rows)
+        single = xcount[xr] == 1
+        xr, xw, xv = xr[single], xw[single], xv[single]
+        pair = ycount[yr] == 2
+        yr, yw, yv = yr[pair], yw[pair], yv[pair]
+        is_one = (xv == one).all(axis=1)
+        # each pair row: its wire-0 entry is R - 1, its other entry (w, 1)
+        neg0 = (yw == 0) & (yv == minus_one).all(axis=1)
+        other = (yw != 0) & (yv == one).all(axis=1)
+        neg0_rows = set(yr[neg0].tolist())
+        w_of_row = dict(zip(yr[other].tolist(), yw[other].tolist()))
+        for r, w, ok in zip(xr.tolist(), xw.tolist(), is_one.tolist()):
+            if ok and w != 0 and r in neg0_rows and w_of_row.get(r) == w:
+                widths[w] = 1
+    return widths
+
+
+def device_pk_from_zkey(zk, infer_widths: bool = True, device=None) -> DeviceProvingKey:
+    """A snarkjs zkey (``formats.zkey.ZkeyData``) -> the key on `device`
+    (CUDA unless "cpu").  The QAP rows come from the zkey's coefficient
+    section (it holds the public binding rows); the point sections are
+    Montgomery limbs already.  With `infer_widths` the narrow class is
+    inferred (``infer_zkey_widths``) and the key records those wires in
+    ``inferred_narrow_wires``, which every proof checks."""
+    m = zk.domain_size
+    (ac, aw, ar), (bc, bw, br) = zk.qap_row_arrays(m)
+    widths = infer_zkey_widths(zk) if infer_widths else None
+    nz1 = ~(zk.b1_query[0] == 0).all(-1) | ~(zk.b1_query[1] == 0).all(-1)
+    nz2 = ~(zk.b2_query[0] == 0).all((-2, -1)) | ~(zk.b2_query[1] == 0).all((-2, -1))
+    b_sel = _prune_sel(nz1 | nz2)
+    c_all = zk.c_points()
+    c_sel = _prune_sel(~(c_all[0] == 0).all(-1) | ~(c_all[1] == 0).all(-1))
+    h = np.zeros((2, m, NUM_LIMBS), dtype=np.int32)
+    h[:, :zk.h_query[0].shape[0]] = np.stack(zk.h_query)
+    arrays = dict(
+        a_coeff=ac, a_wire=aw, a_row=ar, b_coeff=bc, b_wire=bw, b_row=br,
+        a_bases=np.stack(zk.a_query), b1_bases=np.stack([c[b_sel] for c in zk.b1_query]),
+        b2_bases=np.stack([c[b_sel] for c in zk.b2_query]), c_bases=c_all[:, c_sel], h_bases=h,
+        **_selections(widths, zk.n_vars, b_sel, c_sel),
+    )
+    meta = dict(n_public=zk.n_public, n_wires=zk.n_vars, log_m=m.bit_length() - 1, alpha_1=zk.alpha_1,
+                beta_1=zk.beta_1, beta_2=zk.beta_2, delta_1=zk.delta_1, delta_2=zk.delta_2)
+    if widths is not None:
+        meta["inferred_narrow_wires"] = np.flatnonzero(widths <= NARROW_WIDTH).astype(np.int64).tobytes()
+    return key_from_numpy(arrays, meta, device=device)
 
 
 # ------------------------------------------------------------------ witness

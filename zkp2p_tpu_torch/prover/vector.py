@@ -4,7 +4,13 @@ layout, a witness, the blinding scalars and the proof they must give.
 Stored as one .npz of integer arrays (no pickles): limb arrays as
 uint16, the witness as (n, 4) uint64 rows, and every host integer (the
 blinding points, r, s, the proof) as 16 little-endian 16-bit limbs of its
-standard form.  ``data/port_vector.npz`` is the committed instance."""
+standard form.  ``data/port_vector.npz`` is the committed instance.
+
+``data/setup_vector.npz`` adds what a setup of the same circuit needs
+and gives: the QAP's C rows (its A and B rows are the key's), the wire
+widths, the seed, the VK's gamma_2 and IC points and the proof's public
+inputs, so that ``setup_from_rows`` can be held against the key of
+``port_vector.npz`` and ``verify`` against its proof."""
 
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from ..snark.groth16 import Proof
 from .groth16_gpu import DPK_ARRAY_FIELDS
 
 VECTOR_PATH = Path(__file__).resolve().parent.parent / "data" / "port_vector.npz"
+SETUP_VECTOR_PATH = VECTOR_PATH.with_name("setup_vector.npz")
 
 _LIMB_ARRAYS = ("a_coeff", "b_coeff", "a_bases", "b1_bases", "b2_bases", "c_bases", "h_bases")
 
@@ -85,3 +92,26 @@ def load_vector(path=VECTOR_PATH) -> Tuple[Dict[str, np.ndarray], Dict[str, obje
         r, s = (_int(v) for v in z["r_s"])
         proof = Proof(a=_g1_back(z["proof_a"]), b=_g2_back(z["proof_b"]), c=_g1_back(z["proof_c"]))
         return arrays, meta, z["witness"].copy(), r, s, proof
+
+
+def save_setup_vector(path, c_rows, widths: np.ndarray, seed: str, gamma_2, ic, public) -> None:
+    """Write a setup vector: c_rows = (Montgomery coefficient limbs, wire
+    ids, row ids) of the QAP's C matrix (binding rows included)."""
+    coeff, wire, row = (np.asarray(x) for x in c_rows)
+    np.savez_compressed(
+        path, c_coeff=coeff.astype(np.uint16), c_wire=wire.astype(np.int32), c_row=row.astype(np.int32),
+        widths=np.asarray(widths, dtype=np.int32), seed=np.frombuffer(seed.encode(), dtype=np.uint8),
+        vk_gamma_2=_g2(gamma_2), vk_ic=np.stack([_g1(p) for p in ic]),
+        public=np.stack([_limbs(int(x)) for x in public]),
+    )
+
+
+def load_setup_vector(path=SETUP_VECTOR_PATH) -> Dict[str, object]:
+    """-> dict: c (coeff int32 limbs, wire, row), widths, seed, gamma_2,
+    ic (host points) and public (ints)."""
+    with np.load(path) as z:
+        return dict(
+            c=(z["c_coeff"].astype(np.int32), z["c_wire"].astype(np.int64), z["c_row"].astype(np.int64)),
+            widths=z["widths"].copy(), seed=z["seed"].tobytes().decode(), gamma_2=_g2_back(z["vk_gamma_2"]),
+            ic=[_g1_back(p) for p in z["vk_ic"]], public=[_int(v) for v in z["public"]],
+        )
