@@ -165,7 +165,37 @@ and prints no result line):
    prove_gpu proof under the key, which verify accepts (and rejects with
    a wrong public input); save_dpk / load_dpk of the key at full size
    into .chip_scratch/ (timed, the file's size logged, deleted after), the
-   loaded key proving the same bytes (the real_size_setup line).
+   loaded key proving the same bytes (the real_size_setup line).  The key,
+   its VK and the witness are then written as the drop-in path's files
+   under .chip_scratch/cli/: a real-size .zkey (write_zkey_data; b1, b2
+   and c scattered back over every wire, the pruned wires at infinity;
+   the coefficient records from the key's A and B rows with the binding
+   rows), verification_key.json and witness.wtns, and 8 .wtns for a batch
+   (the witness and 7 made as batch_witness makes them).
+7. Real size, the command line (the cli_real_size line):
+   `python -m zkp2p_tpu_torch prove` on those files and then `verify`
+   (exit 0, OK) as subprocesses, timed on the wall clock (what a user of
+   the drop-in path waits for, files to proof.json; the prove's gpu/prove
+   span read from its --trace file); then in this
+   process main(["prove", ...]) with r and s pinned (secrets.randbelow
+   patched), its launches counted, each step of its path timed with a
+   synchronise at each boundary (read_zkey, read_wtns, reduce_rows,
+   device_pk_from_zkey with infer_zkey_widths inside it, prove_gpu,
+   dump), its gpu/prove span, the width classes of the key it imported
+   (the synthetic R1CS has no bit-constraint rows, so inference leaves
+   every wire but wire 0 wide: the imported key's MSMs run wide), its
+   proof.json byte-equal to prove_gpu's on that key; `batch` at chunk 4
+   over the 8 .wtns as a subprocess (the package's __main__ run as -m
+   runs it, with the draws pinned; its gpu/prove_batch span from its
+   --trace file), then main(["batch", ...]) in this process with the same
+   draws, handed the zkey and the key that the in-process prove read and
+   imported (no third 3 GB import), its launches counted: every file
+   equal to the subprocess's and to the proofs its prove_gpu_batch
+   returned, w0's to prove_gpu's with its (r, s); the witness's batch
+   proof verifies, a seeded one's does not.  The CLI's prove must launch
+   the Jacobian path's kernels and no other, its batch the batch path's,
+   K12 6, K13 and K14 2 times a proof (a chunk).  .chip_scratch/cli/ is
+   deleted at the end.
 
 The launch counts are reset just before the first timed proof of each
 path and read just after it; every kernel of a path must have launched in
@@ -178,7 +208,8 @@ K15's batch_inverse and K17 on no proof's path; K12 launches once a pass of the
 iNTT and of the NTT on each path, K13 and K14 twice a proof on each path,
 and K1 at most 5 times a proof on each path (printed); on the batch path,
 besides the per-chunk counts above, nothing of OFF_PATH or the affine
-path.
+path; in phase 7 the CLI's in-process prove as the Jacobian path and
+prove_gpu_batch on the key it imported as the batch path.
 
 Before the last line it prints the card's name and power limit, a
 profile each of one more Jacobian and one more affine proof, run after
@@ -194,11 +225,17 @@ per-chunk stage seconds, peak memory a chunk size) and batch_same_run
 (the batch against prove_gpu in a loop), the test vector's setup
 (setup_vector) and the real-size key (real_size_setup: stage seconds,
 launches, selections, the proof's and the verifier's seconds, the
-cache's).  The last line is {"ok": true, "device": {...}}.
+cache's), and the command line at full size (cli_real_size: the card's
+free memory before the subprocesses, the files' sizes and write seconds,
+the prove and verify subprocesses' wall-clock seconds, each step's
+seconds, the gpu/prove span, the classes, the launches of the CLI's
+prove and batch, the batch's seconds and proofs/s beside
+prove_gpu_batch's).  The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import random
 import statistics
@@ -311,6 +348,10 @@ PATH_KERNELS = {
 FIXED_BASE_KERNELS = ("g1_fixed_base", "g2_fixed_base")
 SETUP_KERNELS = FIXED_BASE_KERNELS + ("batch_inverse", "jac_to_affine", "fr_matvec", "mont_mul")
 PATH_KERNELS["setup"] = SETUP_KERNELS
+# phase 7: the CLI's prove runs the Jacobian path's kernels, its batch the
+# batch path's
+PATH_KERNELS["cli_prove"] = PATH_KERNELS["jacobian"]
+PATH_KERNELS["cli_batch"] = PATH_KERNELS["batch"]
 # K1's launches left on a proof, either path: to_mont of the witness, Cz =
 # Az*Bz, a*b after the ladder, from_mont of the witness and of H
 K1_JACOBIAN_MAX = 5
@@ -386,6 +427,10 @@ BATCH_PLAIN_STEPS = 8
 # the batch phase: BATCH_WITNESSES real-size witnesses at chunk BATCH_CHUNK,
 # and the peak device memory of one chunk at each of PEAK_CHUNKS
 BATCH_WITNESSES = 8
+# phase 7: the CLI's files, and the seeded witnesses beside the satisfying
+# one in its batch
+CLI_DIR = ".chip_scratch/cli"
+CLI_SEEDED = 7
 PEAK_CHUNKS = (1, 2, 4)
 # the launchers whose launches a batch chunk makes as often as one proof:
 # the tables once a chunk of steps, the accumulates once for the chunk's
@@ -1214,8 +1259,8 @@ def check_window_kernels(torch, g2, shapes, peak_muls_per_s, device):
             raise AssertionError(f"{name_a} ({n_digits} x {lanes}, {steps} steps) differs from its plain version")
         return times, (err_t, err_a), mags[:, s0:s0 + steps]
 
-    for steps, n, n_digits in WINDOW_BATCHES:
-        check(steps, n, n_digits)
+    for lanes, n_digits, steps in WINDOW_BATCHES:
+        check(steps, lanes, n_digits)
     log(f"{ks}: bitwise equal to plain at {WINDOW_BATCHES} (lanes, planes, steps), special lanes included")
 
     fq = 3 if g2 else 1  # Fq products an Fq2 product
@@ -2132,19 +2177,27 @@ def bound(n, monts_per_elem, bytes_per_elem, peak_muls_per_s):
 # --------------------------------------------------------------- profile
 
 
-def profile_proof(torch, prove, top: int = 15):
-    """One more proof under torch.profiler: the device's busy share (the
-    device activities' time over the wall clock) and where the device
-    time goes, by kernel and by torch op."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def profile_proof(torch, prove, name, top: int = 15):
+    """One more proof under the port's torch.profiler capture
+    (trace.profile, its Chrome trace written under .chip_scratch/ and
+    deleted): the device's busy share (the device activities' time over
+    the wall clock) and where the device time goes, by kernel and by
+    torch op."""
+    import os
+    import shutil
 
+    from torch.autograd import DeviceType
+
+    from zkp2p_tpu_torch.utils import trace
+
+    trace_dir = os.path.join(".chip_scratch", "profiles")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace.profile(name, trace_dir) as prof:
         prove()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    shutil.rmtree(trace_dir, ignore_errors=True)
     events = prof.key_averages()
 
     def dev_ms(e):
@@ -2516,7 +2569,9 @@ def real_size_setup(torch, rows, peak_muls_per_s, device):
     counted), its sampled bases against the host, one proof under the
     key that the port's verify accepts, and a full-size key cache round
     trip (save_dpk, load_dpk) that proves the same bytes.  Adds K13's and
-    K15's setup shapes to their rows."""
+    K15's setup shapes to their rows.  Writes phase 7's files from the
+    loaded key (write_cli_files); returns them, the real_size_setup line
+    and the setup's launches."""
     import os
 
     from zkp2p_tpu_torch.field.tfield import FR
@@ -2617,13 +2672,364 @@ def real_size_setup(torch, rows, peak_muls_per_s, device):
         raise AssertionError("the key loaded from the cache proves other bytes or has another VK")
     log(f"key cache at full size: save {save_s:.1f} s, {size / 2**30:.2f} GiB, load {load_s:.1f} s; "
         f"the loaded key proves the same bytes")
-    return {"shape": "venmo 1024/6400 counts, satisfying synthetic R1CS", "log_m": V["log_m"],
+    files = write_cli_files(torch, key2, vk, witness, pub)
+    return files, {"shape": "venmo 1024/6400 counts, satisfying synthetic R1CS", "log_m": V["log_m"],
             "n_wires": V["n_wires"], "seed": SETUP_SEED, "r1cs_s": r1cs_s, "setup_s": setup_s,
             "stage_s": {k[2:]: v for k, v in stages.items()}, "peak_device_gib": peak,
             "launches": {k[len("zk_"):]: v for k, v in launches.items() if v}, "selections": got,
             "sampled_bases_checked": checked, "prove_s": prove_s, "verify_s": verify_s, "verify": True,
             "cache": {"save_s": save_s, "load_s": load_s, "file_gib": size / 2**30, "proof_bytes_equal": True}}, \
         launches
+
+
+# --------------------------------------------------------------- phase 7
+
+
+def zkey_of_key(key, vk):
+    """The port's ZkeyData of a key set up on the card: the query points
+    as they are, b1 / b2 / c scattered back over every wire from b_sel /
+    c_sel (the pruned wires at infinity), the coefficient records from
+    the key's A and B rows (the binding rows included), A's first."""
+    import numpy as np
+
+    from zkp2p_tpu_torch.formats.zkey import ZkeyData
+
+    n = key.n_wires
+
+    def host(t):
+        return t.cpu().numpy()
+
+    def scattered(bases, sel):
+        out = []
+        for c in bases:
+            full = np.zeros((n,) + tuple(c.shape[1:]), dtype=np.int32)
+            full[host(sel)] = host(c)
+            out.append(full)
+        return tuple(out)
+
+    c = scattered(key.c_bases, key.c_sel)
+    na, nb = key.a_row.numel(), key.b_row.numel()
+    return ZkeyData(
+        n_vars=n, n_public=key.n_public, domain_size=1 << key.log_m, alpha_1=key.alpha_1, beta_1=key.beta_1,
+        beta_2=key.beta_2, gamma_2=vk.gamma_2, delta_1=key.delta_1, delta_2=key.delta_2, ic=list(vk.ic),
+        coeff_matrix=np.concatenate([np.zeros(na, np.int64), np.ones(nb, np.int64)]),
+        coeff_row=np.concatenate([host(key.a_row), host(key.b_row)]),
+        coeff_wire=np.concatenate([host(key.a_wire), host(key.b_wire)]),
+        coeff_value=np.concatenate([host(key.a_coeff), host(key.b_coeff)]),
+        a_query=tuple(host(x) for x in key.a_bases), b1_query=scattered(key.b1_bases, key.b_sel),
+        b2_query=scattered(key.b2_bases, key.b_sel), c_query=tuple(x[key.n_public + 1:] for x in c),
+        h_query=tuple(host(x) for x in key.h_bases))
+
+
+def write_cli_files(torch, key, vk, witness, pub):
+    """Phase 6's key, VK and satisfying witness as the files a user of the
+    drop-in path hands the CLI, under CLI_DIR: circuit_final.zkey (the
+    port's write_zkey_data), verification_key.json (vkey_to_json), the
+    witness as witness.wtns, and in wtns/ the witness and CLI_SEEDED more
+    made as batch_witness makes them (which do not satisfy the R1CS)."""
+    import os
+
+    from zkp2p_tpu_torch.formats.circom_bin import write_wtns
+    from zkp2p_tpu_torch.formats.proof_json import dump, vkey_to_json
+    from zkp2p_tpu_torch.formats.zkey import write_zkey_data
+
+    d = os.path.abspath(CLI_DIR)
+    os.makedirs(os.path.join(d, "wtns"), exist_ok=True)
+    paths = {"zkey": os.path.join(d, "circuit_final.zkey"), "wtns": os.path.join(d, "witness.wtns"),
+             "indir": os.path.join(d, "wtns")}
+    t0 = time.perf_counter()
+    write_zkey_data(paths["zkey"], zkey_of_key(key, vk))
+    zkey_s = time.perf_counter() - t0
+    dump(vkey_to_json(vk), os.path.join(d, "verification_key.json"))
+    t0 = time.perf_counter()
+    write_wtns(witness, paths["wtns"])
+    wtns_s = time.perf_counter() - t0
+    batch = [witness] + [batch_witness(key, SEED + 200 + i) for i in range(CLI_SEEDED)]
+    for i, w in enumerate(batch):
+        write_wtns(w, os.path.join(paths["indir"], f"w{i}.wtns"))
+    sizes = {k: os.path.getsize(paths[k]) for k in ("zkey", "wtns")}
+    log(f"CLI files: zkey {sizes['zkey'] / 2**30:.3f} GiB written in {zkey_s:.1f} s, wtns "
+        f"{sizes['wtns'] / 2**20:.1f} MiB in {wtns_s:.2f} s, {len(batch)} batch wtns")
+    return dict(paths=paths, witness=witness, batch=batch, pub=pub, vk=vk,
+                files={"zkey_bytes": sizes["zkey"], "wtns_bytes": sizes["wtns"], "zkey_write_s": zkey_s,
+                       "wtns_write_s": wtns_s})
+
+
+def cli_subprocess(args, draws=None, timeout=900):
+    """python -m zkp2p_tpu_torch <args> from the root of the checkout;
+    with `draws`, the package's __main__ runs as -m runs it, with
+    secrets.randbelow returning `draws` in turn (the provers draw r then
+    s a proof).  Returns (wall-clock seconds, the completed process); its
+    log goes to ours."""
+    import os
+
+    if draws is None:
+        cmd = [sys.executable, "-m", "zkp2p_tpu_torch", *args]
+    else:
+        code = ("import json, runpy, secrets, sys\n"
+                "draws = iter(json.loads(sys.argv.pop(1)))\n"
+                "secrets.randbelow = lambda n: next(draws)\n"
+                "runpy.run_module('zkp2p_tpu_torch', run_name='__main__', alter_sys=True)\n")
+        cmd = [sys.executable, "-c", code, json.dumps(draws), *args]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                         timeout=timeout)
+    wall = time.perf_counter() - t0
+    for line in out.stderr.splitlines():
+        log(f"  | {line}")
+    return wall, out
+
+
+# the functions of the CLI's path that phase 7 times in its in-process run
+CLI_STEPS = ("read_zkey", "read_wtns", "reduce_rows", "device_pk_from_zkey", "prove_gpu", "dump")
+
+
+@contextlib.contextmanager
+def patched(settings):
+    """Set each (module, name, value) for the block, then restore."""
+    old = [(m, n, getattr(m, n)) for m, n, _ in settings]
+    for m, n, v in settings:
+        setattr(m, n, v)
+    try:
+        yield
+    finally:
+        for m, n, v in reversed(old):
+            setattr(m, n, v)
+
+
+def timed_calls(torch, seconds, results, module, names):
+    """(module, name, wrapper) settings for `patched`: each wrapper adds
+    its call's seconds, between two synchronises, to seconds[name] and
+    keeps its result in results[name]."""
+    def wrap(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+            results[name] = out
+            return out
+        return run
+    return [(module, n, wrap(n, getattr(module, n))) for n in names]
+
+
+def cli_log_seconds(stderr: str) -> dict:
+    """The seconds (and proofs/s) the CLI logs for its steps."""
+    import re
+
+    out = {}
+    for name, pattern in (("read", r"read the zkey and the witness in ([0-9.]+)s"),
+                          ("key", r"key on \S+ in ([0-9.]+)s"), ("prove", r"\] proved in ([0-9.]+)s"),
+                          ("batch", r"batch of \d+ proved in ([0-9.]+)s"), ("proofs_per_s", r"-> ([0-9.]+) proofs/s")):
+        m = re.search(pattern, stderr)
+        if m:
+            out[name] = float(m.group(1))
+    return out
+
+
+def trace_file_span(path, stage):
+    """The milliseconds of the one `stage` span that a --trace file
+    holds after its manifest line."""
+    with open(path) as f:
+        lines = [json.loads(ln) for ln in f]
+    spans = [rec["ms"] for rec in lines[1:] if rec["stage"] == stage]
+    if lines[0].get("type") != "manifest" or len(spans) != 1:
+        raise AssertionError(f"{path}: a manifest line and one {stage} span expected")
+    return spans[0]
+
+
+def pinned_draws(rs):
+    """secrets.randbelow's returns that make the provers draw `rs`."""
+    return [v - 1 for pair in rs for v in pair]
+
+
+def cli_phase(torch, inp, jac_launches, batch_launches, device):
+    """Phase 7: the command line at full size, from the files phase 6
+    wrote.  `python -m zkp2p_tpu_torch prove`, then `verify` (exit 0), as
+    subprocesses, timed on the wall clock; main(["prove", ...]) in this
+    process with r and s pinned, its launches counted and held to the
+    Jacobian path's kernels, each step of its path timed with a
+    synchronise at each boundary (CLI_STEPS and infer_zkey_widths), its
+    gpu/prove span, the classes of the key it imported, its proof.json
+    byte-equal to prove_gpu's on that key; `batch` at chunk BATCH_CHUNK
+    over the CLI_SEEDED + 1 witnesses as a subprocess and as main() here
+    (on the zkey and key the in-process prove read and imported, its
+    launches counted and held to the batch path's), the draws pinned in
+    both, every file equal between the two and to the proofs that
+    main()'s prove_gpu_batch returned, w0's to prove_gpu's; the
+    satisfying witness's batch proof verifies, a seeded one's does not;
+    both subprocesses' spans read from their --trace files.  Deletes
+    CLI_DIR.  Returns the cli_real_size line and the launches of the
+    CLI's prove and batch run here."""
+    import os
+    import secrets
+    import shutil
+
+    from zkp2p_tpu_torch.field.bn254 import R
+    from zkp2p_tpu_torch.formats.circom_bin import read_wtns, reduce_rows
+    from zkp2p_tpu_torch.formats.proof_json import dump, load, proof_from_json, proof_to_json, public_to_json
+    from zkp2p_tpu_torch.ops import cuda_build
+    from zkp2p_tpu_torch.ops.ntt import pass_plan
+    from zkp2p_tpu_torch.pipeline import cli
+    from zkp2p_tpu_torch.prover import groth16_gpu
+    from zkp2p_tpu_torch.prover.groth16_gpu import batch_spans, prove_gpu, prove_gpu_batch
+    from zkp2p_tpu_torch.snark.groth16 import verify
+    from zkp2p_tpu_torch.utils import trace
+
+    paths, vk, pub = inp["paths"], inp["vk"], inp["pub"]
+    d = os.path.abspath(CLI_DIR)
+
+    def out_path(name):
+        return os.path.join(d, name)
+
+    def same_file(a, b):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            return fa.read() == fb.read()
+
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        held = torch.cuda.memory_allocated()
+        log(f"before the CLI subprocesses: {free / 2**30:.2f} of {total / 2**30:.2f} GiB free on the card, "
+            f"{held / 2**30:.2f} GiB allocated here (phase 4's key)")
+
+        # the drop-in path as a user runs it
+        files = ["--zkey", paths["zkey"], "--wtns", paths["wtns"]]
+        prove_s, run = cli_subprocess(["--build-dir", d, "prove", *files, "--proof", out_path("proof.json"),
+                                       "--public", out_path("public.json"), "--trace", out_path("prove.trace")])
+        if run.returncode:
+            raise AssertionError(f"python -m zkp2p_tpu_torch prove exited {run.returncode}")
+        if load(out_path("public.json")) != [str(v) for v in pub]:
+            raise AssertionError("public.json differs from the witness's public inputs")
+        prove_log = dict(cli_log_seconds(run.stderr), span_ms=trace_file_span(out_path("prove.trace"), "gpu/prove"))
+        verify_s, run = cli_subprocess(["--build-dir", d, "verify", "--proof", out_path("proof.json"),
+                                        "--public", out_path("public.json")])
+        if run.returncode or run.stdout.strip() != "OK":
+            raise AssertionError(f"python -m zkp2p_tpu_torch verify exited {run.returncode}: {run.stdout!r}")
+        log(f"CLI subprocesses: prove {prove_s:.1f} s (files to proof.json; its log: {prove_log}), verify "
+            f"{verify_s:.1f} s: OK")
+
+        # main(["prove", ...]) in this process: r and s pinned, its launches
+        # counted, each step of its path timed to a synchronise, its key kept
+        rng = random.Random(SEED + 210)
+        r, s = rng.randrange(1, R), rng.randrange(1, R)
+        steps, kept = {}, {}
+        draws = iter(pinned_draws([(r, s)]))
+        trace.reset()
+        with patched(timed_calls(torch, steps, kept, cli, CLI_STEPS) + timed_calls(
+                torch, steps, kept, groth16_gpu, ("infer_zkey_widths",)) + [(secrets, "randbelow",
+                                                                            lambda n: next(draws))]):
+            cuda_build.reset_launches()
+            main_s, _ = wall_s(torch, lambda: cli.main(["--build-dir", d, "prove", *files, "--device", str(device),
+                                                        "--proof", out_path("pinned.proof.json"),
+                                                        "--public", out_path("pinned.public.json")]))
+            prove_launches = dict(cuda_build.LAUNCHES)
+        key, widths, zk = kept["device_pk_from_zkey"], kept["infer_zkey_widths"], kept["read_zkey"]
+        span = [rec["ms"] for rec in trace.records() if rec["stage"] == "gpu/prove"]
+        if len(span) != 1:
+            raise AssertionError(f"the CLI's prove left {len(span)} gpu/prove spans, one expected")
+        rows = reduce_rows(read_wtns(paths["wtns"]))
+        warm = {}
+        warm_s, proof = wall_s(torch, lambda: prove_gpu(key, rows, r=r, s=s, device=device, stages=warm))
+        dump(proof_to_json(proof), out_path("direct.proof.json"))
+        if not same_file(out_path("pinned.proof.json"), out_path("direct.proof.json")):
+            raise AssertionError("the CLI's proof.json with r, s pinned differs from prove_gpu's on the imported key")
+        if not verify(vk, proof, pub):
+            raise AssertionError("the proof under the imported key does not verify")
+        want = {k for k, v in jac_launches.items() if v}
+        got = {k for k, v in prove_launches.items() if v}
+        passes = 2 * len(pass_plan(key.log_m))
+        fixed = {k: prove_launches[k] for k in ("zk_fr_ntt_pass", "zk_fr_matvec", "zk_signed_recode")}
+        if got != want or fixed != {"zk_fr_ntt_pass": passes, "zk_fr_matvec": 2, "zk_signed_recode": 2}:
+            raise AssertionError(f"the CLI's prove launched {sorted(got)} ({fixed}), the Jacobian path "
+                                 f"{sorted(want)}")
+        classes = {k: getattr(key, k).numel() for k in ("a_nsel", "a_wsel", "b_nsel", "b_wsel", "c_nsel", "c_wsel")}
+        del kept
+        log(f"CLI prove in process, r and s pinned: {main_s:.1f} s (" + ", ".join(
+            f"{k} {v:.3f}" for k, v in steps.items()) + f" s; gpu/prove span {span[0]:.1f} ms); proof.json equal "
+            f"to prove_gpu's on its key, which proves again in {warm_s:.3f} s; inferred narrow wires "
+            f"{int((widths <= 11).sum())}; classes {json.dumps(classes)}; launches "
+            + json.dumps({k[3:]: v for k, v in prove_launches.items() if v}))
+
+        # batch: a subprocess, then main(["batch", ...]) here on the zkey and
+        # key the CLI's prove read and imported above (its launches counted),
+        # both with the draws pinned; the files of the two and the proofs
+        # its prove_gpu_batch returned all equal
+        ws = [reduce_rows(read_wtns(os.path.join(paths["indir"], f"w{i}.wtns"))) for i in range(len(inp["batch"]))]
+        if any((a != b).any() for a, b in zip(ws, inp["batch"])):
+            raise AssertionError("a batch witness read back differs from the one written")
+        rs = [(rng.randrange(1, R), rng.randrange(1, R)) for _ in ws]
+        batch_args = ["--build-dir", d, "batch", "--zkey", paths["zkey"], "--indir", paths["indir"],
+                      "--chunk", str(BATCH_CHUNK)]
+        sub_s, run = cli_subprocess(batch_args + ["--outdir", out_path("sub"), "--trace", out_path("batch.trace")],
+                                    draws=pinned_draws(rs))
+        if run.returncode:
+            raise AssertionError(f"python -m zkp2p_tpu_torch batch exited {run.returncode}")
+        sub_log = dict(cli_log_seconds(run.stderr),
+                       span_ms=trace_file_span(out_path("batch.trace"), "gpu/prove_batch"))
+        batch_steps, batch_kept = {}, {}
+        draws = iter(pinned_draws(rs))
+        with patched(timed_calls(torch, batch_steps, batch_kept, cli, ("prove_gpu_batch",)) + [
+                (cli, "_load_zkey", lambda args: zk), (cli, "_key", lambda args, z, dev: key),
+                (secrets, "randbelow", lambda n: next(draws))]):
+            cuda_build.reset_launches()
+            main_batch_s, _ = wall_s(torch, lambda: cli.main(batch_args + ["--outdir", out_path("main"),
+                                                                           "--device", str(device)]))
+            cli_batch_launches = dict(cuda_build.LAUNCHES)
+        proofs, batch_s = batch_kept["prove_gpu_batch"], batch_steps["prove_gpu_batch"]
+        n_public = key.n_public
+        del zk
+        for i, p in enumerate(proofs):
+            dump(proof_to_json(p), out_path(f"direct.w{i}.proof.json"))
+            for kind in ("proof", "public"):
+                name = f"w{i}.{kind}.json"
+                if not same_file(os.path.join(d, "sub", name), os.path.join(d, "main", name)):
+                    raise AssertionError(f"the CLI batch's {name} differs between the subprocess and main() here")
+            if not same_file(os.path.join(d, "main", f"w{i}.proof.json"), out_path(f"direct.w{i}.proof.json")):
+                raise AssertionError(f"the CLI batch's w{i}.proof.json differs from its prove_gpu_batch's proof")
+            if load(os.path.join(d, "main", f"w{i}.public.json")) != public_to_json(
+                    int.from_bytes(ws[i][j].tobytes(), "little") for j in range(1, n_public + 1)):
+                raise AssertionError(f"the CLI batch's w{i}.public.json differs from the witness's")
+        dump(proof_to_json(prove_gpu(key, ws[0], r=rs[0][0], s=rs[0][1], device=device)), out_path("w0.single.json"))
+        del key
+        if not same_file(out_path("w0.single.json"), os.path.join(d, "main", "w0.proof.json")):
+            raise AssertionError("the CLI batch's w0.proof.json differs from prove_gpu's with its r, s")
+        sub_proof = proof_from_json(load(os.path.join(d, "sub", "w0.proof.json")))
+        seeded_pub = load(os.path.join(d, "sub", "w1.public.json"))
+        if not verify(vk, sub_proof, pub) or verify(vk, proofs[1], [int(v) for v in seeded_pub]):
+            raise AssertionError("the satisfying witness's batch proof must verify and a seeded one's must not")
+        n_chunks = len(batch_spans(len(ws), BATCH_CHUNK))
+        want = {k for k, v in batch_launches.items() if v}
+        got = {k for k, v in cli_batch_launches.items() if v}
+        fixed = {k: cli_batch_launches[k] / n_chunks for k in ("zk_fr_ntt_pass", "zk_fr_matvec", "zk_signed_recode")}
+        if got != want or fixed != {"zk_fr_ntt_pass": passes, "zk_fr_matvec": 2, "zk_signed_recode": 2}:
+            raise AssertionError(f"the CLI's batch launched {sorted(got)} ({fixed} a chunk), the batch path "
+                                 f"{sorted(want)}")
+        n = len(ws)
+        log(f"CLI batch ({n} wtns, chunk {BATCH_CHUNK}): subprocess {sub_s:.1f} s (its log: {sub_log}); main() "
+            f"here on the imported key {main_batch_s:.2f} s, its prove_gpu_batch {batch_s:.2f} s ({n / batch_s:.3f} "
+            f"proofs/s); every file equal between the two and to the proofs prove_gpu_batch returned, w0's to "
+            f"prove_gpu's; w0 verifies, w1 does not; launches of main() "
+            + json.dumps({k[3:]: v for k, v in cli_batch_launches.items() if v}))
+        return {
+            "shape": "venmo 1024/6400 counts, phase 6's key and satisfying witness as files",
+            "mem_get_info_before_subprocesses": {"free": free, "total": total, "allocated_here": held},
+            **inp["files"],
+            "prove_subprocess_s": prove_s, "prove_subprocess_log_s": prove_log, "verify_subprocess_s": verify_s,
+            "verify_exit": 0, "step_s": steps, "gpu_prove_span_ms": span[0],
+            "warm_proof_s": warm_s, "warm_proof_stage_s": {k[2:]: v for k, v in warm.items() if k.startswith("s_")},
+            "inferred_narrow_wires": int((widths <= 11).sum()), "classes": classes,
+            "pinned_main_prove_s": main_s, "pinned_proof_bytes_equal": True,
+            "prove_launches": {k[3:]: v for k, v in prove_launches.items() if v},
+            "batch": {"witnesses": n, "chunk": BATCH_CHUNK, "subprocess_s": sub_s, "subprocess_log": sub_log,
+                      "main_in_process_s": main_batch_s, "prove_gpu_batch_s": batch_s,
+                      "prove_gpu_batch_proofs_per_s": n / batch_s, "files_equal": True,
+                      "launches": {k[3:]: v for k, v in cli_batch_launches.items() if v}},
+        }, prove_launches, cli_batch_launches
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
 
 
 # -------------------------------------------------------------------- main
@@ -2806,7 +3212,7 @@ def batch_phase(torch, key, witness, ix, tables, jac_launches, device):
 
 
 def run(torch, device, peak_muls, sm_clock_hz):
-    """Phases 1-6 on `device`; returns what main prints."""
+    """Phases 1-7 on `device`; returns what main prints."""
     from zkp2p_tpu_torch.ops import cuda_build
     from zkp2p_tpu_torch.ops.cuda_msm_window import chunk_steps
     from zkp2p_tpu_torch.ops.msm import default_lanes
@@ -2946,20 +3352,29 @@ def run(torch, device, peak_muls, sm_clock_hz):
     affine_same_run = compare_affine_routes(torch, key, witness, rs, device)
 
     # phase 6 (the phase-4 key stays resident for the profiles)
-    real_setup, setup_launches = real_size_setup(torch, rows, peak_muls, device)
+    cli_files, real_setup, setup_launches = real_size_setup(torch, rows, peak_muls, device)
     torch.cuda.empty_cache()
+
+    # phase 7
+    t0 = time.perf_counter()
+    cli_line, cli_launches, cli_batch_launches = cli_phase(torch, cli_files, jac_launches, batch_launches, device)
+    del cli_files
+    torch.cuda.empty_cache()
+    log(f"phase 7 (the CLI at full size): {time.perf_counter() - t0:.1f} s")
     # last, so that no timed proof runs after the profiler
     profile = profile_proof(torch, lambda: prove_gpu(
-        key, witness, r=rs.randrange(1, 1 << 250), s=rs.randrange(1, 1 << 250), device=device))
+        key, witness, r=rs.randrange(1, 1 << 250), s=rs.randrange(1, 1 << 250), device=device), "jacobian")
     profile_affine = profile_proof(torch, lambda: prove_gpu(
-        key, witness, r=rs.randrange(1, 1 << 250), s=rs.randrange(1, 1 << 250), device=device, **AFFINE_ARMS))
-    by_path = {"jacobian": jac_launches, "affine": aff_launches, "batch": batch_launches, "setup": setup_launches}
+        key, witness, r=rs.randrange(1, 1 << 250), s=rs.randrange(1, 1 << 250), device=device, **AFFINE_ARMS),
+        "affine")
+    by_path = {"jacobian": jac_launches, "affine": aff_launches, "batch": batch_launches, "setup": setup_launches,
+               "cli_prove": cli_launches, "cli_batch": cli_batch_launches}
     for path, names in PATH_KERNELS.items():
         missing = [k for k in names if by_path[path]["zk_" + k] == 0]
         if missing:
             raise AssertionError(f"launchers never launched on the {path} path: {missing}")
     for path, names in (("jacobian", NOT_ON_JACOBIAN), ("affine", NOT_ON_AFFINE), ("batch", NOT_ON_JACOBIAN),
-                        ("setup", OFF_PATH)):
+                        ("setup", OFF_PATH), ("cli_prove", NOT_ON_JACOBIAN), ("cli_batch", NOT_ON_JACOBIAN)):
         stray = [k for k in names if by_path[path]["zk_" + k]]
         if stray:
             raise AssertionError(f"launchers launched on the {path} path, which no longer runs them: {stray}")
@@ -3011,7 +3426,7 @@ def run(torch, device, peak_muls, sm_clock_hz):
              "msm_b2_same_run": msm_b2_same_run, "proof_same_run": proof_same_run,
              "affine_msm_same_run": affine_msm_same_run, "affine_same_run": affine_same_run,
              "real_size_batch": real_batch, "batch_same_run": batch_same_run, "setup_vector": setup_vector,
-             "real_size_setup": real_setup}
+             "real_size_setup": real_setup, "cli_real_size": cli_line}
     return lines
 
 

@@ -128,6 +128,29 @@ def test_key_entry_points_without_cuda_raise(monkeypatch, tmp_path):
     assert device_pk_from_zkey(zk, device="cpu").device == torch.device("cpu")
 
 
+def test_cli_without_cuda_raises_before_reading_a_file(monkeypatch, tmp_path):
+    """prove and batch without --device cpu (or with --device cuda) raise
+    on a machine with no CUDA device before they read a file."""
+    from zkp2p_tpu_torch.pipeline import cli
+
+    def no_read(*a, **k):
+        raise AssertionError("read a file")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(cli, "read_zkey", no_read)
+    monkeypatch.setattr(cli, "read_wtns", no_read)
+    (tmp_path / "w.wtns").write_bytes(b"wtns")
+    files = ["--zkey", str(tmp_path / "k.zkey"), "--wtns", str(tmp_path / "w.wtns")]
+    for argv in (["prove"] + files, ["prove", "--device", "cuda"] + files,
+                 ["batch", "--indir", str(tmp_path), "--outdir", str(tmp_path / "out")]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv)
+    assert not (tmp_path / "out").exists()
+    out = subprocess.run([sys.executable, "-m", "zkp2p_tpu_torch", "prove"] + files, cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0 and "no CUDA device" in out.stderr and out.stdout == ""
+
+
 def test_chip_smoke_without_cuda_exits_nonzero_and_prints_nothing():
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True,
                          text=True, timeout=300, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))

@@ -1,5 +1,6 @@
-"""Reading snarkjs ``.zkey`` proving keys, whole or in chunks (the read
-side of the reference's ``formats/zkey.py``; the writers stay there).
+"""Reading and writing snarkjs ``.zkey`` proving keys, whole or in chunks
+(the reference's ``formats/zkey.py`` without its writer from host points
+and its ceremony records).
 
 Format (iden3 binfile, magic "zkey", version 1; snarkjs
 src/zkey_utils.js): sections [type u32][size u64][payload]:
@@ -15,7 +16,9 @@ src/zkey_utils.js): sections [type u32][size u64][payload]:
                     included
   5..8 A/B1/B2/C  : one query point a wire (C omits wires 0..nPublic)
   9 H             : domainSize G1 points, the coset-Lagrange basis
-  10 contributions: the ceremony's transcript (not read here)
+  10 contributions: the ceremony's transcript (not read here; written
+                  as a key with no contributions: a zero 64-byte
+                  circuit hash and a count of 0)
 
 Every field element is little-endian Montgomery form (R = 2^256), which
 is the port's limb layout: a point section becomes (n, 16) int32 limb
@@ -272,3 +275,54 @@ def read_zkey(path_or_chunks) -> ZkeyData:
         c_query=_g1_section(sections[8], n_vars - n_public - 1),
         h_query=_g1_section(sections[9], domain_size),
     )
+
+
+def _g1_bytes(pt: G1Point) -> bytes:
+    if pt is None:
+        return b"\x00" * (2 * N8)
+    return b"".join((c * MONT_R % P).to_bytes(N8, "little") for c in pt)
+
+
+def _g2_bytes(pt: G2Point) -> bytes:
+    if pt is None:
+        return b"\x00" * (4 * N8)
+    return b"".join((v * MONT_R % P).to_bytes(N8, "little") for c in pt for v in (c.c0, c.c1))
+
+
+def _points_payload(arrs: AffArrays) -> np.ndarray:
+    """(x, y) Montgomery limb arrays -> the section's records as u16 limbs."""
+    return np.ascontiguousarray(np.stack(arrs, axis=1).astype("<u2"))
+
+
+def write_zkey_data(path: str, z: ZkeyData) -> None:
+    """Write `z` as a .zkey (the inverse of ``read_zkey``): the header and
+    IC points, the coefficient records in their order, the query
+    sections from the limb arrays, and section 10 of a key with no
+    contributions.  A file written by the reference's ``write_zkey``,
+    read and written again, comes back byte for byte."""
+    hdr = struct.pack("<I", N8) + P.to_bytes(N8, "little") + struct.pack("<I", N8) + R.to_bytes(N8, "little")
+    hdr += struct.pack("<III", z.n_vars, z.n_public, z.domain_size)
+    hdr += _g1_bytes(z.alpha_1) + _g1_bytes(z.beta_1) + _g2_bytes(z.beta_2)
+    hdr += _g2_bytes(z.gamma_2) + _g1_bytes(z.delta_1) + _g2_bytes(z.delta_2)
+    rec = np.empty(len(z.coeff_row), dtype=_COEFF)
+    rec["m"], rec["row"], rec["wire"] = z.coeff_matrix, z.coeff_row, z.coeff_wire
+    rec["v"] = z.coeff_value
+    sections = [
+        (1, [struct.pack("<I", 1)]),
+        (2, [hdr]),
+        (3, [b"".join(_g1_bytes(p) for p in z.ic)]),
+        (4, [struct.pack("<I", len(rec)), rec]),
+        (5, [_points_payload(z.a_query)]),
+        (6, [_points_payload(z.b1_query)]),
+        (7, [_points_payload(z.b2_query)]),
+        (8, [_points_payload(z.c_query)]),
+        (9, [_points_payload(z.h_query)]),
+        (10, [b"\x00" * 64 + struct.pack("<I", 0)]),
+    ]
+    with open(path, "wb") as f:
+        f.write(ZKEY_MAGIC)
+        f.write(struct.pack("<II", 1, len(sections)))
+        for stype, parts in sections:
+            f.write(struct.pack("<IQ", stype, sum(memoryview(p).nbytes for p in parts)))
+            for p in parts:
+                f.write(p)

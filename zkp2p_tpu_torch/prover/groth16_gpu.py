@@ -29,6 +29,14 @@ Az and Bz, one K12 launch a pass over the chunk's 3B rows, one K14
 launch each for the witness's planes and H's, and each MSM's tables
 built once a chunk of steps and accumulated for the whole chunk in one
 K7/K9 launch (the reference's ``vmap`` leaves the key unbatched).
+
+Instruments, where the reference's provers have them: a ``gpu/prove``
+span (``gpu/prove_batch`` with the batch size ``n``) around each call,
+device memory samples at its entry and exit (and after each chunk of a
+batch, ``gpu/prove_batch_chunk``), ``zkp2p_proves_total{prover="gpu"}``,
+and the arms ``msm_affine``, ``msm_h`` (and ``batch_chunk``) recorded.
+The spans end with the proofs on the host, so they cover the device
+work.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import torch
 from ..curve.host import G1Point, G2Point, g1_add, g1_mul, g1_neg, g2_add, g2_mul
 from ..curve.tcurve import G1C, G2C, AffPoint, g1_jac_to_host, g1_limbs, g2_jac_to_host, g2_limbs
 from ..field.bn254 import R
+from ..formats.circom_bin import R_U64, ge_r, scalars_to_u64
 from ..field.tfield import FR, NUM_LIMBS, lazy_segment_sum_mod, mont_limbs
 from ..field.tower import Fq2
 from ..ops.cuda_matvec import Csr, csr_from_rows, fr_matvec
@@ -52,7 +61,10 @@ from ..ops.msm_affine import msm_windowed_affine
 from ..ops.msm_bucket import msm_bucket_affine
 from ..ops.ntt import coset_ladder
 from ..snark.groth16 import Proof, coset_gen, domain_size_for, qap_rows
+from ..utils.audit import record_arm, sample_device_memory
 from ..utils.device import resolve_device
+from ..utils.metrics import REGISTRY
+from ..utils.trace import trace
 
 WINDOW = 4
 # The key's narrow class (wires with a constraint-backed bound of at most
@@ -329,9 +341,6 @@ def device_pk_from_zkey(zk, infer_widths: bool = True, device=None) -> DevicePro
 
 # ------------------------------------------------------------------ witness
 
-_R_U64 = np.frombuffer(R.to_bytes(32, "little"), dtype="<u8").copy()
-
-
 def _is_u64_witness(witness) -> bool:
     """The (n, 4) uint64 standard-form limb layout."""
     return (
@@ -342,26 +351,14 @@ def _is_u64_witness(witness) -> bool:
     )
 
 
-def _scalars_to_u64(scalars: Sequence[int]) -> np.ndarray:
-    buf = b"".join(int(s).to_bytes(32, "little") for s in scalars)
-    return np.frombuffer(buf, dtype="<u8").reshape(len(scalars), 4)
-
-
 def _check_u64_reduced(rows: np.ndarray) -> None:
     """Reject (n, 4)-u64 witness rows >= R: an unreduced row would give a
     wrong Montgomery form and an unverifiable proof.  One pass over the
     top words; the full compare only on rows whose top word reaches R's."""
-    cand = np.flatnonzero(rows[:, 3] >= _R_U64[3])
+    cand = np.flatnonzero(rows[:, 3] >= R_U64[3])
     if not cand.size:
         return
-    sub = rows[cand]
-    ge = np.zeros(cand.size, dtype=bool)
-    eq = np.ones(cand.size, dtype=bool)
-    for j in range(3, -1, -1):
-        col = sub[:, j]
-        ge |= eq & (col > _R_U64[j])
-        eq &= col == _R_U64[j]
-    ge |= eq  # exactly R is unreduced too
+    ge = ge_r(rows[cand])
     if ge.any():
         i = int(cand[np.flatnonzero(ge)[0]])
         raise ValueError(
@@ -377,7 +374,7 @@ def _witness_std_limbs(witness) -> np.ndarray:
         _check_u64_reduced(witness)
         rows = witness
     else:
-        rows = _scalars_to_u64([int(w) % R for w in witness])
+        rows = scalars_to_u64([int(w) % R for w in witness])
     return np.ascontiguousarray(rows).view("<u2").astype(np.int32).reshape(rows.shape[0], NUM_LIMBS)
 
 
@@ -390,7 +387,7 @@ def _check_inferred_widths(dpk: DeviceProvingKey, witness, w_std: Optional[np.nd
     wires = np.frombuffer(blob, dtype=np.int64)
     bound = 1 << (4 * NARROW_PLANES - 1)
     if w_std is None:
-        w_std = _scalars_to_u64([witness[j] % R for j in wires])
+        w_std = scalars_to_u64([witness[j] % R for j in wires])
         wires_idx = np.arange(len(wires))
     else:
         wires_idx = wires
@@ -407,7 +404,7 @@ def _check_inferred_widths(dpk: DeviceProvingKey, witness, w_std: Optional[np.nd
 
 def _as_u64(witness) -> np.ndarray:
     """A host witness as its (n, 4) u64 rows (ints reduced mod R first)."""
-    return witness if _is_u64_witness(witness) else _scalars_to_u64([int(w) % R for w in witness])
+    return witness if _is_u64_witness(witness) else scalars_to_u64([int(w) % R for w in witness])
 
 
 def witness_to_device(witness, device) -> torch.Tensor:
@@ -590,7 +587,8 @@ def _prove_device(dpk: DeviceProvingKey, w_mont: torch.Tensor, msm_affine: bool,
     a narrow-class and a wide-class MSM joined by one add.  A batch of
     witnesses w_mont (B, n_wires, 16) gives (B,) accumulators, the key's
     splits built once per key as for one witness."""
-    h_bucket = msm_h == "bucket"
+    record_arm("msm_affine", msm_affine)
+    h_bucket = record_arm("msm_h", msm_h) == "bucket"
     h_window = H_BUCKET_WINDOW if h_bucket else WINDOW
     (w_planes, w_narrow), h_planes = _h_and_planes(dpk, w_mont, h_window, stages)
 
@@ -677,11 +675,15 @@ def prove_gpu(
         r = 1 + secrets.randbelow(R - 1)
     if s is None:
         s = 1 + secrets.randbelow(R - 1)
-    _check_inferred_widths(dpk, witness, w_std=witness if _is_u64_witness(witness) else None)
-    w_mont = _timed(stages, "witness", lambda: witness_to_device(witness, dev))
-    acc = _prove_device(dpk, w_mont, msm_affine, msm_h, stages)
-    host = _timed(stages, "assemble", lambda: accumulators_to_host(acc))
-    proof = _timed(stages, "assemble", lambda: _assemble(dpk, host, r, s))
+    with trace("gpu/prove"):
+        sample_device_memory("gpu/prove")
+        _check_inferred_widths(dpk, witness, w_std=witness if _is_u64_witness(witness) else None)
+        w_mont = _timed(stages, "witness", lambda: witness_to_device(witness, dev))
+        acc = _prove_device(dpk, w_mont, msm_affine, msm_h, stages)
+        host = _timed(stages, "assemble", lambda: accumulators_to_host(acc))
+        proof = _timed(stages, "assemble", lambda: _assemble(dpk, host, r, s))
+        sample_device_memory("gpu/prove")
+    REGISTRY.counter("zkp2p_proves_total", {"prover": "gpu"}).inc()
     if stages is not None:
         stages["acc"] = host
     return proof
@@ -738,24 +740,30 @@ def prove_gpu_batch(
     rs = [(int(r), int(s)) for r, s in rs]
     if len(rs) != n:
         raise ValueError(f"prove_gpu_batch: {len(rs)} (r, s) pairs for {n} witnesses")
-    for wit in witnesses:
-        _check_inferred_widths(dpk, wit, w_std=wit if _is_u64_witness(wit) else None)
+    record_arm("batch_chunk", chunk)
     proofs: List[Proof] = []
     accs = []
-    for span in batch_spans(n, chunk):
-        st = None if stages is None else {}
-        rows = _timed(st, "witness", lambda: np.stack([_as_u64(witnesses[i]) for i in span]))
-        w_mont = _timed(st, "witness", lambda: witness_to_device(rows, dev))
-        del rows
-        acc = _prove_device(dpk, w_mont, False, "windowed", st)
-        del w_mont
-        host = _timed(st, "assemble", lambda: accumulators_to_host(acc))
-        real = sorted(set(span))  # the padding repeats the span's last witness
-        for i, h in zip(real, host):
-            proofs.append(_timed(st, "assemble", lambda: _assemble(dpk, h, *rs[i])))
-            accs.append(h)
-        if stages is not None:
-            stages.setdefault("chunks", []).append(st)
+    with trace("gpu/prove_batch", n=n):
+        sample_device_memory("gpu/prove_batch")
+        for wit in witnesses:
+            _check_inferred_widths(dpk, wit, w_std=wit if _is_u64_witness(wit) else None)
+        for span in batch_spans(n, chunk):
+            st = None if stages is None else {}
+            rows = _timed(st, "witness", lambda: np.stack([_as_u64(witnesses[i]) for i in span]))
+            w_mont = _timed(st, "witness", lambda: witness_to_device(rows, dev))
+            del rows
+            acc = _prove_device(dpk, w_mont, False, "windowed", st)
+            del w_mont
+            sample_device_memory("gpu/prove_batch_chunk")
+            host = _timed(st, "assemble", lambda: accumulators_to_host(acc))
+            real = sorted(set(span))  # the padding repeats the span's last witness
+            for i, h in zip(real, host):
+                proofs.append(_timed(st, "assemble", lambda: _assemble(dpk, h, *rs[i])))
+                accs.append(h)
+            if stages is not None:
+                stages.setdefault("chunks", []).append(st)
+        sample_device_memory("gpu/prove_batch")
+    REGISTRY.counter("zkp2p_proves_total", {"prover": "gpu"}).inc(n)
     if stages is not None:
         stages["acc"] = accs
     return proofs
