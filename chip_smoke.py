@@ -8,7 +8,9 @@ and prints no result line):
 
 1. Build: every kernel source under zkp2p_tpu_torch/csrc/ with nvcc for
    sm_90a, one process per source, all started together, timed as
-   set-up.
+   set-up; beside it, in a thread, phase 8's circuit (VenmoParams(),
+   1024/6400) by the port's builder, timed, with this process's RSS
+   before and after.
 2. Kernels against plain: each of the twenty-five launchers (K1
    mont_mul; K2 add, K3 add_mixed, K4 double for G1 and G2; K5 mont_pow;
    K6/K8 the G1 and G2 window tables, K7/K9 the G1 and G2 window
@@ -170,7 +172,7 @@ and prints no result line):
    under .chip_scratch/cli/: a real-size .zkey (write_zkey_data; b1, b2
    and c scattered back over every wire, the pruned wires at infinity;
    the coefficient records from the key's A and B rows with the binding
-   rows), verification_key.json and witness.wtns, and 8 .wtns for a batch
+   rows), verification_key.json and witness.wtns, and 4 .wtns for a batch
    (the witness and 7 made as batch_witness makes them).
 7. Real size, the command line (the cli_real_size line):
    `python -m zkp2p_tpu_torch prove` on those files and then `verify`
@@ -185,7 +187,7 @@ and prints no result line):
    (the synthetic R1CS has no bit-constraint rows, so inference leaves
    every wire but wire 0 wide: the imported key's MSMs run wide), its
    proof.json byte-equal to prove_gpu's on that key; `batch` at chunk 4
-   over the 8 .wtns as a subprocess (the package's __main__ run as -m
+   over the 4 .wtns as a subprocess (the package's __main__ run as -m
    runs it, with the draws pinned; its gpu/prove_batch span from its
    --trace file), then main(["batch", ...]) in this process with the same
    draws, handed the zkey and the key that the in-process prove read and
@@ -196,9 +198,38 @@ and prints no result line):
    the Jacobian path's kernels and no other, its batch the batch path's,
    K12 6, K13 and K14 2 times a proof (a chunk).  .chip_scratch/cli/ is
    deleted at the end.
+8. The flagship circuit (the flagship line): `python -m zkp2p_tpu_torch
+   --circuit venmo --max-header 1024 --max-body 6400 prove --demo`
+   starts as a subprocess, r and s pinned to the first proof's; it
+   builds its circuit on the host for 80-100 s before it reads the
+   zkey.  Meanwhile phase 1's VenmoParams() is set up on the card by
+   setup_device (its stages, qap_coo and widths_array timed inside it,
+   its launches counted), its counts (constraints, publics, wires, QAP
+   rows, domain, nonzeros of A and B, the b and c query classes) held
+   equal to VENMO, which was read from the reference's builder, and the
+   key's a classes to the circuit's tagged widths; the files the CLI's
+   setup writes (zkey_from_key, write_zkey_data, vkey_to_json,
+   export_verifier) go under .chip_scratch/flagship/ in one rename; the
+   256/192 `setup` (the audit on) starts as a second subprocess; four
+   synthetic signed Venmo emails (FLAGSHIP_EMAILS) go through
+   generate_inputs and cs.witness, each timed; the zkey's classes are
+   inferred (infer_zkey_widths) and the 256/192 circuit is set up here.
+   The card work of the three processes overlaps nowhere.  Once both
+   subprocesses have ended (their wall clock, logged steps and sampled
+   peak RSS recorded): prove_gpu on the first witness (launches counted,
+   the Jacobian path's kernels; verify accepts it and rejects a changed
+   public signal; the same (r, s) proves the same bytes again, timed
+   warm), prove_gpu_batch of the four at chunk 4 (every proof verifies,
+   the first equals prove_gpu's), the first again on the key with the
+   zkey's inferred classes (the same bytes; first and warm timed).
+   Then: the CLI setup's three files byte-equal to this process's; the
+   CLI prove's proof.json and public.json equal to prove_gpu's and its
+   key's classes to the inferred ones; `verify` (OK).
 
 The launch counts are reset just before the first timed proof of each
-path and read just after it; every kernel of a path must have launched in
+path and read just after it (phase 8: just before and after its setup,
+its first proof and its batch, checked as the setup, Jacobian and batch
+paths); every kernel of a path must have launched in
 its run (on the Jacobian path K1, K2 and K6-K14; on the affine path K1,
 K2, K6, K8, K10-K14, K15's jac_to_affine, K16's G1 add and both
 accumulates; in the setup of phase 6, counted from just before it to just
@@ -230,18 +261,23 @@ free memory before the subprocesses, the files' sizes and write seconds,
 the prove and verify subprocesses' wall-clock seconds, each step's
 seconds, the gpu/prove span, the classes, the launches of the CLI's
 prove and batch, the batch's seconds and proofs/s beside
-prove_gpu_batch's).  The last line is {"ok": true, "device": {...}}.
+prove_gpu_batch's), and the flagship circuit's (phase 8: counts, build,
+witness, qap_coo, setup, proof and batch seconds, the CLI's wall clock,
+steps, classes and peak RSS, the 256/192 setup).  The last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import random
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 # The flagship circuit's prover shape, read once from
@@ -352,6 +388,10 @@ PATH_KERNELS["setup"] = SETUP_KERNELS
 # batch path's
 PATH_KERNELS["cli_prove"] = PATH_KERNELS["jacobian"]
 PATH_KERNELS["cli_batch"] = PATH_KERNELS["batch"]
+# phase 8: the flagship circuit's setup, proof and batch
+PATH_KERNELS["flagship_setup"] = SETUP_KERNELS
+PATH_KERNELS["flagship_prove"] = PATH_KERNELS["jacobian"]
+PATH_KERNELS["flagship_batch"] = PATH_KERNELS["batch"]
 # K1's launches left on a proof, either path: to_mont of the witness, Cz =
 # Az*Bz, a*b after the ladder, from_mont of the witness and of H
 K1_JACOBIAN_MAX = 5
@@ -430,8 +470,17 @@ BATCH_WITNESSES = 8
 # phase 7: the CLI's files, and the seeded witnesses beside the satisfying
 # one in its batch
 CLI_DIR = ".chip_scratch/cli"
-CLI_SEEDED = 7
+CLI_SEEDED = 3
 PEAK_CHUNKS = (1, 2, 4)
+# phase 8: the synthetic signed emails (raw_id, amount, order_id) of the
+# flagship's witnesses, the first the CLI's --demo email; the setup's seed;
+# the small shape whose CLI setup (audit on) is held against this process's
+FLAGSHIP_EMAILS = (("1234567891234567891", "30", 1), ("2345678912345678912", "45", 2),
+                   ("3456789123456789123", "7", 3), ("4567891234567891234", "1250", 4))
+FLAGSHIP_SEED = "chip-smoke-flagship"
+FLAGSHIP_DIR = ".chip_scratch/flagship"
+SMALL_VENMO = (256, 192)
+SETUP_FILES = ("circuit_final.zkey", "verification_key.json", "verifier.sol")
 # the launchers whose launches a batch chunk makes as often as one proof:
 # the tables once a chunk of steps, the accumulates once for the chunk's
 # witnesses, the folds and the lane trees once over the chunk's lanes
@@ -2685,42 +2734,6 @@ def real_size_setup(torch, rows, peak_muls_per_s, device):
 # --------------------------------------------------------------- phase 7
 
 
-def zkey_of_key(key, vk):
-    """The port's ZkeyData of a key set up on the card: the query points
-    as they are, b1 / b2 / c scattered back over every wire from b_sel /
-    c_sel (the pruned wires at infinity), the coefficient records from
-    the key's A and B rows (the binding rows included), A's first."""
-    import numpy as np
-
-    from zkp2p_tpu_torch.formats.zkey import ZkeyData
-
-    n = key.n_wires
-
-    def host(t):
-        return t.cpu().numpy()
-
-    def scattered(bases, sel):
-        out = []
-        for c in bases:
-            full = np.zeros((n,) + tuple(c.shape[1:]), dtype=np.int32)
-            full[host(sel)] = host(c)
-            out.append(full)
-        return tuple(out)
-
-    c = scattered(key.c_bases, key.c_sel)
-    na, nb = key.a_row.numel(), key.b_row.numel()
-    return ZkeyData(
-        n_vars=n, n_public=key.n_public, domain_size=1 << key.log_m, alpha_1=key.alpha_1, beta_1=key.beta_1,
-        beta_2=key.beta_2, gamma_2=vk.gamma_2, delta_1=key.delta_1, delta_2=key.delta_2, ic=list(vk.ic),
-        coeff_matrix=np.concatenate([np.zeros(na, np.int64), np.ones(nb, np.int64)]),
-        coeff_row=np.concatenate([host(key.a_row), host(key.b_row)]),
-        coeff_wire=np.concatenate([host(key.a_wire), host(key.b_wire)]),
-        coeff_value=np.concatenate([host(key.a_coeff), host(key.b_coeff)]),
-        a_query=tuple(host(x) for x in key.a_bases), b1_query=scattered(key.b1_bases, key.b_sel),
-        b2_query=scattered(key.b2_bases, key.b_sel), c_query=tuple(x[key.n_public + 1:] for x in c),
-        h_query=tuple(host(x) for x in key.h_bases))
-
-
 def write_cli_files(torch, key, vk, witness, pub):
     """Phase 6's key, VK and satisfying witness as the files a user of the
     drop-in path hands the CLI, under CLI_DIR: circuit_final.zkey (the
@@ -2731,14 +2744,14 @@ def write_cli_files(torch, key, vk, witness, pub):
 
     from zkp2p_tpu_torch.formats.circom_bin import write_wtns
     from zkp2p_tpu_torch.formats.proof_json import dump, vkey_to_json
-    from zkp2p_tpu_torch.formats.zkey import write_zkey_data
+    from zkp2p_tpu_torch.formats.zkey import write_zkey_data, zkey_from_key
 
     d = os.path.abspath(CLI_DIR)
     os.makedirs(os.path.join(d, "wtns"), exist_ok=True)
     paths = {"zkey": os.path.join(d, "circuit_final.zkey"), "wtns": os.path.join(d, "witness.wtns"),
              "indir": os.path.join(d, "wtns")}
     t0 = time.perf_counter()
-    write_zkey_data(paths["zkey"], zkey_of_key(key, vk))
+    write_zkey_data(paths["zkey"], zkey_from_key(key, vk))
     zkey_s = time.perf_counter() - t0
     dump(vkey_to_json(vk), os.path.join(d, "verification_key.json"))
     t0 = time.perf_counter()
@@ -2755,6 +2768,14 @@ def write_cli_files(torch, key, vk, witness, pub):
                        "wtns_write_s": wtns_s})
 
 
+# the package's __main__ run as -m runs it, secrets.randbelow returning
+# the draws of its first argument in turn
+PINNED_MAIN = ("import json, runpy, secrets, sys\n"
+               "draws = iter(json.loads(sys.argv.pop(1)))\n"
+               "secrets.randbelow = lambda n: next(draws)\n"
+               "runpy.run_module('zkp2p_tpu_torch', run_name='__main__', alter_sys=True)\n")
+
+
 def cli_subprocess(args, draws=None, timeout=900):
     """python -m zkp2p_tpu_torch <args> from the root of the checkout;
     with `draws`, the package's __main__ runs as -m runs it, with
@@ -2762,22 +2783,66 @@ def cli_subprocess(args, draws=None, timeout=900):
     s a proof).  Returns (wall-clock seconds, the completed process); its
     log goes to ours."""
     import os
+    import tempfile
 
-    if draws is None:
-        cmd = [sys.executable, "-m", "zkp2p_tpu_torch", *args]
-    else:
-        code = ("import json, runpy, secrets, sys\n"
-                "draws = iter(json.loads(sys.argv.pop(1)))\n"
-                "secrets.randbelow = lambda n: next(draws)\n"
-                "runpy.run_module('zkp2p_tpu_torch', run_name='__main__', alter_sys=True)\n")
-        cmd = [sys.executable, "-c", code, json.dumps(draws), *args]
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
-                         timeout=timeout)
+    with tempfile.TemporaryDirectory() as t:
+        return cli_finish(cli_start(args, os.path.join(t, "log"), draws), timeout)[:2]
+
+
+def cli_start(args, log_path, draws=None):
+    """cli_subprocess's command started in the background, its standard
+    errors and output to `log_path` and `log_path`.out, its resident
+    memory sampled every 0.1 s from /proc/<pid>/statm by a thread;
+    cli_finish waits for it."""
+    import os
+    import threading
+
+    cmd = [sys.executable, "-m", "zkp2p_tpu_torch", *args]
+    if draws is not None:
+        cmd = [sys.executable, "-c", PINNED_MAIN, json.dumps(draws), *args]
+    err, out = open(log_path, "w"), open(log_path + ".out", "w")
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), stdout=out, stderr=err, text=True)
+    rss = {"peak": None}
+
+    def sample():
+        page = os.sysconf("SC_PAGE_SIZE")
+        while proc.poll() is None:
+            try:
+                with open(f"/proc/{proc.pid}/statm") as f:
+                    gib = int(f.read().split()[1]) * page / 2**30
+                rss["peak"] = gib if rss["peak"] is None else max(rss["peak"], gib)
+            except (OSError, ValueError, IndexError):
+                pass
+            time.sleep(0.1)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    return proc, time.perf_counter(), log_path, (err, out), sampler, rss
+
+
+def cli_finish(handle, timeout=900):
+    """(wall-clock seconds from cli_start, the finished process with its
+    stdout and stderr read back, its peak resident memory in GiB as
+    sampled, None where /proc/<pid>/statm cannot be read); its log goes
+    to ours."""
+    proc, t0, log_path, files, sampler, rss = handle
+    try:
+        proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        sampler.join()
+        for f in files:
+            f.close()
     wall = time.perf_counter() - t0
-    for line in out.stderr.splitlines():
+    with open(log_path) as f:
+        stderr = f.read()
+    with open(log_path + ".out") as f:
+        stdout = f.read()
+    for line in stderr.splitlines():
         log(f"  | {line}")
-    return wall, out
+    return wall, subprocess.CompletedProcess(proc.args, proc.returncode, stdout, stderr), rss["peak"]
 
 
 # the functions of the CLI's path that phase 7 times in its in-process run
@@ -2844,6 +2909,11 @@ def pinned_draws(rs):
     return [v - 1 for pair in rs for v in pair]
 
 
+def same_file(a, b) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
 def cli_phase(torch, inp, jac_launches, batch_launches, device):
     """Phase 7: the command line at full size, from the files phase 6
     wrote.  `python -m zkp2p_tpu_torch prove`, then `verify` (exit 0), as
@@ -2882,10 +2952,6 @@ def cli_phase(torch, inp, jac_launches, batch_launches, device):
 
     def out_path(name):
         return os.path.join(d, name)
-
-    def same_file(a, b):
-        with open(a, "rb") as fa, open(b, "rb") as fb:
-            return fa.read() == fb.read()
 
     try:
         torch.cuda.synchronize()
@@ -3029,6 +3095,307 @@ def cli_phase(torch, inp, jac_launches, batch_launches, device):
                       "launches": {k[3:]: v for k, v in cli_batch_launches.items() if v}},
         }, prove_launches, cli_batch_launches
     finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+# --------------------------------------------------------------- phase 8
+
+
+def rss_gib() -> float:
+    """This process's resident memory now (from /proc/self/statm)."""
+    import os
+
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+
+def setup_files(zk, vk, d):
+    """The files the CLI's setup writes of a key's ZkeyData `zk`
+    (zkey_from_key) and its VK, through the functions it writes them
+    with; returns their paths."""
+    import os
+
+    from zkp2p_tpu_torch.formats.proof_json import dump, vkey_to_json
+    from zkp2p_tpu_torch.formats.solidity import export_verifier
+    from zkp2p_tpu_torch.formats.zkey import write_zkey_data
+
+    os.makedirs(d, exist_ok=True)
+    paths = [os.path.join(d, n) for n in SETUP_FILES]
+    write_zkey_data(paths[0], zk)
+    dump(vkey_to_json(vk), paths[1])
+    with open(paths[2], "w") as f:
+        f.write(export_verifier(vk))
+    return paths
+
+
+def cli_log_steps(stderr: str) -> dict:
+    """The steps the CLI's circuit route logs: seconds, the imported
+    key's narrow/wide lanes, the peak host RSS."""
+    import re
+
+    out = {}
+    for name, pattern in (("build", r"constraints=\d+ wires=\d+ \(([0-9.]+)s\)"),
+                          ("read_zkey", r"read the zkey in ([0-9.]+)s"), ("key", r"key on \S+ in ([0-9.]+)s"),
+                          ("witness", r"witness in ([0-9.]+)s"), ("prove", r"\] proved in ([0-9.]+)s"),
+                          ("setup", r"setup on \S+ in ([0-9.]+)s"), ("audit", r"findings in ([0-9.]+)s"),
+                          ("peak_rss_gib", r"peak host RSS ([0-9.]+) GiB")):
+        m = re.search(pattern, stderr)
+        if m:
+            out[name] = float(m.group(1))
+    m = re.search(r"narrow/wide lanes: a (\d+)/(\d+) b (\d+)/(\d+) c (\d+)/(\d+)", stderr)
+    if m:
+        v = [int(x) for x in m.groups()]
+        out["classes"] = {"a": v[0:2], "b": v[2:4], "c": v[4:6]}
+    m = re.search(r"soundness audit clean: 0 unwaived / (\d+) waived findings in [0-9.]+s \((\w+)", stderr)
+    if m:
+        out["audit_waived"], out["audit_source"] = int(m.group(1)), m.group(2)
+    return out
+
+
+def build_flagship():
+    """VenmoParams() built by the port's builder (phase 8's circuit), run
+    in a thread beside the kernel build of phase 1, which mostly waits on
+    nvcc: the circuit, its layout and params, the build's seconds and
+    this process's RSS before and after it."""
+    from zkp2p_tpu_torch.models.venmo import VenmoParams, build_venmo_circuit
+
+    rss0 = rss_gib()
+    t0 = time.perf_counter()
+    params = VenmoParams()
+    cs, lay = build_venmo_circuit(params)
+    return dict(cs=cs, lay=lay, params=params, build_s=time.perf_counter() - t0,
+                rss_gib={"before": rss0, "after": rss_gib()})
+
+
+def flagship_phase(torch, built, device):
+    """Phase 8: the flagship circuit `built` by the port's builder at full
+    width.  `prove --circuit venmo` (1024/6400, r and s pinned) starts
+    first as a subprocess: it builds its circuit on the host for 80-100 s
+    before it reads the zkey.  Meanwhile this process sets the flagship up
+    on the card (setup_device; its counts held to VENMO) and writes the
+    CLI setup's files, then starts the 256/192 `setup` (audit on) as a
+    second subprocess, witnesses four synthetic signed Venmo emails,
+    infers the zkey's classes and sets the 256/192 circuit up; the card
+    work of the three overlaps nowhere.  Once both subprocesses have
+    ended it proves with prove_gpu under the tagged and the inferred
+    classes and with prove_gpu_batch and verifies, and holds the
+    subprocesses' files against its own; then `verify` runs.  Returns (the flagship line, the launches of the setup,
+    of the proof and of the batch)."""
+    import dataclasses
+    import os
+    import shutil
+
+    import numpy as np
+
+    from zkp2p_tpu_torch.formats.proof_json import dump, proof_to_json, public_to_json
+    from zkp2p_tpu_torch.formats.zkey import zkey_from_key
+    from zkp2p_tpu_torch.inputs.email import generate_inputs, make_test_key, make_venmo_email
+    from zkp2p_tpu_torch.models.venmo import VenmoParams, build_venmo_circuit
+    from zkp2p_tpu_torch.ops import cuda_build
+    from zkp2p_tpu_torch.prover import setup_device as sd
+    from zkp2p_tpu_torch.prover.groth16_gpu import (NARROW_WIDTH, _selections, infer_zkey_widths, prove_gpu,
+                                                    prove_gpu_batch)
+    from zkp2p_tpu_torch.snark.groth16 import proof_bytes, verify
+
+    V = VENMO
+    cs, lay, params = built["cs"], built["lay"], built["params"]
+    d = os.path.abspath(FLAGSHIP_DIR)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    started = []
+    try:
+        t_start = time.perf_counter()
+        full = os.path.join(d, "full")
+        rng = random.Random(SEED + 80)
+        rs = [(rng.randrange(1, 1 << 250), rng.randrange(1, 1 << 250)) for _ in FLAGSHIP_EMAILS]
+        flags = ["--build-dir", full, "--circuit", "venmo", "--max-header", "1024", "--max-body", "6400"]
+        cli_prove = cli_start(flags + ["prove", "--demo", "--proof", os.path.join(d, "proof.json"),
+                                       "--public", os.path.join(d, "public.json")],
+                              os.path.join(d, "prove.log"), draws=pinned_draws(rs[:1]))
+        started.append(cli_prove[0])
+
+        secs, res, stages = {}, {}, {}
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        cuda_build.reset_launches()
+        with patched(timed_calls(torch, secs, res, sd, ("qap_coo", "widths_array"))):
+            setup_s, (key, vk) = wall_s(torch, lambda: sd.setup_device(cs, seed=FLAGSHIP_SEED, device=device,
+                                                                       stages=stages))
+        setup_launches = dict(cuda_build.LAUNCHES)
+        setup_peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+        a, b, _, n_rows = res.pop("qap_coo")
+        tagged_narrow = int((res.pop("widths_array") <= NARROW_WIDTH).sum())
+        counts = dict(constraints=cs.num_constraints, n_public=cs.num_public, n_wires=cs.num_wires, rows=n_rows,
+                      log_m=key.log_m, nnz_a=int(a[1].size), nnz_b=int(b[1].size), b_narrow=key.b_nsel.numel(),
+                      b_wide=key.b_wsel.numel(), c_narrow=key.c_nsel.numel(), c_wide=key.c_wsel.numel())
+        del a, b
+        if counts != V:
+            raise AssertionError(f"the port's flagship circuit has {counts}, the reference's builder {V}")
+        tagged = {q: [getattr(key, q + "_nsel").numel(), getattr(key, q + "_wsel").numel()] for q in "abc"}
+        if tagged["a"] != [tagged_narrow, V["n_wires"] - tagged_narrow]:
+            raise AssertionError(f"the key's a classes {tagged['a']} are not the circuit's tagged widths")
+        missing = [k for k in SETUP_KERNELS if not setup_launches["zk_" + k]]
+        if missing or setup_launches["zk_fr_matvec"] < 3:
+            raise AssertionError(f"the flagship setup launched {setup_launches}; missing {missing}")
+        log(f"flagship setup_device: {setup_s:.3f} s (qap_coo {secs['qap_coo']:.2f} s, widths_array "
+            f"{secs['widths_array']:.2f} s; " + ", ".join(f"{k[2:]} {v:.3f}" for k, v in stages.items())
+            + f"), peak {setup_peak:.2f} GiB; counts equal to VENMO; classes {tagged}")
+
+        t0 = time.perf_counter()
+        zk = zkey_from_key(key, vk)
+        setup_files(zk, vk, full + ".part")
+        os.replace(full + ".part", full)  # the CLI's prove sees all three files or none
+        files_s = time.perf_counter() - t0
+        zkey_bytes = os.path.getsize(os.path.join(full, SETUP_FILES[0]))
+        if cli_prove[0].poll() is not None:
+            raise AssertionError("`prove --circuit venmo` ended before the zkey was written")
+        cli_setup = cli_start(["--build-dir", os.path.join(d, "small_cli"), "--circuit", "venmo", "setup",
+                               "--seed", FLAGSHIP_SEED], os.path.join(d, "setup.log"))
+        started.append(cli_setup[0])
+        rsa = make_test_key(1)
+        wits, pubs, inputs_s, witness_s = [], [], [], []
+        for raw_id, amount, order_id in FLAGSHIP_EMAILS:
+            t0 = time.perf_counter()
+            inputs = generate_inputs(make_venmo_email(rsa, raw_id=raw_id, amount=amount), rsa.n, order_id, 0,
+                                     params, lay)
+            inputs_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            wits.append(cs.witness(inputs.public_signals, inputs.seed))
+            witness_s.append(time.perf_counter() - t0)
+            pubs.append(inputs.public_signals)
+        log(f"flagship witnesses of {len(wits)} emails: inputs {[round(x, 2) for x in inputs_s]} s, cs.witness "
+            f"{[round(x, 2) for x in witness_s]} s")
+
+        infer_s, inferred = wall_s(torch, lambda: infer_zkey_widths(zk))
+        del zk
+        small_s, (cs_small, _) = wall_s(torch, lambda: build_venmo_circuit(VenmoParams(*SMALL_VENMO)))
+        small_setup_s, (key_s, vk_s) = wall_s(torch, lambda: sd.setup_device(cs_small, seed=FLAGSHIP_SEED,
+                                                                             device=device))
+        mine = setup_files(zkey_from_key(key_s, vk_s), vk_s, os.path.join(d, "small_here"))
+        del key_s, cs_small
+
+        host_s = time.perf_counter() - t_start
+
+        small_wall, sout, small_rss = cli_finish(cli_setup)
+        if sout.returncode:
+            raise AssertionError(f"`setup --circuit venmo` at {SMALL_VENMO} exited {sout.returncode}")
+        for path in mine:
+            if not same_file(path, os.path.join(d, "small_cli", os.path.basename(path))):
+                raise AssertionError(f"the CLI setup's {os.path.basename(path)} differs from the in-process setup's")
+        small_steps = cli_log_steps(sout.stderr)
+        log(f"flagship at {SMALL_VENMO}: built {small_s:.1f} s, set up here {small_setup_s:.2f} s; `setup` "
+            f"(audit on) {small_wall:.1f} s wall, peak RSS {small_rss} GiB ({small_steps}), its three files "
+            "equal to this process's")
+        prove_wall, out, prove_rss = cli_finish(cli_prove)
+        if out.returncode:
+            raise AssertionError(f"`prove --circuit venmo` exited {out.returncode}")
+        steps = cli_log_steps(out.stderr)
+
+        pst, warm = {}, {}
+        cuda_build.reset_launches()
+        prove_s, proof = wall_s(torch, lambda: prove_gpu(key, wits[0], r=rs[0][0], s=rs[0][1], device=device,
+                                                        stages=pst))
+        prove_launches = dict(cuda_build.LAUNCHES)
+        warm_s, again = wall_s(torch, lambda: prove_gpu(key, wits[0], r=rs[0][0], s=rs[0][1], device=device,
+                                                       stages=warm))
+        t0 = time.perf_counter()
+        ok = verify(vk, proof, pubs[0])
+        verify_s = time.perf_counter() - t0
+        if not ok or proof_bytes(again) != proof_bytes(proof):
+            raise AssertionError("the flagship proof does not verify, or the same (r, s) proved other bytes")
+        if verify(vk, proof, [pubs[0][0] + 1] + pubs[0][1:]):
+            raise AssertionError("the flagship proof verifies against a changed public signal")
+        missing = [k for k in PATH_KERNELS["jacobian"] if not prove_launches["zk_" + k]]
+        stray = [k for k in NOT_ON_JACOBIAN if prove_launches["zk_" + k]]
+        if missing or stray:
+            raise AssertionError(f"the flagship proof launched {prove_launches}: missing {missing}, stray {stray}")
+        log(f"flagship prove_gpu: first {prove_s:.3f} s (its CSR built), warm {warm_s:.3f} s ("
+            + ", ".join(f"{k[2:]} {v:.4f}" for k, v in warm.items() if k.startswith("s_"))
+            + f"); verify {verify_s:.2f} s: accepted, a changed public signal rejected, the same bytes again")
+
+        bst = {}
+        cuda_build.reset_launches()
+        batch_s, proofs = wall_s(torch, lambda: prove_gpu_batch(key, wits, rs=rs, chunk=BATCH_CHUNK, device=device,
+                                                               stages=bst))
+        batch_launches = dict(cuda_build.LAUNCHES)
+        if proof_bytes(proofs[0]) != proof_bytes(proof) or not all(verify(vk, p, q) for p, q in zip(proofs, pubs)):
+            raise AssertionError("a flagship batch proof does not verify, or differs from prove_gpu's")
+        n_wits = len(wits)
+        log(f"flagship prove_gpu_batch of {n_wits} (chunk {BATCH_CHUNK}): {batch_s:.3f} s "
+            f"({n_wits / batch_s:.3f} proofs/s); every proof verifies")
+
+        # the classes the CLI's prove inferred from the zkey, on this key:
+        # the same proof bytes under them, its stages timed
+        sels = _selections(inferred, key.n_wires, key.b_sel.cpu().numpy(), key.c_sel.cpu().numpy())
+        ikey = dataclasses.replace(
+            key, _split={}, inferred_narrow_wires=np.flatnonzero(inferred <= NARROW_WIDTH).astype(np.int64).tobytes(),
+            **{k: torch.from_numpy(v.astype(np.int64)).to(device) for k, v in sels.items()
+               if k not in ("b_sel", "c_sel")})
+        inferred_classes = {q: [getattr(ikey, q + "_nsel").numel(), getattr(ikey, q + "_wsel").numel()]
+                            for q in "abc"}
+        ist, iwarm = {}, {}
+        ifirst_s, iproof = wall_s(torch, lambda: prove_gpu(ikey, wits[0], r=rs[0][0], s=rs[0][1], device=device,
+                                                          stages=ist))
+        iwarm_s, _ = wall_s(torch, lambda: prove_gpu(ikey, wits[0], r=rs[0][0], s=rs[0][1], device=device,
+                                                    stages=iwarm))
+        if proof_bytes(iproof) != proof_bytes(proof):
+            raise AssertionError("the proof under the zkey's inferred classes differs from the tagged key's")
+        log(f"flagship under the zkey's inferred classes {inferred_classes} (inferred in {infer_s:.2f} s): first "
+            f"{ifirst_s:.3f} s, warm {iwarm_s:.3f} s ("
+            + ", ".join(f"{k[2:]} {v:.4f}" for k, v in iwarm.items() if k.startswith("s_"))
+            + "); the same bytes as under the tagged classes")
+        del key, ikey, again, proofs, wits
+        torch.cuda.empty_cache()
+
+        dump(proof_to_json(proof), os.path.join(d, "want.proof.json"))
+        dump(public_to_json(pubs[0]), os.path.join(d, "want.public.json"))
+        for name in ("proof", "public"):
+            if not same_file(os.path.join(d, f"{name}.json"), os.path.join(d, f"want.{name}.json")):
+                raise AssertionError(f"the CLI's {name}.json differs from prove_gpu's on the demo email")
+        if steps.get("classes") != inferred_classes:
+            raise AssertionError(f"the CLI's key has the classes {steps.get('classes')}, {inferred_classes} expected")
+        verify_wall, vout = cli_subprocess(flags + ["verify", "--proof", os.path.join(d, "proof.json"),
+                                                    "--public", os.path.join(d, "public.json")])
+        if vout.returncode or vout.stdout.strip() != "OK":
+            raise AssertionError(f"`verify` exited {vout.returncode}: {vout.stdout!r}")
+        log(f"flagship CLI: the setup's files written in {files_s:.1f} s (zkey {zkey_bytes / 2**30:.3f} GiB); "
+            f"`prove --circuit venmo --demo` {prove_wall:.1f} s wall, peak RSS {prove_rss} GiB ({steps}; this "
+            f"process's host work beside it {host_s:.1f} s), its files equal to prove_gpu's; `verify` "
+            f"{verify_wall:.1f} s: OK")
+        line = {
+            "shape": "venmo 1024/6400: VenmoParams() built by zkp2p_tpu_torch.models.venmo, synthetic signed "
+                     "emails (make_venmo_email(make_test_key(1)))",
+            "counts": counts, "counts_equal_venmo": True, "build_s_beside_kernel_build": built["build_s"],
+            "build_rss_gib": built["rss_gib"],
+            "emails": [list(e) for e in FLAGSHIP_EMAILS], "inputs_s": inputs_s, "witness_s": witness_s,
+            "setup_s": setup_s, "qap_coo_s": secs["qap_coo"], "widths_array_s": secs["widths_array"],
+            "setup_stage_s": {k[2:]: v for k, v in stages.items()}, "setup_peak_device_gib": setup_peak,
+            "tagged_classes": tagged, "inferred_classes": inferred_classes, "infer_zkey_widths_s": infer_s,
+            "inferred_prove_s": ifirst_s, "inferred_warm_prove_s": iwarm_s,
+            "inferred_warm_stage_s": {k[2:]: v for k, v in iwarm.items() if k.startswith("s_")},
+            "inferred_same_bytes": True, "prove_s": prove_s,
+            "prove_stage_s": {k[2:]: v for k, v in pst.items() if k.startswith("s_")},
+            "warm_prove_s": warm_s, "warm_stage_s": {k[2:]: v for k, v in warm.items() if k.startswith("s_")},
+            "verify_s": verify_s, "verify": True, "changed_public_rejected": True, "same_bytes_again": True,
+            "batch": {"witnesses": n_wits, "chunk": BATCH_CHUNK, "s": batch_s,
+                      "proofs_per_s": n_wits / batch_s, "all_verify": True},
+            "cli": {"setup_files_s": files_s, "zkey_bytes": zkey_bytes, "prove_wall_s": prove_wall,
+                    "prove_steps": steps, "prove_peak_rss_gib_sampled": prove_rss,
+                    "host_work_beside_s": host_s, "files_equal_prove_gpu": True,
+                    "classes_equal_inferred": True, "verify_wall_s": verify_wall, "verify": "OK"},
+            "small": {"shape": list(SMALL_VENMO), "build_s": small_s, "setup_here_s": small_setup_s,
+                      "cli_setup_wall_s": small_wall, "cli_setup_peak_rss_gib_sampled": small_rss,
+                      "cli_setup_steps": small_steps, "files_equal": True},
+            "launches": {"setup": {k[3:]: v for k, v in setup_launches.items() if v},
+                         "prove": {k[3:]: v for k, v in prove_launches.items() if v},
+                         "batch": {k[3:]: v for k, v in batch_launches.items() if v}},
+        }
+        return line, setup_launches, prove_launches, batch_launches
+    finally:
+        for proc in started:  # a failed check leaves no subprocess behind
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(d, ignore_errors=True)
 
 
@@ -3212,7 +3579,7 @@ def batch_phase(torch, key, witness, ix, tables, jac_launches, device):
 
 
 def run(torch, device, peak_muls, sm_clock_hz):
-    """Phases 1-7 on `device`; returns what main prints."""
+    """Phases 1-8 on `device`; returns what main prints."""
     from zkp2p_tpu_torch.ops import cuda_build
     from zkp2p_tpu_torch.ops.cuda_msm_window import chunk_steps
     from zkp2p_tpu_torch.ops.msm import default_lanes
@@ -3221,10 +3588,18 @@ def run(torch, device, peak_muls, sm_clock_hz):
     from zkp2p_tpu_torch.prover.vector import load_vector
     from zkp2p_tpu_torch.snark.groth16 import proof_bytes
 
-    # phase 1
+    # phase 1, and phase 8's circuit built beside it
     t0 = time.perf_counter()
-    libs = cuda_build.build_all()
-    build_s = time.perf_counter() - t0
+    with ThreadPoolExecutor(1) as pool:
+        flagship_build = pool.submit(build_flagship)
+        libs = cuda_build.build_all()
+        build_s = time.perf_counter() - t0
+        built = flagship_build.result()
+    # its tens of millions of objects live to the end: no collection scans them
+    gc.freeze()
+    log(f"flagship: VenmoParams() built by the port in {built['build_s']:.1f} s beside the kernel build: "
+        f"{built['cs'].num_constraints} constraints, {built['cs'].num_wires} wires; RSS "
+        f"{built['rss_gib']['before']:.2f} -> {built['rss_gib']['after']:.2f} GiB")
     for stem, path in libs.items():
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -3361,6 +3736,13 @@ def run(torch, device, peak_muls, sm_clock_hz):
     del cli_files
     torch.cuda.empty_cache()
     log(f"phase 7 (the CLI at full size): {time.perf_counter() - t0:.1f} s")
+
+    # phase 8
+    t0 = time.perf_counter()
+    flagship, fl_setup, fl_prove, fl_batch = flagship_phase(torch, built, device)
+    del built
+    torch.cuda.empty_cache()
+    log(f"phase 8 (the flagship circuit): {time.perf_counter() - t0:.1f} s")
     # last, so that no timed proof runs after the profiler
     profile = profile_proof(torch, lambda: prove_gpu(
         key, witness, r=rs.randrange(1, 1 << 250), s=rs.randrange(1, 1 << 250), device=device), "jacobian")
@@ -3368,13 +3750,16 @@ def run(torch, device, peak_muls, sm_clock_hz):
         key, witness, r=rs.randrange(1, 1 << 250), s=rs.randrange(1, 1 << 250), device=device, **AFFINE_ARMS),
         "affine")
     by_path = {"jacobian": jac_launches, "affine": aff_launches, "batch": batch_launches, "setup": setup_launches,
-               "cli_prove": cli_launches, "cli_batch": cli_batch_launches}
+               "cli_prove": cli_launches, "cli_batch": cli_batch_launches, "flagship_setup": fl_setup,
+               "flagship_prove": fl_prove, "flagship_batch": fl_batch}
     for path, names in PATH_KERNELS.items():
         missing = [k for k in names if by_path[path]["zk_" + k] == 0]
         if missing:
             raise AssertionError(f"launchers never launched on the {path} path: {missing}")
     for path, names in (("jacobian", NOT_ON_JACOBIAN), ("affine", NOT_ON_AFFINE), ("batch", NOT_ON_JACOBIAN),
-                        ("setup", OFF_PATH), ("cli_prove", NOT_ON_JACOBIAN), ("cli_batch", NOT_ON_JACOBIAN)):
+                        ("setup", OFF_PATH), ("cli_prove", NOT_ON_JACOBIAN), ("cli_batch", NOT_ON_JACOBIAN),
+                        ("flagship_setup", OFF_PATH), ("flagship_prove", NOT_ON_JACOBIAN),
+                        ("flagship_batch", NOT_ON_JACOBIAN)):
         stray = [k for k in names if by_path[path]["zk_" + k]]
         if stray:
             raise AssertionError(f"launchers launched on the {path} path, which no longer runs them: {stray}")
@@ -3426,7 +3811,7 @@ def run(torch, device, peak_muls, sm_clock_hz):
              "msm_b2_same_run": msm_b2_same_run, "proof_same_run": proof_same_run,
              "affine_msm_same_run": affine_msm_same_run, "affine_same_run": affine_same_run,
              "real_size_batch": real_batch, "batch_same_run": batch_same_run, "setup_vector": setup_vector,
-             "real_size_setup": real_setup, "cli_real_size": cli_line}
+             "real_size_setup": real_setup, "cli_real_size": cli_line, "flagship": flagship}
     return lines
 
 

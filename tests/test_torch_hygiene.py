@@ -129,23 +129,30 @@ def test_key_entry_points_without_cuda_raise(monkeypatch, tmp_path):
 
 
 def test_cli_without_cuda_raises_before_reading_a_file(monkeypatch, tmp_path):
-    """prove and batch without --device cpu (or with --device cuda) raise
-    on a machine with no CUDA device before they read a file."""
+    """setup, prove and batch without --device cpu (or with --device
+    cuda) raise on a machine with no CUDA device before they build a
+    circuit or read a file."""
     from zkp2p_tpu_torch.pipeline import cli
 
     def no_read(*a, **k):
-        raise AssertionError("read a file")
+        raise AssertionError("read a file or built a circuit")
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(cli, "read_zkey", no_read)
     monkeypatch.setattr(cli, "read_wtns", no_read)
+    monkeypatch.setattr(cli, "_build_circuit", no_read)
     (tmp_path / "w.wtns").write_bytes(b"wtns")
+    (tmp_path / "in").mkdir()
+    (tmp_path / "in" / "m.json").write_text("{}")
     files = ["--zkey", str(tmp_path / "k.zkey"), "--wtns", str(tmp_path / "w.wtns")]
+    toy = ["--build-dir", str(tmp_path / "build"), "--circuit", "toy"]
     for argv in (["prove"] + files, ["prove", "--device", "cuda"] + files,
-                 ["batch", "--indir", str(tmp_path), "--outdir", str(tmp_path / "out")]):
+                 ["batch", "--indir", str(tmp_path), "--outdir", str(tmp_path / "out")],
+                 toy + ["setup"], toy + ["prove", "--message", "57"],
+                 toy + ["batch", "--indir", str(tmp_path / "in"), "--outdir", str(tmp_path / "out")]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(argv)
-    assert not (tmp_path / "out").exists()
+    assert not (tmp_path / "out").exists() and not (tmp_path / "build").exists()
     out = subprocess.run([sys.executable, "-m", "zkp2p_tpu_torch", "prove"] + files, cwd=ROOT, capture_output=True,
                          text=True, timeout=300, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode != 0 and "no CUDA device" in out.stderr and out.stdout == ""

@@ -294,6 +294,43 @@ def _points_payload(arrs: AffArrays) -> np.ndarray:
     return np.ascontiguousarray(np.stack(arrs, axis=1).astype("<u2"))
 
 
+def zkey_from_key(key, vk: VerifyingKey) -> ZkeyData:
+    """The ZkeyData of a key set up by ``setup_device`` /
+    ``setup_from_rows`` (duck-typed over its tensors, on any device): the
+    a and h query points as they are, b1 / b2 / c scattered back over
+    every wire from b_sel / c_sel (the pruned wires at infinity), the
+    coefficient records from the key's A and B rows, A's first, in the
+    key's order (the QAP rows' order, the binding rows included).  For a
+    constraint system with nonempty A and B, written by
+    ``write_zkey_data`` it is the reference's ``write_zkey(path, pk, vk,
+    qap_rows(cs))`` of the same seed, byte for byte."""
+    n = key.n_wires
+
+    def host(t):
+        return t.cpu().numpy()
+
+    def scattered(bases, sel):
+        out = []
+        for c in bases:
+            full = np.zeros((n,) + tuple(c.shape[1:]), dtype=np.int32)
+            full[host(sel)] = host(c)
+            out.append(full)
+        return tuple(out)
+
+    c = scattered(key.c_bases, key.c_sel)
+    na, nb = key.a_row.numel(), key.b_row.numel()
+    return ZkeyData(
+        n_vars=n, n_public=key.n_public, domain_size=1 << key.log_m, alpha_1=key.alpha_1, beta_1=key.beta_1,
+        beta_2=key.beta_2, gamma_2=vk.gamma_2, delta_1=key.delta_1, delta_2=key.delta_2, ic=list(vk.ic),
+        coeff_matrix=np.concatenate([np.zeros(na, np.int64), np.ones(nb, np.int64)]),
+        coeff_row=np.concatenate([host(key.a_row), host(key.b_row)]),
+        coeff_wire=np.concatenate([host(key.a_wire), host(key.b_wire)]),
+        coeff_value=np.concatenate([host(key.a_coeff), host(key.b_coeff)]),
+        a_query=tuple(host(x) for x in key.a_bases), b1_query=scattered(key.b1_bases, key.b_sel),
+        b2_query=scattered(key.b2_bases, key.b_sel), c_query=tuple(x[key.n_public + 1:] for x in c),
+        h_query=tuple(host(x) for x in key.h_bases))
+
+
 def write_zkey_data(path: str, z: ZkeyData) -> None:
     """Write `z` as a .zkey (the inverse of ``read_zkey``): the header and
     IC points, the coefficient records in their order, the query

@@ -1,47 +1,166 @@
-"""The port's command line: the snarkjs / rapidsnark drop-in prover on
-one NVIDIA GPU (after the reference's ``pipeline/cli.py``).
+"""The port's command line on one NVIDIA GPU (after the reference's
+``pipeline/cli.py``): the dev setup of a circuit and the snarkjs /
+rapidsnark drop-in prover.
 
-  prove    a .zkey and a circom .wtns in, proof.json and public.json out
-           (``snarkjs groth16 prove`` / rapidsnark), through ``prove_gpu``
+  setup    build the circuit (--circuit venmo | email_verify | sha256 |
+           toy, sized by --max-header / --max-body), audit it (the
+           admission gate; --skip-audit bypasses it), run the development
+           setup on the card (``setup_device``) and write
+           <build-dir>/circuit_final.zkey, verification_key.json and
+           verifier.sol
+  prove    proof.json and public.json, through ``prove_gpu``: with
+           --wtns, a .zkey and a circom .wtns in (no circuit is built);
+           without, the circuit's witness from --eml (venmo,
+           email_verify; the synthetic signed email when none is given)
+           or --message (sha256, toy)
   verify   proof.json and public.json against
            <build-dir>/verification_key.json; prints OK (exit 0) or
            INVALID (exit 1).  Runs on the host, as snarkjs's does.
-  batch    every *.wtns of a directory against one .zkey, through
-           ``prove_gpu_batch``; <name>.proof.json and <name>.public.json
+  batch    a directory of inputs against one .zkey, through
+           ``prove_gpu_batch``; <name>.proof.json and <name>.public.json.
+           It takes the directory's *.wtns files when it holds any (no
+           circuit is built), else the inputs of --circuit's type: *.eml
+           for venmo and email_verify, *.json ({"message": ...}) for
+           sha256 and toy.
 
+    python -m zkp2p_tpu_torch --circuit venmo --max-header 1024 --max-body 6400 setup
+    python -m zkp2p_tpu_torch --circuit venmo --max-header 1024 --max-body 6400 prove --eml receipt.eml
     python -m zkp2p_tpu_torch prove --zkey build/circuit_final.zkey --wtns witness.wtns
     python -m zkp2p_tpu_torch verify
-    python -m zkp2p_tpu_torch batch --indir wtns/ --outdir proofs/
+    python -m zkp2p_tpu_torch batch --indir inputs/ --outdir proofs/
 
-``prove`` and ``batch`` run on the CUDA card (``--device cuda``, the
-default) and raise before reading a file when there is none; ``--device
-cpu`` runs the plain versions of the kernels.  The port builds no
-circuit, so the witness comes as a .wtns: its values are proved as
-their residues mod r, and public.json carries them as the file holds
-them, as the reference does.  ``--trace FILE`` appends the run's spans
-and its manifest (device, versions, gate arms and their digest) to FILE,
-so that a caller reads them from outside the process.
+``setup``, ``prove`` and ``batch`` run on the CUDA card (``--device
+cuda``, the default) and raise before they build a circuit or read a
+file when there is none; ``--device cpu`` runs the plain versions of the
+kernels.  A .wtns's values are proved as their residues mod r, and
+public.json carries them as the file holds them, as the reference does.
+``--trace FILE`` appends the run's spans and its manifest (device,
+versions, gate arms and their digest) to FILE, so that a caller reads
+them from outside the process.
 """
 
 from __future__ import annotations
 
 import argparse
 import glob
+import json
 import os
+import resource
 import sys
 import time
 
+from ..field.bn254 import R
 from ..formats.circom_bin import read_wtns, reduce_rows, row_ints
-from ..formats.proof_json import dump, load, proof_from_json, proof_to_json, public_to_json, vkey_from_json
-from ..formats.zkey import read_zkey
+from ..formats.proof_json import (dump, load, proof_from_json, proof_to_json, public_to_json, vkey_from_json,
+                                  vkey_to_json)
+from ..formats.solidity import export_verifier
+from ..formats.zkey import read_zkey, write_zkey_data, zkey_from_key
 from ..prover.groth16_gpu import device_pk_from_zkey, prove_gpu, prove_gpu_batch
-from ..snark.groth16 import verify
+from ..prover.setup_device import setup_device
+from ..snark.groth16 import domain_size_for, verify
 from ..utils.device import resolve_device
 from ..utils.trace import dump_trace
 
 
 def _log(*a):
     print("[zkp2p-tpu-torch]", *a, file=sys.stderr, flush=True)
+
+
+def _peak_rss():
+    """(GiB, source) of this process's peak resident memory: VmHWM where
+    /proc has it, else ru_maxrss, which also counts the peak of a process
+    that forked this one (a shell's is small)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmHWM:"):
+                    return int(line.split()[1]) / 2**20, "VmHWM"  # kB
+    except OSError:
+        pass
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20, "ru_maxrss"  # KiB on Linux
+
+
+def _build_circuit(name: str, header: int, body: int):
+    """(constraint system, what the circuit's witness builder needs)."""
+    if name == "venmo":
+        from ..models.venmo import VenmoParams, build_venmo_circuit
+
+        params = VenmoParams(max_header_bytes=header, max_body_bytes=body)
+        cs, lay = build_venmo_circuit(params)
+        return cs, (params, lay)
+    if name == "email_verify":
+        from ..models.email_verify import EmailVerifyParams, build_email_verify
+
+        params = EmailVerifyParams(max_header_bytes=header, max_body_bytes=body)
+        cs, lay = build_email_verify(params)
+        return cs, (params, lay)
+    if name == "sha256":
+        from ..gadgets import core, sha256
+        from ..snark.r1cs import ConstraintSystem
+
+        cs = ConstraintSystem("sha256")
+        msg = cs.new_wires(header, "msg")
+        cs.mark_input(msg)
+        bits = core.assert_bytes(cs, msg)
+        sha256.sha256_blocks(cs, bits, None)
+        return cs, (None, msg)
+    if name == "toy":
+        # smoke-test circuit: public out = (x*y)^2 over two byte inputs
+        from ..snark.r1cs import LC, ConstraintSystem
+
+        cs = ConstraintSystem("toy")
+        out = cs.new_public("out")
+        x = cs.new_wire("x")
+        y = cs.new_wire("y")
+        z = cs.new_wire("z")
+        cs.mark_input([x, y])
+        cs.enforce(LC.of(x), LC.of(y), LC.of(z), "mul")
+        cs.enforce(LC.of(z), LC.of(z), LC.of(out), "sq")
+        cs.compute(z, lambda a, b: a * b % R, [x, y])
+        return cs, (None, [x, y, out])
+    raise SystemExit(f"unknown circuit {name!r} (have: venmo, email_verify, sha256, toy)")
+
+
+def _circuit(args):
+    t0 = time.perf_counter()
+    _log(f"building circuit {args.circuit} ...")
+    cs, meta = _build_circuit(args.circuit, args.max_header, args.max_body)
+    _log(f"constraints={cs.num_constraints} wires={cs.num_wires} ({time.perf_counter() - t0:.2f}s)")
+    return cs, meta
+
+
+def cmd_setup(args):
+    dev = resolve_device(args.device)
+    os.makedirs(args.build_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    cs, _ = _circuit(args)
+    if not args.skip_audit:
+        # the registry admission gate: no key material is cut for a
+        # circuit with unwaived soundness findings.  Registered names
+        # carry their declared on-chain public layout into the
+        # public-layout rule.
+        from ..models.registry import SPECS
+        from ..snark.analysis import audit_circuit, require_clean
+
+        spec = SPECS.get(args.circuit)
+        rep = require_clean(audit_circuit(
+            cs,
+            name=f"{args.circuit}_{args.max_header}_{args.max_body}",
+            declared_n_public=spec.n_public if spec else None,
+        ))
+        _log(
+            f"soundness audit clean: 0 unwaived / {rep['waived']} waived "
+            f"findings in {rep['audit_s']}s ({rep['source']}, digest {rep['digest']})"
+        )
+    _log(f"running development setup on {dev} (production: import a ceremony zkey instead)")
+    t1 = time.perf_counter()
+    key, vk = setup_device(cs, seed=args.seed, device=dev)
+    _log(f"setup on {dev} in {time.perf_counter() - t1:.2f}s")
+    write_zkey_data(os.path.join(args.build_dir, "circuit_final.zkey"), zkey_from_key(key, vk))
+    dump(vkey_to_json(vk), os.path.join(args.build_dir, "verification_key.json"))
+    with open(os.path.join(args.build_dir, "verifier.sol"), "w") as f:
+        f.write(export_verifier(vk))
+    _log(f"setup done in {time.perf_counter() - t0:.1f}s -> {args.build_dir}/")
 
 
 def _load_zkey(args):
@@ -65,21 +184,93 @@ def _read_witness(path: str, zk):
     return reduce_rows(raw), row_ints(raw[1 : zk.n_public + 1])
 
 
+def _check_zkey_matches(zk, cs):
+    """Fail fast on a key/circuit mismatch."""
+    m = domain_size_for(cs.num_constraints + cs.num_public + 1)
+    if zk.n_vars != cs.num_wires or zk.domain_size != m:
+        raise SystemExit(
+            f"zkey does not match circuit: zkey has {zk.n_vars} wires / domain "
+            f"{zk.domain_size}, circuit has {cs.num_wires} / {m} "
+            "(check --circuit/--max-header/--max-body against the setup)"
+        )
+
+
+def _witness_for(args, cs, meta, source=None):
+    """(witness, public signals) for one input.  `source` is an input
+    file path (.eml or .json); None falls back to --eml / --message or
+    the synthetic signed email."""
+    params, lay = meta
+    if args.circuit == "venmo":
+        from ..inputs.email import email_from_eml, generate_inputs, make_test_key, make_venmo_email
+
+        src = source or getattr(args, "eml", None)
+        if src:
+            with open(src, "rb") as f:
+                email = email_from_eml(f.read())  # unknown keys raise
+            modulus = email.modulus
+        else:
+            key = make_test_key(1)
+            email = make_venmo_email(key)
+            modulus = key.n
+        inputs = generate_inputs(email, modulus, args.order_id, args.claim_id, params, lay)
+        return cs.witness(inputs.public_signals, inputs.seed), inputs.public_signals
+    if args.circuit == "email_verify":
+        from ..inputs.email import (email_verify_from_eml, generate_email_verify_inputs, make_test_key,
+                                    make_twitter_email)
+
+        src = source or getattr(args, "eml", None)
+        if src:
+            with open(src, "rb") as f:
+                email, modulus = email_verify_from_eml(f.read())  # unknown keys raise
+        else:
+            key = make_test_key(1)
+            email, modulus = make_twitter_email(key), key.n
+        inputs = generate_email_verify_inputs(email, modulus, params, lay)
+        return cs.witness(inputs.public_signals, inputs.seed), inputs.public_signals
+    msg = args.message
+    if source:
+        with open(source) as f:
+            msg = json.load(f)["message"]
+    if args.circuit == "toy":
+        data = (msg or "35").encode().ljust(2, b"\x00")[:2]
+        x_v, y_v = data[0], data[1]
+        out_v = pow(x_v * y_v, 2, R)
+        x, y, _ = lay
+        return cs.witness([out_v], {x: x_v, y: y_v}), [out_v]
+    from ..inputs.sha_host import sha256_pad
+
+    padded, _ = sha256_pad((msg or "zkp2p").encode(), len(lay))
+    return cs.witness([], {w: b for w, b in zip(lay, padded)}), []
+
+
 def _key(args, zk, dev):
     t0 = time.perf_counter()
     dpk = device_pk_from_zkey(zk, infer_widths=not args.no_infer_widths, device=dev)
-    _log(f"key on {dev} in {time.perf_counter() - t0:.2f}s")
+    classes = " ".join(f"{q} {getattr(dpk, q + '_nsel').numel()}/{getattr(dpk, q + '_wsel').numel()}" for q in "abc")
+    _log(f"key on {dev} in {time.perf_counter() - t0:.2f}s (narrow/wide lanes: {classes})")
     return dpk
 
 
 def cmd_prove(args):
     dev = resolve_device(args.device)
-    t0 = time.perf_counter()
-    zk = _load_zkey(args)
-    w, pub = _read_witness(args.wtns, zk)
-    _log(f"read the zkey and the witness in {time.perf_counter() - t0:.2f}s")
+    if args.wtns:
+        t0 = time.perf_counter()
+        zk = _load_zkey(args)
+        w, pub = _read_witness(args.wtns, zk)
+        _log(f"read the zkey and the witness in {time.perf_counter() - t0:.2f}s")
+    else:
+        cs, meta = _circuit(args)
+        t0 = time.perf_counter()
+        zk = _load_zkey(args)
+        _log(f"read the zkey in {time.perf_counter() - t0:.2f}s")
+        _check_zkey_matches(zk, cs)
     dpk = _key(args, zk, dev)
     del zk
+    if not args.wtns:
+        t0 = time.perf_counter()
+        w, pub = _witness_for(args, cs, meta)
+        pub = pub or w[1 : cs.num_public + 1]
+        _log(f"witness in {time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
     proof = prove_gpu(dpk, w, device=dev)
     _log(f"proved in {time.perf_counter() - t0:.2f}s (incl. the first call's kernel loads)")
@@ -100,14 +291,27 @@ def cmd_verify(args):
 def cmd_batch(args):
     dev = resolve_device(args.device)
     files = sorted(glob.glob(os.path.join(args.indir, "*.wtns")))
-    if not files:
-        raise SystemExit(f"no *.wtns inputs in {args.indir}")
-    zk = _load_zkey(args)
     wits, pubs = [], []
-    for fp in files:
-        w, pub = _read_witness(fp, zk)
-        wits.append(w)
-        pubs.append(pub)
+    if files:
+        zk = _load_zkey(args)
+        for fp in files:
+            w, pub = _read_witness(fp, zk)
+            wits.append(w)
+            pubs.append(pub)
+    else:
+        ext = "*.eml" if args.circuit in ("venmo", "email_verify") else "*.json"
+        files = sorted(glob.glob(os.path.join(args.indir, ext)))
+        if not files:
+            raise SystemExit(f"no *.wtns inputs in {args.indir} (nor {ext} ones of --circuit {args.circuit})")
+        cs, meta = _circuit(args)
+        zk = _load_zkey(args)
+        _check_zkey_matches(zk, cs)
+        t0 = time.perf_counter()
+        for fp in files:
+            w, pub = _witness_for(args, cs, meta, source=fp)
+            wits.append(w)
+            pubs.append(pub)
+        _log(f"{len(wits)} witnesses in {time.perf_counter() - t0:.2f}s")
     dpk = _key(args, zk, dev)
     del zk
     t0 = time.perf_counter()
@@ -126,21 +330,41 @@ def main(argv=None):
     ap = argparse.ArgumentParser("zkp2p-tpu-torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--build-dir", default="build",
-                    help="where verify reads verification_key.json and prove the default zkey")
+                    help="where setup writes its files, verify reads verification_key.json and prove the "
+                         "default zkey")
+    ap.add_argument("--circuit", default="sha256", help="venmo, email_verify, sha256 (default) or toy")
+    ap.add_argument("--max-header", type=int, default=256)
+    ap.add_argument("--max-body", type=int, default=192)
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    def device_arg(s):
+        s.add_argument("--device", default="cuda", help="cuda (default) or cpu (the kernels' plain versions)")
 
     def zkey_args(s):
         s.add_argument("--zkey", help="zkey path or chunk glob (default: BUILD_DIR/circuit_final.zkey)")
         s.add_argument("--no-infer-widths", action="store_true",
                        help="disable the zkey bit-constraint width inference (use when the circuit "
                             "contains x*(x-1)=y rows)")
-        s.add_argument("--device", default="cuda", help="cuda (default) or cpu (the kernels' plain versions)")
+        device_arg(s)
         s.add_argument("--trace", help="append this run's trace spans (gpu/prove, gpu/prove_batch), after a "
                                        "manifest line, to this JSON-lines file")
+        s.add_argument("--order-id", type=int, default=1)
+        s.add_argument("--claim-id", type=int, default=0)
 
-    s = sub.add_parser("prove", help="prove one .wtns against a .zkey")
+    s = sub.add_parser("setup", help="build the circuit, set it up on the card, write the zkey, vkey and "
+                                     "verifier.sol")
+    s.add_argument("--skip-audit", action="store_true",
+                   help="bypass the circuit soundness audit (admission gate)")
+    s.add_argument("--seed", default="zkp2p-tpu-dev")
+    device_arg(s)
+    s.set_defaults(fn=cmd_setup)
+
+    s = sub.add_parser("prove", help="prove one input (a .wtns, or the circuit's input) against a .zkey")
     zkey_args(s)
-    s.add_argument("--wtns", required=True, help="circom witness file")
+    s.add_argument("--wtns", help="circom witness file (no circuit is built)")
+    s.add_argument("--eml", help="email file (venmo / email_verify circuits)")
+    s.add_argument("--demo", action="store_true", help="use the synthetic signed email")
+    s.add_argument("--message", help="message (sha256, toy circuits)")
     s.add_argument("--proof", default="proof.json")
     s.add_argument("--public", default="public.json")
     s.set_defaults(fn=cmd_prove)
@@ -150,11 +374,12 @@ def main(argv=None):
     s.add_argument("--public", default="public.json")
     s.set_defaults(fn=cmd_verify)
 
-    s = sub.add_parser("batch", help="prove every *.wtns of a directory as one batch")
+    s = sub.add_parser("batch", help="prove every input of a directory as one batch")
     zkey_args(s)
     s.add_argument("--indir", required=True)
     s.add_argument("--outdir", required=True)
     s.add_argument("--chunk", type=int, default=4, help="witnesses a device pass (0: all in one)")
+    s.add_argument("--message", help=argparse.SUPPRESS)
     s.set_defaults(fn=cmd_batch)
 
     args = ap.parse_args(argv)
@@ -163,3 +388,5 @@ def main(argv=None):
     finally:
         if getattr(args, "trace", None):
             dump_trace(args.trace)
+    peak, source = _peak_rss()
+    _log(f"peak host RSS {peak:.2f} GiB ({source})")

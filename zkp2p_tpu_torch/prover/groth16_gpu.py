@@ -44,6 +44,7 @@ from __future__ import annotations
 import secrets
 import time
 from dataclasses import dataclass, field
+from itertools import chain
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -188,8 +189,9 @@ def widths_array(cs) -> np.ndarray:
     """cs.wire_width (wire -> bits) as a dense per-wire bound array, 254 =
     unbounded.  Duck-typed: reads cs.num_wires and cs.wire_width."""
     widths = np.full(cs.num_wires, 254, dtype=np.int32)
-    for w, bits in getattr(cs, "wire_width", {}).items():
-        widths[w] = bits
+    tags = getattr(cs, "wire_width", {})
+    if tags:
+        widths[np.fromiter(tags.keys(), np.int64, len(tags))] = np.fromiter(tags.values(), np.int32, len(tags))
     return widths
 
 
@@ -213,16 +215,19 @@ def _prune_sel(flags) -> np.ndarray:
 def _rows_to_arrays(rows: Sequence[dict], m: int):
     """Sparse QAP rows (wire -> coefficient dicts) -> (coefficients as
     Montgomery limbs, wire ids, row ids), row by row in each dict's
-    order; an all-zero matrix is one zero coefficient in row m - 1."""
-    vals, wires, row_ids = [], [], []
-    for j, terms in enumerate(rows):
-        for wire, coeff in terms.items():
-            vals.append(coeff % R)
-            wires.append(wire)
-            row_ids.append(j)
-    if not vals:
-        vals, wires, row_ids = [0], [0], [m - 1]
-    return mont_limbs(vals, R), np.array(wires, dtype=np.int32), np.array(row_ids, dtype=np.int32)
+    order; an all-zero matrix is one zero coefficient in row m - 1.  Each
+    distinct coefficient is converted once and gathered (a circuit's are
+    mostly +-1 and powers of two)."""
+    lens = np.fromiter(map(len, rows), np.int64, len(rows))
+    total = int(lens.sum())
+    if not total:
+        return mont_limbs([0], R), np.zeros(1, dtype=np.int32), np.array([m - 1], dtype=np.int32)
+    distinct: Dict[int, int] = {}
+    code = distinct.setdefault
+    codes = np.array([code(c, len(distinct)) for c in chain.from_iterable(t.values() for t in rows)], np.int64)
+    table = mont_limbs([c % R for c in distinct], R)
+    return (table[codes], np.fromiter(chain.from_iterable(rows), np.int32, total),
+            np.repeat(np.arange(len(rows), dtype=np.int32), lens))
 
 
 def _selections(widths, n_wires: int, b_sel: np.ndarray, c_sel: np.ndarray) -> Dict[str, np.ndarray]:
@@ -403,8 +408,15 @@ def _check_inferred_widths(dpk: DeviceProvingKey, witness, w_std: Optional[np.nd
 
 
 def _as_u64(witness) -> np.ndarray:
-    """A host witness as its (n, 4) u64 rows (ints reduced mod R first)."""
-    return witness if _is_u64_witness(witness) else scalars_to_u64([int(w) % R for w in witness])
+    """A host witness as its (n, 4) u64 rows: the rows themselves, the
+    rows a ``ConstraintSystem`` witness carries (its ``u64``, reduced
+    when it was built), or the ints reduced mod R and packed."""
+    if _is_u64_witness(witness):
+        return witness
+    rows = getattr(witness, "u64", None)
+    if _is_u64_witness(rows) and len(rows) == len(witness):
+        return rows
+    return scalars_to_u64([int(w) % R for w in witness])
 
 
 def witness_to_device(witness, device) -> torch.Tensor:
