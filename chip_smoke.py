@@ -11,13 +11,14 @@ and prints no result line):
    set-up; beside it, in a thread, phase 8's circuit (VenmoParams(),
    1024/6400) by the port's builder, timed, with this process's RSS
    before and after.
-2. Kernels against plain: each of the twenty-five launchers (K1
+2. Kernels against plain: each of the twenty-seven launchers (K1
    mont_mul; K2 add, K3 add_mixed, K4 double for G1 and G2; K5 mont_pow;
    K6/K8 the G1 and G2 window tables, K7/K9 the G1 and G2 window
    accumulates; K10/K11 the G1 and G2 Horner folds; K12 the NTT pass;
    K13 the CSR sparse matvec over Fr; K14 the signed digit recode; K15
    batch_inverse and jac_to_affine; K16 the G1 and G2 affine add and
-   affine accumulate; K17 the G1 and G2 fixed-base batch) on
+   affine accumulate; K17 the G1 and G2 fixed-base batch; K18 the G1
+   and G2 lane tree) on
    random canonical inputs with the special cases (zero, one, p-1; P+P,
    P+(-P), infinity, the (0, 0) affine sentinel; for K7/K9 also acc
    equal to its entry and to its negation, and e = 16 digits) at batches
@@ -93,13 +94,24 @@ and prints no result line):
    the bucket MSM at w = 16 through the grouped planes, held bitwise
    against the old routes (_affine_steps; the bucket a plane at a time)
    and against host discrete logs.
-   K17 (the G1 and G2 fixed-base batch of the setup) at 1, 257 and 2^20
-   scalars with 0, 1, 2, r-1, r-2, 2^8k and scalars with runs of zero
-   windows, held bitwise against fixed_base_plain (over the first 2^16)
-   and a sample against the host curve; then at the setup's two launches
-   (the a, b1, c and h queries together in G1: 19,825,624 scalars; b2 in
-   G2: 1,603,487) and at each G1 query's size, timed with its bound (one
-   mixed add a nonzero window) and its plain version, held bitwise.
+   K17 (the G1 and G2 fixed-base batch of the setup, a signed 8-bit
+   comb) at 1, 257 and 2^20 scalars with 0, 1, 2, r-1, r-2, 2^8k,
+   scalars with runs of zero windows and the signed digits' boundaries
+   (windows 0x7F, 0x80, 0x81, 0xFF alone and in runs, a run of 0xFF
+   carrying into the top window), held bitwise against fixed_base_plain
+   (over the first 2^16) and a sample against the host curve; then at
+   the setup's two launches (the a, b1, c and h queries together in G1:
+   19,825,624 scalars; b2 in G2: 1,603,487) and at each G1 query's size,
+   timed with its bound (one mixed add a nonzero signed digit) and its
+   plain version, held bitwise.
+   K18 (the G1 and G2 lane tree) at (batch, lanes) (1, 1), (1, 2), (1,
+   3), (1, 17), (4, 17), (3, 257), (2, 600) and at each tree the paths
+   give it (G1: the h MSM's 4,096 lanes, the narrow classes' 16,384, a's
+   wide 2,088, b1's wide 572; G2: b2's narrow 4,096 and wide 572), each
+   at a batch of 1 and of 4, with a lane at infinity, P + P and P + (-P),
+   held bitwise against the K2 loop it replaced (msm.tree_reduce_steps)
+   and its plain version; at the paths' trees K18 and the K2 loop timed
+   in turns, beside K18's operation bound and chain floor.
 3. Test vector: prove_gpu on zkp2p_tpu_torch/data/port_vector.npz gives
    the committed proof byte for byte, with the default (Jacobian) MSM
    arms and with the affine ones (msm_affine=True, msm_h="bucket").
@@ -127,9 +139,9 @@ and prints no result line):
    turns (step loops, kernels, kernels, step loops: the accumulate by
    _accumulate_steps and the fold by _fold_steps, or by K6/K7 and K10),
    the four results held bitwise equal, and one more through the kernels
-   split into its accumulate, Horner fold and lane tree, the fold timed
-   both ways in turns on the same partials (_fold_steps, K10, K10,
-   _fold_steps; bitwise equal); the b2 MSM at real size (its narrow and
+   split into its accumulate, Horner fold and lane tree (K18, then the
+   K2 loop it replaced), the fold timed both ways in turns on the same
+   partials (_fold_steps, K10, K10, _fold_steps; bitwise equal); the b2 MSM at real size (its narrow and
    wide classes and their join) the same way (step loops, K8/K9 and K11,
    twice, step loops), and its wide fold both ways in turns (_fold_steps,
    K11, K11, _fold_steps); then four proofs with the same r and s, their
@@ -142,7 +154,8 @@ and prints no result line):
    witness, prove_gpu_batch again; all proof bytes equal, each batch
    proof's accumulators equal to the looped proof's and its five MSMs
    checked against their discrete-log values; launches a chunk: the
-   tables, accumulates, folds and lane trees (K2, K6-K11) as many as one
+   tables, accumulates, folds, lane trees and joins (K2, K6-K11, K18) as
+   many as one
    proof's, K13 and K14 2, K12 6; the peak device memory of one chunk of
    1, 2 and 4 witnesses, and the key's resident bytes.
 5. Real size, affine path: the same key and witness, one warm-up and
@@ -230,14 +243,16 @@ The launch counts are reset just before the first timed proof of each
 path and read just after it (phase 8: just before and after its setup,
 its first proof and its batch, checked as the setup, Jacobian and batch
 paths); every kernel of a path must have launched in
-its run (on the Jacobian path K1, K2 and K6-K14; on the affine path K1,
-K2, K6, K8, K10-K14, K15's jac_to_affine, K16's G1 add and both
+its run (on the Jacobian path K1, K2, K6-K14 and K18; on the affine path
+K1, K2, K6, K8, K10-K14, K18, K15's jac_to_affine, K16's G1 add and both
 accumulates; in the setup of phase 6, counted from just before it to just
 after it, K1, K13 (once a matrix, twice for one with a long row), K15's
 batch_inverse and jac_to_affine and K17), the launchers of OFF_PATH (K3, K4, K5, K16's G2 add) on no path and
 K15's batch_inverse and K17 on no proof's path; K12 launches once a pass of the
 iNTT and of the NTT on each path, K13 and K14 twice a proof on each path,
-and K1 at most 5 times a proof on each path (printed); on the batch path,
+and K1 at most 5 times a proof on each path (printed); a Jacobian proof
+(phase 4's and the flagship's) launches K18 once a tree, 7 G1 and 2 G2,
+and K2 only for its 3 G1 and 1 G2 joins of the classes; on the batch path,
 besides the per-chunk counts above, nothing of OFF_PATH or the affine
 path; in phase 7 the CLI's in-process prove as the Jacobian path and
 prove_gpu_batch on the key it imported as the batch path.
@@ -246,7 +261,7 @@ Before the last line it prints the card's name and power limit, a
 profile each of one more Jacobian and one more affine proof, run after
 every timed proof (the device's busy share and the ops with the most
 device time, from torch.profiler), one JSON line with the
-twenty-five kernels (checks, launches on each path, times and bounds),
+twenty-seven kernels (checks, launches on each path, times and bounds),
 one each with the two paths' per-stage times, launches and peak device
 memory, and one each with the same-run comparisons of the witness side
 (witness_same_run), the H ladder (ntt_same_run), the h MSM, the b2 MSM,
@@ -353,9 +368,14 @@ REPLACES = {
     "g2_affine_accumulate": "zkp2p_tpu/ops/pallas_mont.py:201 (XLA around it: zkp2p_tpu/ops/msm_affine.py:221)",
     "g1_fixed_base": "csrc/zkp2p_native.cpp:904 (native C++ g1_fixed_base_batch_mont, no Pallas row)",
     "g2_fixed_base": "csrc/zkp2p_native.cpp:973 (native C++ g2_fixed_base_batch_mont, no Pallas row)",
+    "g1_lane_tree": "zkp2p_tpu/ops/pallas_curve.py:351 (g1_add, a launch a level of zkp2p_tpu/ops/msm.py:56 "
+                    "tree_reduce)",
+    "g2_lane_tree": "zkp2p_tpu/ops/pallas_curve.py:369 (g2_add, a launch a level of zkp2p_tpu/ops/msm.py:56 "
+                    "tree_reduce)",
 }
 WINDOW_KERNELS = ("g1_window_table", "g1_window_accumulate", "g2_window_table", "g2_window_accumulate")
 FOLD_KERNELS = ("g1_horner_fold", "g2_horner_fold")
+LANE_TREE_KERNELS = ("g1_lane_tree", "g2_lane_tree")
 # K15 and K16, and the ones the affine path runs (K15's jac_to_affine,
 # K16's G1 add for the bucket MSM, both accumulates)
 AFFINE_KERNELS = ("batch_inverse", "jac_to_affine", "g1_affine_add", "g2_affine_add", "g1_affine_accumulate",
@@ -366,9 +386,10 @@ SOURCE = {"mont_mul": "mont_mul.cu", "mont_pow": "mont_pow.cu",
           **dict.fromkeys(WINDOW_KERNELS, "msm_window.cu"),
           **dict.fromkeys(FOLD_KERNELS, "msm_fold.cu"), "fr_ntt_pass": "ntt.cu",
           "fr_matvec": "matvec.cu", "signed_recode": "recode.cu",
-          "g1_fixed_base": "fixed_base.cu", "g2_fixed_base": "fixed_base.cu"}  # the rest: point_ops.cu
+          "g1_fixed_base": "fixed_base.cu", "g2_fixed_base": "fixed_base.cu",
+          **dict.fromkeys(LANE_TREE_KERNELS, "lane_tree.cu")}  # the rest: point_ops.cu
 # the launchers each real-size path must have launched, and must not have
-_POINT_KERNELS = ("g1_add", "g2_add") + FOLD_KERNELS
+_POINT_KERNELS = ("g1_add", "g2_add") + FOLD_KERNELS + LANE_TREE_KERNELS
 # the witness side: K13 (Az, Bz) and K14 (the witness's planes, H's)
 WITNESS_KERNELS = ("fr_matvec", "signed_recode")
 PATH_KERNELS = {
@@ -385,9 +406,10 @@ FIXED_BASE_KERNELS = ("g1_fixed_base", "g2_fixed_base")
 SETUP_KERNELS = FIXED_BASE_KERNELS + ("batch_inverse", "jac_to_affine", "fr_matvec", "mont_mul")
 PATH_KERNELS["setup"] = SETUP_KERNELS
 # phase 7: the CLI's prove runs the Jacobian path's kernels, its batch the
-# batch path's
-PATH_KERNELS["cli_prove"] = PATH_KERNELS["jacobian"]
-PATH_KERNELS["cli_batch"] = PATH_KERNELS["batch"]
+# batch path's, but for K2's G2 launch: b has no narrow class on the CLI's
+# imported key, so b2 has no join
+PATH_KERNELS["cli_prove"] = tuple(k for k in PATH_KERNELS["jacobian"] if k != "g2_add")
+PATH_KERNELS["cli_batch"] = tuple(k for k in PATH_KERNELS["batch"] if k != "g2_add")
 # phase 8: the flagship circuit's setup, proof and batch
 PATH_KERNELS["flagship_setup"] = SETUP_KERNELS
 PATH_KERNELS["flagship_prove"] = PATH_KERNELS["jacobian"]
@@ -441,6 +463,10 @@ WINDOW_MSMS = {
 # K10/K11: (lanes, planes, window) held bitwise against plain, before the
 # paths' fold shapes
 FOLD_CASES = ((1, 3, 4), (257, 64, 4), (1, 16, 16))
+# K18: (batch, lanes) held bitwise against the K2 loop and the plain
+# version before the paths' trees: one lane, two, odd counts, one stage
+# and two (above lane_tree.CAP lanes)
+LANE_TREE_CASES = ((1, 1), (1, 2), (1, 3), (1, 17), (4, 17), (3, 257), (2, 600))
 # K12: log2 of the domains held bitwise against plain at every pass of
 # their plans (11: one pass of 64 KB of shared memory a block), before the
 # 2^23 plan's passes at the H ladder's shape (three rows)
@@ -484,7 +510,24 @@ SETUP_FILES = ("circuit_final.zkey", "verification_key.json", "verifier.sol")
 # the launchers whose launches a batch chunk makes as often as one proof:
 # the tables once a chunk of steps, the accumulates once for the chunk's
 # witnesses, the folds and the lane trees once over the chunk's lanes
-PER_CHUNK_AS_ONE_PROOF = WINDOW_KERNELS + FOLD_KERNELS + ("g1_add", "g2_add")
+PER_CHUNK_AS_ONE_PROOF = WINDOW_KERNELS + FOLD_KERNELS + LANE_TREE_KERNELS + ("g1_add", "g2_add")
+# a proof's K2 and K18 launches on a key with narrow and wide classes in
+# every query (the synthetic key's and the flagship's): K18 once a tree,
+# K2 for the joins of the classes (tree_and_join_launches)
+CLASSED_PROOF_LAUNCHES = {"g1_lane_tree": 7, "g2_lane_tree": 2, "g1_add": 3, "g2_add": 1}
+
+
+def tree_and_join_launches(key) -> dict:
+    """K18's and K2's launches in one proof on `key` with the default arms
+    (prover/groth16_gpu.py: the queries): a lane tree a windowed MSM (h's,
+    and each class of a, b1, c and b2 that holds a lane; one MSM a query
+    on an unclassed key) and a K2 join for each query with both classes."""
+    if not key.a_nsel.numel():
+        return {"g1_lane_tree": 4, "g2_lane_tree": 1, "g1_add": 0, "g2_add": 0}
+    held = {q: (getattr(key, f"{q}_nsel").numel() > 0, getattr(key, f"{q}_wsel").numel() > 0) for q in "abc"}
+    # b's classes serve b1 (G1) and b2 (G2)
+    return {"g1_lane_tree": 1 + sum(sum(held[q]) for q in "abc"), "g2_lane_tree": sum(held["b"]),
+            "g1_add": sum(all(held[q]) for q in "abc"), "g2_add": int(all(held["b"]))}
 
 
 def log(msg: str) -> None:
@@ -777,7 +820,9 @@ def check_mont_pow(torch, peak_muls_per_s, sm_clock_hz, device):
 def fixed_base_scalars(torch, gen, n, device):
     """n random standard-form Fr scalars, the special ones first when n
     holds them all: 0, 1, 2, r-1, r-2, 2^8k, a top byte alone, scalars
-    with runs of zero windows."""
+    with runs of zero windows, and the signed digits' boundaries (windows
+    0x7F, 0x80, 0x81, 0xFF alone and in runs, a run of 0xFF carrying into
+    the top window)."""
     from zkp2p_tpu_torch.field.bn254 import R
     from zkp2p_tpu_torch.ops import cuda_mont
 
@@ -785,7 +830,12 @@ def fixed_base_scalars(torch, gen, n, device):
     rng = random.Random(SEED + 60)
     zero_runs = [int.from_bytes(bytes(b if (j // 4) % 2 else 0 for j, b in enumerate(rng.randbytes(32))), "little")
                  % R for _ in range(3)]
-    specials = [0, 1, 2, R - 1, R - 2, 1 << 8, 1 << 128, 1 << 248, 0x30 << 248, 0xFF << 240] + zero_runs
+    run_ff = (1 << 248) - 1  # its carry runs into the top window
+    signed = ([v << (8 * j) for v in (0x7F, 0x80, 0x81, 0xFF) for j in (0, 9)]
+              + [int.from_bytes(bytes([v]) * 31, "little") for v in (0x7F, 0x80, 0x81)]
+              + [int.from_bytes(bytes([0x7F, 0x80, 0x81, 0xFF] * 7 + [0x7F, 0x80, 0x81]), "little"),
+                 run_ff, (0x2F << 248) | run_ff])
+    specials = [0, 1, 2, R - 1, R - 2, 1 << 8, 1 << 128, 1 << 248, 0x30 << 248, 0xFF << 240] + zero_runs + signed
     if n >= len(specials):
         for i, v in enumerate(specials):
             k[i] = torch.tensor(cuda_mont.limbs_of(v), device=device)
@@ -794,15 +844,16 @@ def fixed_base_scalars(torch, gen, n, device):
 
 def fixed_base_bound(torch, g2, k, peak_muls_per_s):
     """K17's bound on these scalars: one mixed add (11 products, 3x in
-    Fq2) for each nonzero 8-bit window, against the scalars read once,
-    the Jacobian points written once and the table read once."""
-    from zkp2p_tpu_torch.ops.cuda_fixed_base import DIGITS, WINDOWS
+    Fq2) for each nonzero signed 8-bit digit, against the scalars read
+    once, the Jacobian points written once and the 32 x 128-row table read
+    once."""
+    from zkp2p_tpu_torch.ops.cuda_fixed_base import ROWS, WINDOWS, signed_windows
 
     n = k.shape[0]
-    adds = int((torch.stack([(k >> 8) & 0xFF, k & 0xFF]) != 0).sum())
+    adds = sum(int((signed_windows(k[i:i + (1 << 22)])[0] != 0).sum()) for i in range(0, n, 1 << 22))
     muls = adds * MONTS["add_mixed"] * (3 if g2 else 1) * MULS_PER_MONT
     coord = 128 if g2 else 64
-    nbytes = n * (64 + 3 * coord) + WINDOWS * DIGITS * 2 * coord
+    nbytes = n * (64 + 3 * coord) + WINDOWS * ROWS * 2 * coord
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, muls / peak_muls_per_s
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes > t_ops else "operations",
                 adds=adds)
@@ -838,8 +889,9 @@ def check_fixed_base_kernels(torch, sizes, peak_muls_per_s, device):
             if to_host(tuple(c[idx] for c in got)) != [mul(base, v) for v in ks]:
                 raise AssertionError(f"{name} (n={n}) differs from the host curve")
         rows[name] = dict(max_abs_err=0, at_shapes={}, check=(
-            f"bitwise equal to plain at {list(FIXED_BASE_BATCHES)} scalars (0, 1, 2, r-1, r-2, 2^8k, zero windows; "
-            f"plain over the first {PLAIN_SLICE}) and at every query size of the setup; sample equal to the host "
+            f"bitwise equal to plain at {list(FIXED_BASE_BATCHES)} scalars (0, 1, 2, r-1, r-2, 2^8k, zero windows, "
+            f"windows 0x7F/0x80/0x81/0xFF alone and in runs, a run of 0xFF carrying into the top window; plain "
+            f"over the first {PLAIN_SLICE}) and at every query size of the setup; sample equal to the host "
             f"curve"), library_ms_reason="no PyTorch call multiplies a curve point")
     log(f"K17 fixed_base: bitwise equal to plain on G1 and G2 at {FIXED_BASE_BATCHES}; sample equal to the host")
     for label, (g2, n) in sizes.items():
@@ -1586,6 +1638,86 @@ def check_fold_kernels(torch, g2, shapes, peak_muls_per_s, sm_clock_hz, device):
     return {name: row}
 
 
+def lane_tree_case(torch, gen, g2, batch, lanes, device):
+    """Random Jacobian coordinates (batch, lanes, *elem): a lane at
+    infinity, and on the first level (pairs i, i + ceil(lanes/2)) a pair
+    P, P (the add's doubling) and a pair P, -P (infinity)."""
+    from zkp2p_tpu_torch.field.tfield import FQ
+
+    pts = [rand_canon(torch, gen, (batch, lanes, 2) if g2 else (batch, lanes), device) for _ in range(3)]
+    h = (lanes + 1) // 2
+    if lanes >= 2:
+        pts[2][:, 0] = 0
+    if lanes >= 4:
+        for c in pts:
+            c[:, 1 + h] = c[:, 1]
+    if lanes >= 6:
+        pts[0][:, 2 + h], pts[2][:, 2 + h] = pts[0][:, 2], pts[2][:, 2]
+        pts[1][:, 2 + h] = FQ.neg(pts[1][:, 2])
+    return tuple(pts)
+
+
+def check_lane_tree_kernels(torch, shapes, peak_muls_per_s, sm_clock_hz, device):
+    """K18 (G1 and G2) at LANE_TREE_CASES and at each tree the paths give
+    it (`shapes`: (G2?) -> name -> lanes; each at a batch of 1, a proof's,
+    and of BATCH_CHUNK, a batch chunk's; the first name's batch of 1 is the
+    row's own), held bitwise against the K2 loop (msm.tree_reduce_steps,
+    the route K18 replaced) and the plain version.  At the paths' trees
+    K18 and the K2 loop are timed in turns (K2 loop, K18, K18, K2 loop),
+    beside K18's operation bound ((lanes - 1) adds a witness, 16 products,
+    3x in Fq2) and its chain floor (5 dependent products a level)."""
+    from zkp2p_tpu_torch.curve.tcurve import G1C, G2C
+    from zkp2p_tpu_torch.ops import cuda_lane_tree, msm
+
+    rows = {}
+    for g2, C in ((False, G1C), (True, G2C)):
+        name = f"{'g2' if g2 else 'g1'}_lane_tree"
+        gen = torch.Generator(device=device).manual_seed(SEED + (71 if g2 else 70))
+        cases = [(f"{b} x {n}", b, n, False) for b, n in LANE_TREE_CASES]
+        cases += [(f"{label} x {b}", b, n, True) for label, n in shapes[g2].items() for b in (1, BATCH_CHUNK)]
+        fq = 3 if g2 else 1
+        elem_bytes = 64 * (2 if g2 else 1)
+        row = {}
+        for label, b, n, timed in cases:
+            pts = lane_tree_case(torch, gen, g2, b, n, device)
+            got = cuda_lane_tree.lane_tree(g2, pts)
+            loop = msm.tree_reduce_steps(C, pts, n)
+            plain_ms, plain = cuda_ms(torch, lambda: cuda_lane_tree.lane_tree_plain(g2, pts), 1, warmup=False)
+            if max_abs_err(torch, got, loop) or max_abs_err(torch, got, plain):
+                raise AssertionError(f"{name} ({b} x {n} lanes) differs from the K2 loop or its plain version")
+            if not timed:
+                continue
+            turns = []
+            for way in ("loop", "kernel", "kernel", "loop"):
+                fn = ((lambda: cuda_lane_tree.lane_tree(g2, pts)) if way == "kernel"
+                      else (lambda: msm.tree_reduce_steps(C, pts, n)))
+                turns.append(cuda_ms(torch, fn, 10)[0])
+            adds = b * (n - 1)
+            t_ops = adds * MONTS["add"] * fq * MULS_PER_MONT / peak_muls_per_s
+            t_bytes = b * (n + 1) * 3 * elem_bytes / HBM_BYTES_PER_S
+            levels = cuda_lane_tree.levels_of(n)
+            at = dict(shape=[b, n], max_abs_err=0, ms=min(turns[1:3]), ms_turns=turns,
+                      k2_loop_ms=min(turns[0], turns[3]), k2_launches=levels, plain_ms=plain_ms,
+                      bound_ms=max(t_ops, t_bytes) * 1e3, bound_by="bytes" if t_bytes > t_ops else "operations",
+                      chain_floor_ms=levels * CHAIN_MONTS["add"] * CHAIN_MADS_PER_MONT * MAD_LATENCY_CLK
+                      / sm_clock_hz * 1e3, plan=list(cuda_lane_tree.tree_plan(n)))
+            if row:
+                row.setdefault("at_shapes", {})[label] = at
+            else:
+                row.update(at, tree=label)
+            log(f"K18 {name} at the {label} tree ({b} x {n} lanes, {levels} levels): bitwise equal to the K2 loop "
+                f"and plain; turns (K2 loop, K18, K18, K2 loop) {[round(t, 4) for t in turns]} ms; bound "
+                f"{at['bound_ms']:.5f}, chain floor {at['chain_floor_ms']:.4f}, plain {plain_ms:.1f} ms")
+        row["check"] = (f"bitwise equal to the K2 loop (msm.tree_reduce_steps) and to plain at (batch, lanes) "
+                        f"{list(LANE_TREE_CASES)} and at the paths' trees (shape, at_shapes) at batches 1 and "
+                        f"{BATCH_CHUNK}; a lane at infinity, P + P and P + (-P) on the first level")
+        row["library_ms_reason"] = "no PyTorch call adds curve points"
+        rows[name] = row
+        log(f"K18 {name}: bitwise equal to the K2 loop and plain at {LANE_TREE_CASES} (batch, lanes) and at the "
+            f"paths' trees")
+    return rows
+
+
 def ntt_rows(torch, gen, rows, m, device):
     """(rows, m, 16) random canonical Fr limbs; each row's first entries
     0, 1, r - 1 and the Montgomery one."""
@@ -2031,7 +2163,8 @@ def compare_msm_h(torch, key, device):
     over K4/K2), the kernels (K6/K7, K10), the kernels, the step loops;
     all four held bitwise equal.  Then one more through the kernels a part
     at a time, the fold both ways in turns on the same partials (K10 and
-    _fold_steps).  Seconds of each, host clock around work that ends in a
+    _fold_steps), the lane tree by K18 and then by the K2 loop it
+    replaced.  Seconds of each, host clock around work that ends in a
     synchronise."""
     from unittest import mock
 
@@ -2064,8 +2197,10 @@ def compare_msm_h(torch, key, device):
     fold_s, per_lane = fold_turns(torch, G1C, acc, 4)
     split["horner_fold"] = fold_s["kernel_s"][0]
     split["lane_tree"], out = wall_s(torch, lambda: msm.tree_reduce(G1C, per_lane, lanes))
-    if any(max_abs_err(torch, o, outs[0]) for o in outs[1:] + [out]):
-        raise AssertionError("the real-size h MSM through K6/K7 and K10 differs from the step loops")
+    # the tree as it ran before K18, one K2 launch a level
+    split["lane_tree_k2_loop"], out_loop = wall_s(torch, lambda: msm.tree_reduce_steps(G1C, per_lane, lanes))
+    if any(max_abs_err(torch, o, outs[0]) for o in outs[1:] + [out, out_loop]):
+        raise AssertionError("the real-size h MSM through K6/K7, K10 and K18 differs from the step loops")
     log(f"msm_h at {n} bases: step loops {secs['loop']} s, K6/K7 + K10 {secs['fused']} s; bitwise equal; "
         f"split {split}; fold {fold_s}")
     return {"n": n, "lanes": lanes, "planes": int(mags.shape[0]), "order": ["loop", "fused", "fused", "loop"],
@@ -3004,13 +3139,18 @@ def cli_phase(torch, inp, jac_launches, batch_launches, device):
             raise AssertionError("the CLI's proof.json with r, s pinned differs from prove_gpu's on the imported key")
         if not verify(vk, proof, pub):
             raise AssertionError("the proof under the imported key does not verify")
-        want = {k for k, v in jac_launches.items() if v}
+        # the Jacobian path's kernels, K18 once a tree and K2 once a join of
+        # this key's classes
+        trees = tree_and_join_launches(key)
+        want = {k for k, v in jac_launches.items() if v} - {"zk_" + k for k, v in trees.items() if not v}
         got = {k for k, v in prove_launches.items() if v}
         passes = 2 * len(pass_plan(key.log_m))
         fixed = {k: prove_launches[k] for k in ("zk_fr_ntt_pass", "zk_fr_matvec", "zk_signed_recode")}
-        if got != want or fixed != {"zk_fr_ntt_pass": passes, "zk_fr_matvec": 2, "zk_signed_recode": 2}:
+        fixed.update({"zk_" + k: prove_launches["zk_" + k] for k in trees})
+        if got != want or fixed != {"zk_fr_ntt_pass": passes, "zk_fr_matvec": 2, "zk_signed_recode": 2,
+                                    **{"zk_" + k: v for k, v in trees.items()}}:
             raise AssertionError(f"the CLI's prove launched {sorted(got)} ({fixed}), the Jacobian path "
-                                 f"{sorted(want)}")
+                                 f"{sorted(want)}, K18 / K2 {trees}")
         classes = {k: getattr(key, k).numel() for k in ("a_nsel", "a_wsel", "b_nsel", "b_wsel", "c_nsel", "c_wsel")}
         del kept
         log(f"CLI prove in process, r and s pinned: {main_s:.1f} s (" + ", ".join(
@@ -3067,12 +3207,14 @@ def cli_phase(torch, inp, jac_launches, batch_launches, device):
         if not verify(vk, sub_proof, pub) or verify(vk, proofs[1], [int(v) for v in seeded_pub]):
             raise AssertionError("the satisfying witness's batch proof must verify and a seeded one's must not")
         n_chunks = len(batch_spans(len(ws), BATCH_CHUNK))
-        want = {k for k, v in batch_launches.items() if v}
+        want = {k for k, v in batch_launches.items() if v} - {"zk_" + k for k, v in trees.items() if not v}
         got = {k for k, v in cli_batch_launches.items() if v}
         fixed = {k: cli_batch_launches[k] / n_chunks for k in ("zk_fr_ntt_pass", "zk_fr_matvec", "zk_signed_recode")}
-        if got != want or fixed != {"zk_fr_ntt_pass": passes, "zk_fr_matvec": 2, "zk_signed_recode": 2}:
+        fixed.update({"zk_" + k: cli_batch_launches["zk_" + k] / n_chunks for k in trees})
+        if got != want or fixed != {"zk_fr_ntt_pass": passes, "zk_fr_matvec": 2, "zk_signed_recode": 2,
+                                    **{"zk_" + k: v for k, v in trees.items()}}:
             raise AssertionError(f"the CLI's batch launched {sorted(got)} ({fixed} a chunk), the batch path "
-                                 f"{sorted(want)}")
+                                 f"{sorted(want)}, K18 / K2 {trees} a chunk")
         n = len(ws)
         log(f"CLI batch ({n} wtns, chunk {BATCH_CHUNK}): subprocess {sub_s:.1f} s (its log: {sub_log}); main() "
             f"here on the imported key {main_batch_s:.2f} s, its prove_gpu_batch {batch_s:.2f} s ({n / batch_s:.3f} "
@@ -3675,6 +3817,12 @@ def run(torch, device, peak_muls, sm_clock_hz):
         check_window_msm(torch, g2, device)
     for g2 in (False, True):
         rows.update(check_fold_kernels(torch, g2, fold_shapes[g2], peak_muls, sm_clock_hz, device))
+    # K18's trees: the lanes of the h MSM, the narrow classes, a's and
+    # b1's wide classes (G1); b2's narrow and wide classes (G2)
+    tree_shapes = {False: {"h": h_lanes, "narrow": narrow_lanes, "a wide": wide_lanes,
+                           "b1 wide": default_lanes(V["b_wide"])},
+                   True: {"b2 narrow": b2_lanes, "b2 wide": b2w_lanes}}
+    rows.update(check_lane_tree_kernels(torch, tree_shapes, peak_muls, sm_clock_hz, device))
     rows.update(check_affine_kernels(torch, affine_shapes, peak_muls, sm_clock_hz, device))
     affine_msm_same_run = check_affine_msm(torch, device)
     rows.update(check_ntt_kernel(torch, peak_muls, device))
@@ -3773,6 +3921,15 @@ def run(torch, device, peak_muls, sm_clock_hz):
         if any(v[launcher] != want for v in (jac_launches, aff_launches)):
             raise AssertionError(f"{launcher} launched {[v[launcher] for v in (jac_launches, aff_launches)]} times "
                                  f"a proof, expected {want}")
+    # K18 once a tree, K2 only for the joins of the classes
+    if tree_and_join_launches(key) != CLASSED_PROOF_LAUNCHES:
+        raise AssertionError(f"the synthetic key's classes give {tree_and_join_launches(key)}")
+    for path in ("jacobian", "flagship_prove"):
+        got = {k: by_path[path]["zk_" + k] for k in CLASSED_PROOF_LAUNCHES}
+        if got != CLASSED_PROOF_LAUNCHES:
+            raise AssertionError(f"K2 / K18 launches of a {path} proof {got}, expected {CLASSED_PROOF_LAUNCHES}")
+    log("K2 / K18 launches: " + json.dumps({p: {k: v["zk_" + k] for k in CLASSED_PROOF_LAUNCHES}
+                                           for p, v in by_path.items()}))
     k1_jac, k1_aff = jac_launches["zk_mont_mul"], aff_launches["zk_mont_mul"]
     log(f"K1 mont_mul launches a proof: {k1_jac} on the Jacobian path, {k1_aff} on the affine path")
     if max(k1_jac, k1_aff) > K1_JACOBIAN_MAX:

@@ -17,8 +17,9 @@ import torch
 
 from zkp2p_tpu_torch.curve import tcurve
 from zkp2p_tpu_torch.field.tfield import FQ, FQ2, FR
-from zkp2p_tpu_torch.ops import (cuda_affine, cuda_build, cuda_curve, cuda_fixed_base, cuda_matvec, cuda_mont,
-                                  cuda_msm_fold, cuda_msm_window, cuda_ntt, cuda_recode, msm, msm_affine, ntt)
+from zkp2p_tpu_torch.ops import (cuda_affine, cuda_build, cuda_curve, cuda_fixed_base, cuda_lane_tree, cuda_matvec,
+                                  cuda_mont, cuda_msm_fold, cuda_msm_window, cuda_ntt, cuda_recode, msm, msm_affine,
+                                  ntt)
 from zkp2p_tpu_torch.prover.groth16_gpu import key_from_numpy, prove_gpu, prove_gpu_batch
 from zkp2p_tpu_torch.prover.vector import VECTOR_PATH, load_vector
 from zkp2p_tpu_torch.utils.device import resolve_device
@@ -246,15 +247,60 @@ def test_wrappers_on_cpu_take_the_plain_path_and_count_nothing():
                                                                                          negs, 1)))
     # K17's dispatcher: the plain comb on CPU tensors
     for g2 in (False, True):
-        table = tuple(_rand((cuda_fixed_base.WINDOWS * cuda_fixed_base.DIGITS,) + ((2,) if g2 else ()), 100 + k)
+        table = tuple(_rand((cuda_fixed_base.WINDOWS * cuda_fixed_base.ROWS,) + ((2,) if g2 else ()), 100 + k)
                       for k in range(2))
         k = _rand((3,), 102)
         assert all(torch.equal(x, y) for x, y in zip(cuda_fixed_base.fixed_base(g2, table, k),
                                                       cuda_fixed_base.fixed_base_plain(g2, table, k)))
-    assert set(cuda_build.LAUNCHES) == set(cuda_build.LAUNCHERS) and len(cuda_build.LAUNCHERS) == 25
-    assert {"batch_inv", "affine_add", "fixed_base"} <= set(cuda_build.SOURCES)
+    # K18's dispatcher: the level loop on CPU tensors, whatever the batch
+    for g2, C in ((False, tcurve.G1C), (True, tcurve.G2C)):
+        shape = (2, 5, 2) if g2 else (2, 5)
+        pts = tuple(_rand(shape, 103 + k) for k in range(3))
+        got = msm.tree_reduce(C, pts, 5)
+        assert all(torch.equal(x, y) for x, y in zip(got, msm.tree_reduce_steps(C, pts, 5)))
+        assert all(torch.equal(x, y) for x, y in zip(got, cuda_lane_tree.lane_tree_plain(g2, pts)))
+    assert set(cuda_build.LAUNCHES) == set(cuda_build.LAUNCHERS) and len(cuda_build.LAUNCHERS) == 27
+    assert {"batch_inv", "affine_add", "fixed_base", "lane_tree"} <= set(cuda_build.SOURCES)
     assert all((cuda_build.CSRC_DIR / f"{stem}.cu").is_file() for stem in cuda_build.SOURCES)
     assert all(v == 0 for v in cuda_build.LAUNCHES.values())
+
+
+def test_kernel_sources_include_their_headers():
+    """Each library's name hashes every header, so an edited header
+    rebuilds every kernel; K17 and K18 run mont_cc.cuh's product, K18
+    point_coop.cuh's cooperative add (K10/K11's)."""
+    headers = {p.name for p in cuda_build.CSRC_DIR.glob("*.cuh")}
+    assert {"mont.cuh", "mont_cc.cuh", "point.cuh", "point_coop.cuh", "affine.cuh"} <= headers
+    assert '#include "point_coop.cuh"' in (cuda_build.CSRC_DIR / "lane_tree.cu").read_text()
+    for stem in ("fixed_base", "lane_tree"):
+        src = (cuda_build.CSRC_DIR / f"{stem}.cu").read_text()
+        assert '#include "mont_cc.cuh"' in src and "<MulCC>" in src, stem
+    before = cuda_build._lib_path("lane_tree")
+    assert cuda_build._lib_path("fixed_base") != before
+    assert before.parent == cuda_build.BUILD_DIR and before.suffix == ".so"
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+@pytest.mark.parametrize("lanes", [1, 17, 572, 16384])
+def test_lane_tree_launches_once_a_tree(monkeypatch, g2, lanes):
+    """K18's wrapper on a device other than the CPU: one launch of its
+    launcher a tree, whatever its stages and batch, counted once; tree_plan's
+    stages and the batch are what it passes."""
+    name = f"zk_{'g2' if g2 else 'g1'}_lane_tree"
+    calls = []
+    monkeypatch.setattr(cuda_lane_tree, "_device_of", lambda what, ts: torch.device("meta"))
+    monkeypatch.setitem(cuda_build._fns, name, lambda *args: calls.append(args) or 0)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: SimpleNamespace(cuda_stream=0))
+    elem = (2, 16) if g2 else (16,)
+    pts = tuple(torch.empty((4, lanes) + elem, dtype=torch.int32, device="meta") for _ in range(3))
+    cuda_build.reset_launches()
+    out = cuda_lane_tree.lane_tree(g2, pts)
+    assert all(c.shape == (4,) + elem for c in out)
+    assert cuda_build.LAUNCHES[name] == 1 and sum(cuda_build.LAUNCHES.values()) == 1
+    (args,) = calls
+    plan = cuda_lane_tree.tree_plan(lanes)
+    assert args[10:16] == (4, lanes, plan.levels_a, plan.per_block, plan.blocks, plan.levels_b)
+    cuda_build.reset_launches()
 
 
 def test_wrappers_refuse_other_devices():
@@ -276,6 +322,11 @@ def test_wrappers_refuse_other_devices():
         acc = torch.zeros((2, 3) + elem + (16,), dtype=torch.int32, device="meta")
         with pytest.raises(ValueError):
             accumulate((acc,) * 3, (table,) * 3, planes, planes.bool(), 0)
+    for g2, C in ((False, tcurve.G1C), (True, tcurve.G2C)):
+        pts = (torch.zeros((2, 3) + C.elem, dtype=torch.int32, device="meta"),) * 3
+        for call in (lambda: msm.tree_reduce(C, pts, 3), lambda: cuda_lane_tree.lane_tree(g2, pts)):
+            with pytest.raises(ValueError):
+                call()
     for elem, fold in (((), cuda_msm_fold.g1_horner_fold), ((2,), cuda_msm_fold.g2_horner_fold)):
         init = torch.zeros((3,) + elem + (16,), dtype=torch.int32)
         stacked = torch.zeros((2, 3) + elem + (16,), dtype=torch.int32)
@@ -315,7 +366,7 @@ def test_affine_wrappers_refuse_other_devices():
 def test_fixed_base_refuses_other_devices():
     for g2 in (False, True):
         elem = (2, 16) if g2 else (16,)
-        table = torch.zeros((cuda_fixed_base.WINDOWS * cuda_fixed_base.DIGITS,) + elem, dtype=torch.int32)
+        table = torch.zeros((cuda_fixed_base.WINDOWS * cuda_fixed_base.ROWS,) + elem, dtype=torch.int32)
         k = torch.zeros(3, 16, dtype=torch.int32)
         for t, kk in ((table.to("meta"), k), (table, k.to("meta")), (table.to("meta"), k.to("meta"))):
             with pytest.raises(ValueError):

@@ -4,7 +4,10 @@ the reference, on the CPU, bit for bit.
 
 - fixed_base_plain + the plain jac_to_affine against the reference's
   native fixed-base batches (G1 and G2), on 0, 1, 2, r-1, 2^(8k),
-  scalars with zero windows and random ones;
+  scalars with zero windows, the signed digits' boundaries (windows
+  0x7F, 0x80, 0x81, 0xFF, a run of 0xFF carrying into the top window)
+  and random ones; the plain comb's signed digits against the kernel's
+  recode rule over Python ints;
 - setup_device(cs, device="cpu") against the reference's
   setup_device(cs, seed) and device_pk(setup(cs, seed), cs) on the
   verify skill's demo circuit, and against the committed vector's key
@@ -40,7 +43,7 @@ from test_torch_vector import build_vector_circuit
 from zkp2p_tpu_torch.curve import host
 from zkp2p_tpu_torch.field.tfield import FQ, FQ2, int_to_limbs
 from zkp2p_tpu_torch.ops import cuda_build
-from zkp2p_tpu_torch.ops.cuda_fixed_base import fixed_base, fixed_base_plain, fixed_base_table
+from zkp2p_tpu_torch.ops.cuda_fixed_base import fixed_base, fixed_base_plain, fixed_base_table, signed_windows
 from zkp2p_tpu_torch.ops.msm_affine import jac_to_affine_batch
 from zkp2p_tpu_torch.prover.groth16_gpu import DPK_ARRAY_FIELDS
 from zkp2p_tpu_torch.ops.cuda_matvec import csr_from_rows, fr_matvec
@@ -116,10 +119,19 @@ def assert_key_equal(key, ref):
 
 
 def special_scalars():
+    """0, 1, 2, r-1, r-2, 2^(8k), zero windows, and the signed digits'
+    boundaries: windows 0x7F, 0x80, 0x81, 0xFF (alone, in runs, and a run
+    of 0xFF whose carry reaches the top window); then random ones."""
     rng = random.Random(17)
     zero_windows = int.from_bytes(bytes(b if k % 3 else 0 for k, b in enumerate(rng.randbytes(32))), "little") % R
+    run_ff = (1 << 248) - 1
+    signed = ([v << (8 * k) for v in (0x7F, 0x80, 0x81, 0xFF) for k in (0, 13)]
+              + [int.from_bytes(bytes([v]) * 31, "little") for v in (0x7F, 0x80, 0x81)]
+              + [int.from_bytes(bytes([0x7F, 0x80, 0x81, 0xFF] * 7 + [0x7F, 0x80, 0x81]), "little"),
+                 run_ff, (0x2F << 248) | run_ff, (0x30 << 248) | run_ff % (1 << 240)])
+    assert all(0 <= v < R for v in signed)
     return ([0, 1, 2, R - 1, R - 2] + [1 << (8 * k) for k in (1, 5, 16, 31)] + [0x30 << 248, zero_windows]
-            + [rng.randrange(R) for _ in range(5)])
+            + signed + [rng.randrange(R) for _ in range(5)])
 
 
 @pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
@@ -141,12 +153,33 @@ def test_fixed_base_plain_matches_native(g2):
     assert all(v == 0 for v in cuda_build.LAUNCHES.values())
 
 
+def test_fixed_base_signed_windows():
+    """The plain comb's digits (signed_windows) are the kernel's: each
+    byte plus the carry, above 128 taken as a negative digit that carries
+    one (csrc/fixed_base.cu, least significant window first), and they
+    sum back to the scalar with no carry out of the top window."""
+    scalars = special_scalars()
+    mags, negs = signed_windows(torch.from_numpy(np.stack([int_to_limbs(v) for v in scalars])))
+    assert mags.shape == negs.shape == (32, len(scalars)) and int(mags.max()) <= 128
+    for i, v in enumerate(scalars):
+        carry, total = 0, 0
+        for w in range(32):
+            e = ((v >> (8 * w)) & 0xFF) + carry
+            neg = e > 128
+            mag = 256 - e if neg else e
+            carry = int(neg)
+            assert (int(mags[w, i]), bool(negs[w, i])) == (mag, neg), (hex(v), w)
+            total += (-mag if neg else mag) << (8 * w)
+        assert carry == 0 and total == v
+
+
 def test_fixed_base_table_rows():
-    """Row w * 255 + d - 1 of the table is 2^(8w) * d * G."""
+    """Row w * 128 + |d| - 1 of the table is 2^(8w) * |d| * G: 32 x 128 rows."""
     for g2, base, mul in ((False, host.G1_GENERATOR, host.g1_mul), (True, host.G2_GENERATOR, host.g2_mul)):
         tx, ty = fixed_base_table(g2, base, "cpu")
-        for row in (0, 1, 254, 255, 4000, 8159):
-            w, d = divmod(row, 255)
+        assert tx.shape[0] == ty.shape[0] == 32 * 128
+        for row in (0, 1, 126, 127, 128, 2000, 4095):
+            w, d = divmod(row, 128)
             coords = [[FQ.from_mont_host(c) for c in (t[row] if g2 else t[row][None])] for t in (tx, ty)]
             want = mul(base, (d + 1) << (8 * w))
             assert (g2_key(port_g2(coords)) if g2 else tuple(v[0] for v in coords)) == \

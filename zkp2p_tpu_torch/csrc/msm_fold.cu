@@ -31,7 +31,8 @@
 //   - three threads a lane, one in each warp of a 96-thread block (32
 //     lanes); in each round every warp runs one of the round's independent
 //     products, then the block synchronises: 3 rounds a doubling and 6 an
-//     add (coop_double, coop_add), the lane's values in shared memory;
+//     add (point_coop.cuh: coop_double, coop_add, shared with K18), the
+//     lane's values in shared memory;
 //   - each plane partial is read once from device memory: the plane's
 //     coordinate each warp selects is prefetched into L1 before the
 //     plane's doublings, so its latency hides behind them, and read from
@@ -47,70 +48,10 @@
 // ptxas: 80 registers for K10, 138 for K11, no spill.  One thread a lane
 // is no faster than the step loop on the G2 wide fold: the step loop's
 // launches are as long as their device work there.
-#include "point.cuh"
+#include "point_coop.cuh"
 
 __device__ __forceinline__ void prefetch_l1(const int32_t* p) {
   asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
-}
-
-// A lane's values in shared memory, 32 lanes a block: the accumulator
-// (SX, SY, SZ), the add's generic result (GX, GY, GZ) and the temporaries
-// of one point operation from T0 on.
-enum : int { SX, SY, SZ, GX, GY, GZ, T0 };
-// the doubling's temporaries, and where the add's doubling branch puts
-// its result (DX, DY, DZ: temporaries the doubling does not use)
-enum : int { dA = T0, dB, dYZ, dXB2, dC, dFv, DX, DY, DZ };
-// the add's temporaries
-enum : int { aZ1Z1 = T0, aZ2Z2, aYZ1, aU2, aU1, aYZ2, aS1, aS2, aZ1Z2, aHH, aR2, aHHH, aV, aRV, aSH, N_SLOTS };
-
-// pt_double of the accumulator over the three warps of a block, role r =
-// warp r: each round's products are independent and run one a warp, then
-// the block synchronises.  3 rounds, one product deep each, where one
-// thread would run the 7 products one after another.  Writes
-// (ox, oy, oz); the same operations as point.cuh's pt_double.
-template <class E>
-__device__ __forceinline__ void coop_double(E (*S)[32], int ln, int role, int ox, int oy, int oz,
-                                            const FieldConst& c) {
-  if (role == 0) {
-    const E x = S[SX][ln];
-    S[dA][ln] = f_mul(x, x, c);
-  } else if (role == 1) {
-    const E y = S[SY][ln];
-    S[dB][ln] = f_mul(y, y, c);
-  } else {
-    S[dYZ][ln] = f_mul(S[SY][ln], S[SZ][ln], c);
-  }
-  __syncthreads();
-  if (role == 0) {
-    const E XB = f_add(S[SX][ln], S[dB][ln], c);
-    S[dXB2][ln] = f_mul(XB, XB, c);
-  } else if (role == 1) {
-    const E B = S[dB][ln];
-    S[dC][ln] = f_mul(B, B, c);
-  } else {
-    const E A = S[dA][ln];
-    const E Ev = f_add(f_add(A, A, c), A, c);
-    S[dFv][ln] = f_mul(Ev, Ev, c);
-  }
-  __syncthreads();
-  // no role reads SX, SY, SZ in this round, so (ox, oy, oz) may be them
-  if (role == 0) {
-    const E A = S[dA][ln];
-    const E C = S[dC][ln];
-    const E t = f_sub(f_sub(S[dXB2][ln], A, c), C, c);
-    const E D = f_add(t, t, c);
-    const E Ev = f_add(f_add(A, A, c), A, c);
-    const E X3 = f_sub(S[dFv][ln], f_add(D, D, c), c);
-    E C8 = f_add(C, C, c);
-    C8 = f_add(C8, C8, c);
-    C8 = f_add(C8, C8, c);
-    S[ox][ln] = X3;
-    S[oy][ln] = f_sub(f_mul(Ev, f_sub(D, X3, c), c), C8, c);
-  } else if (role == 1) {
-    const E YZ = S[dYZ][ln];
-    S[oz][ln] = f_add(YZ, YZ, c);
-  }
-  __syncthreads();
 }
 
 // The plane partial q of one lane, read from L1 at each use.
@@ -123,88 +64,6 @@ struct PlaneRef {
     return f_load_each((const E*)nullptr, coord == 0 ? x : (coord == 1 ? y : z));
   }
 };
-
-// pt_add(acc, q) over the three warps: 6 rounds of independent products
-// (Z1^2, Z2^2, Y1 Z2 | U2, U1, Y2 Z1 | S1, S2, Z1 Z2 | H^2, R^2, Z3 |
-// H^3, V | R (V - X3), S1 H^3), where one thread would run the 16
-// products one after another; then point.cuh's case selects, in its
-// order.  The doubling branch runs coop_double when any lane of the block
-// takes it, so that every thread meets the same barriers.
-template <class E>
-__device__ __forceinline__ void coop_add(E (*S)[32], int ln, int role, const PlaneRef<E>& q, const FieldConst& c) {
-  if (role == 0) {
-    const E z1 = S[SZ][ln];
-    S[aZ1Z1][ln] = f_mul(z1, z1, c);
-  } else if (role == 1) {
-    const E z2 = q.at(2);
-    S[aZ2Z2][ln] = f_mul(z2, z2, c);
-  } else {
-    S[aYZ1][ln] = f_mul(S[SY][ln], q.at(2), c);
-  }
-  __syncthreads();
-  if (role == 0) {
-    S[aU2][ln] = f_mul(q.at(0), S[aZ1Z1][ln], c);
-  } else if (role == 1) {
-    S[aU1][ln] = f_mul(S[SX][ln], S[aZ2Z2][ln], c);
-  } else {
-    S[aYZ2][ln] = f_mul(q.at(1), S[SZ][ln], c);
-  }
-  __syncthreads();
-  if (role == 0) {
-    S[aS1][ln] = f_mul(S[aYZ1][ln], S[aZ2Z2][ln], c);
-  } else if (role == 1) {
-    S[aS2][ln] = f_mul(S[aYZ2][ln], S[aZ1Z1][ln], c);
-  } else {
-    S[aZ1Z2][ln] = f_mul(S[SZ][ln], q.at(2), c);
-  }
-  __syncthreads();
-  const E H = f_sub(S[aU2][ln], S[aU1][ln], c);
-  const E Rr = f_sub(S[aS2][ln], S[aS1][ln], c);
-  if (role == 0) {
-    S[aHH][ln] = f_mul(H, H, c);
-  } else if (role == 1) {
-    S[aR2][ln] = f_mul(Rr, Rr, c);
-  } else {
-    S[GZ][ln] = f_mul(S[aZ1Z2][ln], H, c);
-  }
-  __syncthreads();
-  if (role == 0) {
-    S[aHHH][ln] = f_mul(H, S[aHH][ln], c);
-  } else if (role == 1) {
-    S[aV][ln] = f_mul(S[aU1][ln], S[aHH][ln], c);
-  }
-  __syncthreads();
-  if (role == 0) {
-    const E V = S[aV][ln];
-    const E X3 = f_sub(f_sub(S[aR2][ln], S[aHHH][ln], c), f_add(V, V, c), c);
-    S[GX][ln] = X3;
-    S[aRV][ln] = f_mul(Rr, f_sub(V, X3, c), c);
-  } else if (role == 1) {
-    S[aSH][ln] = f_mul(S[aS1][ln], S[aHHH][ln], c);
-  }
-  __syncthreads();
-  const bool q_inf = f_is_zero(q.at(2));
-  const bool p_inf = f_is_zero(S[SZ][ln]);
-  const bool same_x = f_is_zero(H);
-  const bool same_y = f_is_zero(Rr);
-  if (role == 0) S[GY][ln] = f_sub(S[aRV][ln], S[aSH][ln], c);
-  if (__syncthreads_or(!q_inf && !p_inf && same_x && same_y)) coop_double(S, ln, role, DX, DY, DZ, c);
-  // role r selects coordinate r, reading no other role's coordinate
-  E v;
-  if (q_inf) {
-    v = S[SX + role][ln];
-  } else if (p_inf) {
-    v = q.at(role);
-  } else if (same_x && same_y) {
-    v = S[DX + role][ln];
-  } else if (same_x) {
-    v = f_zero(E{});
-  } else {
-    v = S[GX + role][ln];
-  }
-  S[SX + role][ln] = v;
-  __syncthreads();
-}
 
 // init (lanes, *elem) x3, planes (n_planes, lanes, *elem) x3 -> out
 // (lanes, *elem) x3.  blockDim = 96: lane = blockIdx.x * 32 + threadIdx.x

@@ -19,6 +19,12 @@
 // _add_mixed_math, _add_core_math, _double_math over _FqOps / _Fq2Ops).
 // The selects are branches: the doubling runs only in lanes that need it,
 // which changes no output.
+//
+// The Montgomery product is a template parameter M of the formulas (a type
+// with a static mul): MulC, mont.cuh's fe_mul, by default, so that a
+// kernel that names none runs fe_mul; MulCC (mont_cc.cuh), the same
+// product in PTX carry chains, where K17 and K18 name it.  Every value is
+// canonical, so the two give the same limbs.
 #pragma once
 
 #include "mont.cuh"
@@ -27,7 +33,12 @@ struct Fe2 {
   Fe c0, c1;
 };
 
-__device__ __forceinline__ Fe f_mul(const Fe& a, const Fe& b, const FieldConst& c) { return fe_mul(a, b, c); }
+struct MulC {
+  __device__ __forceinline__ static Fe mul(const Fe& a, const Fe& b, const FieldConst& c) { return fe_mul(a, b, c); }
+};
+
+template <class M = MulC>
+__device__ __forceinline__ Fe f_mul(const Fe& a, const Fe& b, const FieldConst& c) { return M::mul(a, b, c); }
 __device__ __forceinline__ Fe f_add(const Fe& a, const Fe& b, const FieldConst& c) { return fe_add(a, b, c); }
 __device__ __forceinline__ Fe f_sub(const Fe& a, const Fe& b, const FieldConst& c) { return fe_sub(a, b, c); }
 __device__ __forceinline__ bool f_is_zero(const Fe& a) { return fe_is_zero(a); }
@@ -37,12 +48,13 @@ __device__ __forceinline__ Fe f_load(const Fe*, const int32_t* p, long long i) {
 __device__ __forceinline__ void f_store(int32_t* p, long long i, const Fe& a) { fe_store(p + i * 16, a); }
 
 // Fq2 = Fq[u]/(u^2 + 1); Karatsuba: c0 = v0 - v1, c1 = (a0+a1)(b0+b1) - (v0+v1).
+template <class M = MulC>
 __device__ __forceinline__ Fe2 f_mul(const Fe2& a, const Fe2& b, const FieldConst& c) {
-  Fe v0 = fe_mul(a.c0, b.c0, c);
-  Fe v1 = fe_mul(a.c1, b.c1, c);
+  Fe v0 = M::mul(a.c0, b.c0, c);
+  Fe v1 = M::mul(a.c1, b.c1, c);
   Fe2 r;
   r.c0 = fe_sub(v0, v1, c);
-  r.c1 = fe_sub(fe_mul(fe_add(a.c0, a.c1, c), fe_add(b.c0, b.c1, c), c), fe_add(v0, v1, c), c);
+  r.c1 = fe_sub(M::mul(fe_add(a.c0, a.c1, c), fe_add(b.c0, b.c1, c), c), fe_add(v0, v1, c), c);
   return r;
 }
 __device__ __forceinline__ Fe2 f_add(const Fe2& a, const Fe2& b, const FieldConst& c) {
@@ -94,29 +106,29 @@ struct Jac {
   __device__ __forceinline__ E qz() const { return z; }
 };
 
-template <class E>
+template <class M = MulC, class E>
 __device__ __forceinline__ Jac<E> pt_double(const Jac<E>& p, const FieldConst& c) {
-  E A = f_mul(p.x, p.x, c);
-  E B = f_mul(p.y, p.y, c);
-  E C = f_mul(B, B, c);
+  E A = f_mul<M>(p.x, p.x, c);
+  E B = f_mul<M>(p.y, p.y, c);
+  E C = f_mul<M>(B, B, c);
   E XB = f_add(p.x, B, c);
-  E XB2 = f_mul(XB, XB, c);
-  E YZ = f_mul(p.y, p.z, c);
+  E XB2 = f_mul<M>(XB, XB, c);
+  E YZ = f_mul<M>(p.y, p.z, c);
   E t = f_sub(f_sub(XB2, A, c), C, c);
   E D = f_add(t, t, c);
   E Ev = f_add(f_add(A, A, c), A, c);
-  E Fv = f_mul(Ev, Ev, c);
+  E Fv = f_mul<M>(Ev, Ev, c);
   Jac<E> r;
   r.x = f_sub(Fv, f_add(D, D, c), c);
   E C8 = f_add(C, C, c);
   C8 = f_add(C8, C8, c);
   C8 = f_add(C8, C8, c);
-  r.y = f_sub(f_mul(Ev, f_sub(D, r.x, c), c), C8, c);
+  r.y = f_sub(f_mul<M>(Ev, f_sub(D, r.x, c), c), C8, c);
   r.z = f_add(YZ, YZ, c);
   return r;
 }
 
-template <class E, class Q>
+template <class M = MulC, class E, class Q>
 __device__ __forceinline__ Jac<E> pt_add_core(const Jac<E>& p, const Q& q, const E& U1, const E& U2,
                                               const E& S1, const E& S2, const E& Z1Z2, const FieldConst& c) {
   E H = f_sub(U2, U1, c);
@@ -129,55 +141,55 @@ __device__ __forceinline__ Jac<E> pt_add_core(const Jac<E>& p, const Q& q, const
   } else if (f_is_zero(p.z)) {
     res = Jac<E>{q.qx(), q.qy(), q.qz()};
   } else if (same_x && same_y) {
-    res = pt_double(p, c);
+    res = pt_double<M>(p, c);
   } else if (same_x) {
     E zero = f_zero(H);
     res.x = zero;
     res.y = zero;
     res.z = zero;
   } else {
-    E HH = f_mul(H, H, c);
-    E R2 = f_mul(Rr, Rr, c);
-    E HHH = f_mul(H, HH, c);
-    E V = f_mul(U1, HH, c);
+    E HH = f_mul<M>(H, H, c);
+    E R2 = f_mul<M>(Rr, Rr, c);
+    E HHH = f_mul<M>(H, HH, c);
+    E V = f_mul<M>(U1, HH, c);
     res.x = f_sub(f_sub(R2, HHH, c), f_add(V, V, c), c);
-    res.y = f_sub(f_mul(Rr, f_sub(V, res.x, c), c), f_mul(S1, HHH, c), c);
-    res.z = f_mul(Z1Z2, H, c);
+    res.y = f_sub(f_mul<M>(Rr, f_sub(V, res.x, c), c), f_mul<M>(S1, HHH, c), c);
+    res.z = f_mul<M>(Z1Z2, H, c);
   }
   return res;
 }
 
-template <class E, class Q>
+template <class M = MulC, class E, class Q>
 __device__ __forceinline__ Jac<E> pt_add(const Jac<E>& p, const Q& q, const FieldConst& c) {
-  E Z1Z1 = f_mul(p.z, p.z, c);
-  E Z2Z2 = f_mul(q.qz(), q.qz(), c);
-  E U1 = f_mul(p.x, Z2Z2, c);
-  E U2 = f_mul(q.qx(), Z1Z1, c);
-  E S1 = f_mul(f_mul(p.y, q.qz(), c), Z2Z2, c);
-  E S2 = f_mul(f_mul(q.qy(), p.z, c), Z1Z1, c);
-  E Z1Z2 = f_mul(p.z, q.qz(), c);
-  return pt_add_core(p, q, U1, U2, S1, S2, Z1Z2, c);
+  E Z1Z1 = f_mul<M>(p.z, p.z, c);
+  E Z2Z2 = f_mul<M>(q.qz(), q.qz(), c);
+  E U1 = f_mul<M>(p.x, Z2Z2, c);
+  E U2 = f_mul<M>(q.qx(), Z1Z1, c);
+  E S1 = f_mul<M>(f_mul<M>(p.y, q.qz(), c), Z2Z2, c);
+  E S2 = f_mul<M>(f_mul<M>(q.qy(), p.z, c), Z1Z1, c);
+  E Z1Z2 = f_mul<M>(p.z, q.qz(), c);
+  return pt_add_core<M>(p, q, U1, U2, S1, S2, Z1Z2, c);
 }
 
-template <class E>
+template <class M = MulC, class E>
 __device__ __forceinline__ Jac<E> pt_add_mixed(const Jac<E>& p, const E& x2, const E& y2, const FieldConst& c) {
-  E Z1Z1 = f_mul(p.z, p.z, c);
-  E U2 = f_mul(x2, Z1Z1, c);
-  E S2 = f_mul(y2, f_mul(p.z, Z1Z1, c), c);
+  E Z1Z1 = f_mul<M>(p.z, p.z, c);
+  E U2 = f_mul<M>(x2, Z1Z1, c);
+  E S2 = f_mul<M>(y2, f_mul<M>(p.z, Z1Z1, c), c);
   Jac<E> q;
   q.x = x2;
   q.y = y2;
   q.z = (f_is_zero(x2) && f_is_zero(y2)) ? f_zero(x2) : f_one(x2, c);
-  return pt_add_core(p, q, p.x, U2, p.y, S2, p.z, c);
+  return pt_add_core<M>(p, q, p.x, U2, p.y, S2, p.z, c);
 }
 
 // pt_add_mixed for an affine addend read through its accessors: qx(),
 // qy() its coordinates and qz() the Z of from_affine, 0 for (0, 0) and
 // one otherwise.
-template <class E, class A>
+template <class M = MulC, class E, class A>
 __device__ __forceinline__ Jac<E> pt_add_mixed_q(const Jac<E>& p, const A& a, const FieldConst& c) {
-  E Z1Z1 = f_mul(p.z, p.z, c);
-  E U2 = f_mul(a.qx(), Z1Z1, c);
-  E S2 = f_mul(a.qy(), f_mul(p.z, Z1Z1, c), c);
-  return pt_add_core(p, a, p.x, U2, p.y, S2, p.z, c);
+  E Z1Z1 = f_mul<M>(p.z, p.z, c);
+  E U2 = f_mul<M>(a.qx(), Z1Z1, c);
+  E S2 = f_mul<M>(a.qy(), f_mul<M>(p.z, Z1Z1, c), c);
+  return pt_add_core<M>(p, a, p.x, U2, p.y, S2, p.z, c);
 }

@@ -109,6 +109,12 @@ SOURCES = {
         "zk_g1_fixed_base": (_VP,) * 6 + (_I64, _VP, _VP),
         "zk_g2_fixed_base": (_VP,) * 6 + (_I64, _VP, _VP),
     },
+    "lane_tree": {
+        # points x/y/z, scratch x/y/z, counters, out x/y/z, batch, lanes,
+        # levels_a, per_block, blocks, levels_b, field consts (host), stream
+        "zk_g1_lane_tree": (_VP,) * 10 + (_I32,) * 6 + (_VP, _VP),
+        "zk_g2_lane_tree": (_VP,) * 10 + (_I32,) * 6 + (_VP, _VP),
+    },
 }
 
 LAUNCHERS = tuple(name for fns in SOURCES.values() for name in fns)

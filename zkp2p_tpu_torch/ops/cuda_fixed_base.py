@@ -4,23 +4,28 @@
 No Pallas counterpart: the reference's setup runs these in its native
 C++ library (``csrc/zkp2p_native.cpp``, ``g1_fixed_base_batch_mont`` and
 ``g2_fixed_base_batch_mont``, an 8-bit comb of 32 windows x 255
-multiples).  K17 runs the same comb, one thread a scalar: the scalar's
-32 unsigned 8-bit windows read from its standard-form limbs, one mixed
-addition (``csrc/point.cuh``: pt_add_mixed, the K3 formulas) of the
-table entry 2^(8w) * d * G for each nonzero digit d, the table read from
-global memory (it stays in L2).
+multiples).  K17 runs an 8-bit comb of 32 windows with signed digits:
+the scalar's bytes recoded to digits in [-127, 128] (K14's rule, the top
+window absorbing the last carry since Fr < 2^254), one mixed addition
+(``csrc/point.cuh``: the K3 formulas, over ``csrc/mont_cc.cuh``'s PTX
+product) of the table entry 2^(8w) * |d| * G, y negated for a negative
+digit, for each nonzero digit d, windows in order from the least
+significant.  A block walks the windows in lockstep and stages each
+window's rows in shared memory.
 
-The table (``fixed_base_table``): the 32 x 255 affine multiples of the
-base, (8160, 16) int32 Montgomery limbs per coordinate for G1 and
-(8160, 2, 16) for G2, row w * 255 + d - 1; built once per base and
+The table (``fixed_base_table``): the 32 x 128 affine multiples of the
+base, (4096, 16) int32 Montgomery limbs per coordinate for G1 and
+(4096, 2, 16) for G2, row w * 128 + |d| - 1; built once per base and
 device with the host curve and kept on the device.
 
 ``fixed_base`` launches K17 for CUDA tensors and runs
 ``fixed_base_plain`` for CPU tensors; a tensor on any other device
-raises.  Both give Jacobian points (Z = 0 for the scalar 0); every step
-is the same complete add, so the kernel equals the plain version bit for
-bit.  ``ops.msm_affine.jac_to_affine_batch`` (K15) makes them the key's
-affine limbs.
+raises.  Both give Jacobian points (Z = 0 for the scalar 0); the plain
+version recodes with ``ops.msm.signed_digit_planes_from_limbs`` and adds
+the same entries in the same order with the same complete add, so the
+kernel equals it bit for bit.  ``ops.msm_affine.jac_to_affine_batch``
+(K15) makes them the key's affine limbs, which are unique, so they equal
+the reference's.
 """
 
 from __future__ import annotations
@@ -37,10 +42,11 @@ from ..field.tower import Fq2
 from . import cuda_build
 from .cuda_curve import point_op_plain
 from .cuda_mont import NUM_LIMBS, check_cuda_operand, field_consts
+from .msm import signed_digit_planes_from_limbs
 
 WINDOWS = 32
 WINDOW_BITS = 8
-DIGITS = (1 << WINDOW_BITS) - 1  # 255 multiples a window
+ROWS = 1 << (WINDOW_BITS - 1)  # 128 multiples a window: |d| = 1..128
 
 _tables: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 _lock = threading.Lock()
@@ -78,7 +84,7 @@ def _affine_adds(g2: bool, ps, qs):
 
 
 def table_points(g2: bool, base):
-    """The table's host points, row w * 255 + d - 1 = 2^(8w) * d * base:
+    """The table's host points, row w * 128 + d - 1 = 2^(8w) * d * base:
     the 32 window bases by doublings, then the multiples of all windows
     a digit at a time (one batched inversion a digit)."""
     bases = [base]
@@ -88,9 +94,9 @@ def table_points(g2: bool, base):
             pw = _affine_adds(g2, [pw], [pw])[0]
         bases.append(pw)
     cols = [bases]
-    for _ in range(DIGITS - 1):
+    for _ in range(ROWS - 1):
         cols.append(_affine_adds(g2, cols[-1], bases))
-    return [cols[d][w] for w in range(WINDOWS) for d in range(DIGITS)]
+    return [cols[d][w] for w in range(WINDOWS) for d in range(ROWS)]
 
 
 def fixed_base_table(g2: bool, base, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -106,26 +112,34 @@ def fixed_base_table(g2: bool, base, device) -> Tuple[torch.Tensor, torch.Tensor
         return got
 
 
-def _digits(scalars: torch.Tensor, w: int) -> torch.Tensor:
-    return (scalars[:, w // 2].long() >> (WINDOW_BITS * (w % 2))) & DIGITS
+def signed_windows(scalars: torch.Tensor):
+    """The signed 8-bit digits of standard-form scalars (n, 16): (mags,
+    negs), each (32, n), least significant window first; |d| in [0,
+    128], negs where d < 0."""
+    mags, negs = signed_digit_planes_from_limbs(scalars, WINDOW_BITS)
+    return mags.flip(0), negs.flip(0)
 
 
 def fixed_base_plain(g2: bool, table: Tuple[torch.Tensor, torch.Tensor], scalars: torch.Tensor) -> JacPoint:
-    """Plain torch version of K17, any device: the same comb, one plain
-    K3 step (``point_op_plain``) a window over every scalar, a zero digit
-    adding the (0, 0) sentinel."""
+    """Plain torch version of K17, any device: the same signed comb, one
+    plain K3 step (``point_op_plain``) a window over every scalar, y
+    negated as 0 - y for a negative digit, a zero digit adding the (0, 0)
+    sentinel."""
     elem = (2, NUM_LIMBS) if g2 else (NUM_LIMBS,)
     n = scalars.shape[0]
     zero = torch.zeros((n,) + elem, dtype=torch.int32, device=scalars.device)
     acc = (zero, zero, zero)
+    mags, negs = signed_windows(scalars)
+    shape = (n,) + (1,) * len(elem)
     for w in range(WINDOWS):
-        d = _digits(scalars, w)
+        d = mags[w].long()
         if not bool(d.any()):
             continue
-        idx = (w * DIGITS + d - 1).clamp(min=0)
-        live = (d > 0).reshape((n,) + (1,) * len(elem))
+        idx = (w * ROWS + d - 1).clamp(min=0)
+        live = (d > 0).reshape(shape)
         ax = torch.where(live, table[0].index_select(0, idx), zero)
-        ay = torch.where(live, table[1].index_select(0, idx), zero)
+        ty = table[1].index_select(0, idx)
+        ay = torch.where(live, torch.where(negs[w].reshape(shape), FQ.neg(ty), ty), zero)
         acc = point_op_plain("add_mixed", g2, *acc, ax, ay)
     return acc
 
@@ -134,7 +148,7 @@ def _check(g2: bool, table, scalars: torch.Tensor) -> None:
     elem = (2, NUM_LIMBS) if g2 else (NUM_LIMBS,)
     if scalars.dim() != 2 or scalars.shape[1] != NUM_LIMBS:
         raise ValueError(f"fixed_base: scalars {tuple(scalars.shape)}, expected (n, 16) limbs")
-    want = (WINDOWS * DIGITS,) + elem
+    want = (WINDOWS * ROWS,) + elem
     if any(tuple(c.shape) != want for c in table):
         raise ValueError(f"fixed_base: table {[tuple(c.shape) for c in table]}, expected {want}")
 

@@ -9,11 +9,13 @@ Jacobian partials; a Horner fold (acc = 2^w * acc + plane) then reduces
 the planes and a pairwise tree the lanes.  The reference's `lax.scan`
 over lane steps is, for G1 and G2 alike, two kernels a chunk of steps
 (``_accumulate_chunked``: K6/K8 build the chunk's tables, K7/K9
-accumulate them; ``ops.cuda_msm_window``), and its `lax.scan` over
+accumulate them; ``ops.cuda_msm_window``), its `lax.scan` over
 planes one kernel a fold (``horner_fold_planes``: K10 for G1, K11 for
-G2; ``ops.cuda_msm_fold``).  The step loops over point kernels
-(``_accumulate_steps``, ``_fold_steps``) remain as the comparators that
-the tests and ``chip_smoke.py`` hold the kernels against.  The planes
+G2; ``ops.cuda_msm_fold``), and its pairwise lane tree one kernel a tree
+(``tree_reduce``: K18; ``ops.cuda_lane_tree``).  The step loops over
+point kernels (``_accumulate_steps``, ``_fold_steps``,
+``tree_reduce_steps``) remain as the comparators that the tests and
+``chip_smoke.py`` hold the kernels against.  The planes
 come from ``signed_digit_planes``: one launch of K14
 (``ops.cuda_recode``) on a CUDA tensor, the Kogge-Stone recode
 ``signed_digit_planes_from_limbs`` (its comparator) on a CPU tensor.
@@ -32,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..curve.tcurve import AffPoint, JacPoint, TCurve
+from .cuda_lane_tree import lane_tree, tree_steps
 from .cuda_msm_fold import g1_horner_fold, g2_horner_fold
 from .cuda_msm_window import (chunk_steps, g1_window_accumulate, g1_window_table, g2_window_accumulate,
                                g2_window_table)
@@ -40,19 +43,20 @@ from .cuda_recode import signed_recode
 
 def tree_reduce(curve: TCurve, pts: JacPoint, axis_len: int) -> JacPoint:
     """Sum `axis_len` points along the last batch axis by pairwise
-    halving; an odd count pads one infinity (zero) lane."""
-    n = axis_len
-    ax = pts[0].dim() - 1 - len(curve.elem)
-    while n > 1:
-        if n % 2:
-            pad = [0, 0] * len(curve.elem) + [0, 1]
-            pts = tuple(F.pad(c, pad) for c in pts)
-            n += 1
-        lo = tuple(c.narrow(ax, 0, n // 2) for c in pts)
-        hi = tuple(c.narrow(ax, n // 2, n // 2) for c in pts)
-        pts = curve.add(lo, hi)
-        n //= 2
-    return tuple(c.squeeze(ax) for c in pts)
+    halving; an odd count pads one infinity (zero) lane.  One launch of
+    K18 (``ops.cuda_lane_tree``) for CUDA tensors, every witness of a
+    batch in it; the level loop ``tree_reduce_steps`` for CPU tensors."""
+    if pts[0].shape[pts[0].dim() - 1 - len(curve.elem)] != axis_len:
+        raise ValueError(f"tree_reduce: {axis_len} lanes, points {tuple(pts[0].shape)}")
+    if all(c.device.type == "cpu" for c in pts):
+        return tree_reduce_steps(curve, pts, axis_len)
+    return lane_tree(curve.g2, pts)
+
+
+def tree_reduce_steps(curve: TCurve, pts: JacPoint, axis_len: int) -> JacPoint:
+    """tree_reduce one curve.add a level (K2 on the card): the same sum,
+    bit for bit."""
+    return tree_steps(curve.add, pts, axis_len, len(curve.elem))
 
 
 def horner_fold_planes(curve: TCurve, init: JacPoint, planes_stacked: JacPoint, window: int) -> JacPoint:
