@@ -4,7 +4,10 @@
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
 Phases, each of which raises on failure (the script then exits nonzero
-and prints no result line):
+and prints no result line).  They run in the order 1, 8 (its CLI
+subprocesses beside it and phase 9), 9, 2 (no other process on the card),
+3, 6, 7 (phase 4's h_evals check and synthetic key beside its `prove`
+and `batch` subprocesses), 4, 5, the profiles:
 
 1. Build: every kernel source under zkp2p_tpu_torch/csrc/ with nvcc for
    sm_90a, one process per source, all started together, timed as
@@ -30,7 +33,9 @@ and prints no result line):
    classes' 64 x 2,088 x 17; K8/K9 at the b2 MSM's narrow chunk 3 x 4,096
    x 85 and wide chunk 64 x 572 x 17, with the special lanes): timed, its
    plain version timed on the same inputs, and the two outputs held
-   bitwise.  The whole G1 MSM through K6/K7, at 2^16 points with 64 digit
+   bitwise (K6-K9 over the chunk's first 8 steps, the whole chunk timed;
+   K7/K9's whole chunk also equal under both digit layouts).  The whole
+   G1 MSM through K6/K7, at 2^16 points with 64 digit
    planes and at 2^18 with the narrow class's 3 (16,384 lanes), and the
    whole G2 MSM through K8/K9, at 2^16 points with 64 planes (2,048
    lanes) and with 3 (4,096 lanes), are held bitwise against the step
@@ -42,7 +47,8 @@ and prints no result line):
    narrow 4,096 x 3 x 4), with the special lanes (init at infinity,
    partials at infinity, a partial equal to 2^w * acc and to -2^w * acc):
    timed, with the operation bound and the chain floor, and held bitwise
-   against one plain run over all the lanes of the same (planes, window).
+   against one plain run over all the lanes of the same (planes, window),
+   over the first 8 planes (all of them timed).
    K12 on three random canonical rows with 0, 1, r-1 and the Montgomery
    one at log m 1, 2, 11, 12 and 16, at every pass of each size's plan
    (the first pass bit-reversed, with no factor, the 1/m constant and the
@@ -50,7 +56,8 @@ and prints no result line):
    ntt_pass_plain, and ntt, intt and coset_ladder there against the
    stage-at-a-time _ntt_core compositions; then each pass of the 2^23
    plan at the H ladder's shape (3 rows): timed with its bound, its plain
-   version timed on the same inputs, both held bitwise; and ntt and intt
+   version timed on the first row, held bitwise there, the in-place pass
+   equal to the out-of-place one on all three; and ntt and intt
    of one 2^23 row against _ntt_core (K1 products, plain add/sub).
    K13 on random CSR matrices of 1, 257 and 2^20 rows (an empty row, a
    wire repeated in a row, coefficients and witness values 0, 1, r-1, and
@@ -86,7 +93,7 @@ and prints no result line):
    in Fq2) and batch_inverse at a bucket level (2^22 x 16); the K16
    accumulate at each chunk (3 x 16,384 x 42, 64 x 2,048 x 17, 64 x 512
    x 18, 3 x 4,096 x 85 and 64 x 512 x 18 in Fq2), its plain version
-   over the first 4 steps; the G1 add at a bucket level (2^22 x 16
+   over the first 2 steps; the G1 add at a bucket level (2^22 x 16
    planes, the strided halves of 2^23 x 16) and the G2 add at 2^16:
    each timed with its bound and its plain version (over the first 2^16
    elements above that), held bitwise.  The whole affine MSMs through
@@ -132,7 +139,7 @@ and prints no result line):
    new (u64 upload, K13, K14), old (host widen, gathered K1 products and
    segment sums, Kogge-Stone), new; abc and the planes held bitwise
    equal (the witness_same_run line).  h_evals is held against the plain
-   path (CPU) at 2^16,
+   path (CPU) at 2^14,
    and at real size through K12 against the stage-at-a-time ladder
    (ntt._ladder_steps) in turns (K12, ladder steps, K12; bitwise equal).
    Then the h MSM at real size (2^23 bases, 64 planes) once each way in
@@ -191,53 +198,78 @@ and prints no result line):
    `python -m zkp2p_tpu_torch prove` on those files and then `verify`
    (exit 0, OK) as subprocesses, timed on the wall clock (what a user of
    the drop-in path waits for, files to proof.json; the prove's gpu/prove
-   span read from its --trace file); then in this
-   process main(["prove", ...]) with r and s pinned (secrets.randbelow
+   span read from its --trace file), and beside them `batch` at chunk 4
+   over the 4 .wtns (the package's __main__ run as -m runs it, with the
+   draws pinned; its gpu/prove_batch span from its --trace file); then in
+   this process main(["prove", ...]) with r and s pinned (secrets.randbelow
    patched), its launches counted, each step of its path timed with a
    synchronise at each boundary (read_zkey, read_wtns, reduce_rows,
    device_pk_from_zkey with infer_zkey_widths inside it, prove_gpu,
    dump), its gpu/prove span, the width classes of the key it imported
    (the synthetic R1CS has no bit-constraint rows, so inference leaves
    every wire but wire 0 wide: the imported key's MSMs run wide), its
-   proof.json byte-equal to prove_gpu's on that key; `batch` at chunk 4
-   over the 4 .wtns as a subprocess (the package's __main__ run as -m
-   runs it, with the draws pinned; its gpu/prove_batch span from its
-   --trace file), then main(["batch", ...]) in this process with the same
+   proof.json byte-equal to prove_gpu's on that key; then
+   main(["batch", ...]) in this process with the same
    draws, handed the zkey and the key that the in-process prove read and
    imported (no third 3 GB import), its launches counted: every file
    equal to the subprocess's and to the proofs its prove_gpu_batch
    returned, w0's to prove_gpu's with its (r, s); the witness's batch
    proof verifies, a seeded one's does not.  The CLI's prove must launch
    the Jacobian path's kernels and no other, its batch the batch path's,
-   K12 6, K13 and K14 2 times a proof (a chunk).  .chip_scratch/cli/ is
-   deleted at the end.
-8. The flagship circuit (the flagship line): `python -m zkp2p_tpu_torch
-   --circuit venmo --max-header 1024 --max-body 6400 prove --demo`
-   starts as a subprocess, r and s pinned to the first proof's; it
-   builds its circuit on the host for 80-100 s before it reads the
-   zkey.  Meanwhile phase 1's VenmoParams() is set up on the card by
+   K12 6, K13 and K14 2 times a proof (a chunk), checked once phase 4
+   has counted those paths.  .chip_scratch/cli/ is deleted at the end.
+8. The flagship circuit (the flagship line).  Its start, just after
+   phase 1: phase 1's VenmoParams() is set up on the card by
    setup_device (its stages, qap_coo and widths_array timed inside it,
    its launches counted), its counts (constraints, publics, wires, QAP
    rows, domain, nonzeros of A and B, the b and c query classes) held
    equal to VENMO, which was read from the reference's builder, and the
    key's a classes to the circuit's tagged widths; the files the CLI's
    setup writes (zkey_from_key, write_zkey_data, vkey_to_json,
-   export_verifier) go under .chip_scratch/flagship/ in one rename; the
-   256/192 `setup` (the audit on) starts as a second subprocess; four
-   synthetic signed Venmo emails (FLAGSHIP_EMAILS) go through
-   generate_inputs and cs.witness, each timed; the zkey's classes are
-   inferred (infer_zkey_widths) and the 256/192 circuit is set up here.
-   The card work of the three processes overlaps nowhere.  Once both
-   subprocesses have ended (their wall clock, logged steps and sampled
-   peak RSS recorded): prove_gpu on the first witness (launches counted,
-   the Jacobian path's kernels; verify accepts it and rejects a changed
-   public signal; the same (r, s) proves the same bytes again, timed
-   warm), prove_gpu_batch of the four at chunk 4 (every proof verifies,
-   the first equals prove_gpu's), the first again on the key with the
-   zkey's inferred classes (the same bytes; first and warm timed).
-   Then: the CLI setup's three files byte-equal to this process's; the
-   CLI prove's proof.json and public.json equal to prove_gpu's and its
-   key's classes to the inferred ones; `verify` (OK).
+   export_verifier) go under .chip_scratch/flagship/ in one rename (in
+   a thread, as what follows until the inference);
+   then `python -m zkp2p_tpu_torch --circuit venmo --max-header 1024
+   --max-body 6400 prove --demo` (r and s pinned to the first proof's;
+   it builds its circuit on the host for 80-110 s before it reads the
+   zkey) and the 256/192 `setup` (the audit on) start as subprocesses,
+   which run beside the rest of this phase and phase 9, and the zkey's
+   classes are inferred (infer_zkey_widths).  Then in this process:
+   four synthetic signed Venmo emails (FLAGSHIP_EMAILS) go through
+   generate_inputs, the first through cs.witness and all four through
+   cs.witness_batch (the first equal both ways), each timed; the 256/192
+   circuit is set up here; the first witness is checked against the R1CS
+   (cs.check_witness, which builds the check's matrices once for the
+   circuit: phase 9's service checks every witness); prove_gpu on the
+   first witness (launches counted, the Jacobian path's kernels; verify
+   accepts it and rejects a changed public signal; the same (r, s)
+   proves the same bytes again, timed warm), prove_gpu_batch of the four
+   at chunk 4 (every proof verifies, the first equals prove_gpu's), the
+   first again on the key with the zkey's inferred classes (the same
+   bytes; first and warm timed).  Then the CLI setup's three files
+   byte-equal to this process's (its wall clock, logged steps and sampled
+   peak RSS recorded), and phase 9's `service` subprocess starts on them.
+   After phase 9: the CLI prove's proof.json and public.json equal to
+   prove_gpu's and its key's classes to the inferred ones; `verify` (OK)
+   as a subprocess beside phase 2.
+9. The proving service (the service line), on phase 8's resident key:
+   `python -m zkp2p_tpu_torch --circuit venmo service --batch 2`, started
+   by phase 8 as a subprocess over three demo requests, on the 256/192
+   key phase 8's `setup` wrote.  ProvingService.for_venmo at batch 4 sweeps
+   FLAGSHIP_EMAILS as demo payloads beside a payload with no raw_id, a
+   torn request and one past its deadline, proving with prove_gpu_batch
+   at phase 8's (r, s): 4 done, 2 error-bad-input, 1
+   error-deadline-exceeded, each .proof.json and .public.json equal to
+   phase 8's batch proof's, the done records carrying batch_index,
+   batch_n and hbm_peak_bytes.  Once the subprocess has its three proofs
+   it gets SIGTERM and must exit 0 having drained, within 60 s, leaving
+   no claim; its proofs verify under its vk and its sink holds three done
+   records and a time-series line.  Then the default prover (random r,
+   s) over eight new demo emails at batch 4 and prefetch 1 (phase 8's
+   `prove --circuit venmo` may still run beside it): its launches counted over the sweep (two chunks, each K12 6,
+   K13 and K14 2, K18 7 + 2, K2 3 + 1; nothing of NOT_ON_JACOBIAN),
+   every proof verified; requests/s, the witness_batch, check_witness
+   and prove seconds of each batch, the card's busy share (prove seconds
+   over the sweep's wall clock), peak device memory and host RSS.
 
 The launch counts are reset just before the first timed proof of each
 path and read just after it (phase 8: just before and after its setup,
@@ -278,8 +310,8 @@ seconds, the gpu/prove span, the classes, the launches of the CLI's
 prove and batch, the batch's seconds and proofs/s beside
 prove_gpu_batch's), and the flagship circuit's (phase 8: counts, build,
 witness, qap_coo, setup, proof and batch seconds, the CLI's wall clock,
-steps, classes and peak RSS, the 256/192 setup).  The last line is
-{"ok": true, "device": {...}}.
+steps, classes and peak RSS, the 256/192 setup), and the service's
+(phase 9).  The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -323,7 +355,7 @@ JACOBIAN_TIMED = 3  # timed real-size proofs of the Jacobian path
 AFFINE_ARMS = {"msm_affine": True, "msm_h": "bucket"}
 # the bucket h MSM's plane group sizes timed against the default in one call
 PLANE_GROUPS = (1, 2, 4, 8, 16)
-H_CHECK_LOG_M = 16
+H_CHECK_LOG_M = 14
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 INT_MULS_PER_SM_CLK = 64  # 32-bit integer multiply-adds per SM per clock (Hopper: 64 INT32 lanes per SM)
 # 32-bit multiplies of one 8x32-bit CIOS Montgomery product: 64 + 64
@@ -414,6 +446,8 @@ PATH_KERNELS["cli_batch"] = tuple(k for k in PATH_KERNELS["batch"] if k != "g2_a
 PATH_KERNELS["flagship_setup"] = SETUP_KERNELS
 PATH_KERNELS["flagship_prove"] = PATH_KERNELS["jacobian"]
 PATH_KERNELS["flagship_batch"] = PATH_KERNELS["batch"]
+# phase 9: the service's sweep on the default prover, two batch chunks
+PATH_KERNELS["service"] = PATH_KERNELS["batch"]
 # K1's launches left on a proof, either path: to_mont of the witness, Cz =
 # Az*Bz, a*b after the ladder, from_mont of the witness and of H
 K1_JACOBIAN_MAX = 5
@@ -429,6 +463,11 @@ NOT_ON_AFFINE = OFF_PATH + ("g1_window_accumulate", "g2_window_accumulate") + FI
 # the path's chunk shapes
 WINDOW_BATCHES = ((1, 64, 3), (257, 64, 3), (257, 3, 3))
 N_TABLE = 8  # window 4
+# at the path's chunk shapes the plain table and accumulate run over the
+# chunk's first WINDOW_PLAIN_STEPS steps (a step's table depends on that
+# step's bases alone; the kernel runs the same prefix for the comparison,
+# and the whole chunk timed)
+WINDOW_PLAIN_STEPS = 8
 # K15/K16: batches held bitwise against plain; the elements that share
 # one inversion in K15 (256 threads x 4), K16's block (the accumulate's
 # thread owns one lane; the add's takes K16_PER elements)
@@ -440,7 +479,7 @@ K16_PER = 4
 # (each output depends on its own element's inputs alone), and the K16
 # accumulate's over a chunk's first AFFINE_PLAIN_STEPS steps
 PLAIN_SLICE = 1 << 16
-AFFINE_PLAIN_STEPS = 4
+AFFINE_PLAIN_STEPS = 2
 # a w = 16 bucket h MSM's first prefix level: 2^22 pairs in each of 16 planes
 BUCKET_LEVEL = (1 << 22, 16)
 # the dependent chain of one Euclid round (csrc/affine.cuh: fe_inv): the
@@ -463,6 +502,10 @@ WINDOW_MSMS = {
 # K10/K11: (lanes, planes, window) held bitwise against plain, before the
 # paths' fold shapes
 FOLD_CASES = ((1, 3, 4), (257, 64, 4), (1, 16, 16))
+# the plain fold (and the kernel for the comparison) runs over the first
+# FOLD_PLAIN_PLANES planes of a case with more: Horner's rule over a
+# prefix of the planes is the same fold of fewer planes
+FOLD_PLAIN_PLANES = 8
 # K18: (batch, lanes) held bitwise against the K2 loop and the plain
 # version before the paths' trees: one lane, two, odd counts, one stage
 # and two (above lane_tree.CAP lanes)
@@ -472,6 +515,9 @@ LANE_TREE_CASES = ((1, 1), (1, 2), (1, 3), (1, 17), (4, 17), (3, 257), (2, 600))
 # 2^23 plan's passes at the H ladder's shape (three rows)
 NTT_CHECK_LOGS = (1, 2, 11, 12, 16)
 LADDER_ROWS = 3
+# at 2^23 the plain pass runs over the first NTT_PLAIN_ROWS of the
+# ladder's rows (a pass transforms each row alone)
+NTT_PLAIN_ROWS = 1
 # K13: rows of the random CSR matrices held bitwise against plain (about
 # three nonzeros a row, special rows; the 257-row one also holds a row of
 # MATVEC_LONG_ROW nonzeros), before the synthetic key's A and B
@@ -507,6 +553,20 @@ FLAGSHIP_SEED = "chip-smoke-flagship"
 FLAGSHIP_DIR = ".chip_scratch/flagship"
 SMALL_VENMO = (256, 192)
 SETUP_FILES = ("circuit_final.zkey", "verification_key.json", "verifier.sol")
+# phase 9: the service's scratch, its batch and prefetch on the default
+# path, that path's eight new demo emails (two batches), the three of the
+# CLI's `service` at 256/192, how long the CLI may take for its proofs
+# and how long it may take to drain after SIGTERM
+SERVICE_DIR = ".chip_scratch/service"
+SERVICE_BATCH = 4
+SERVICE_PREFETCH = 1
+SERVICE_EMAILS = (("5678912345678912345", "12", 11), ("6789123456789123456", "99", 12),
+                  ("7891234567891234567", "250", 13), ("8912345678912345678", "3", 14),
+                  ("9123456789123456789", "40", 15), ("1357913579135791357", "75", 16),
+                  ("2468024680246802468", "1000", 17), ("9876543219876543210", "60", 18))
+SERVICE_CLI_EMAILS = FLAGSHIP_EMAILS[:3]
+SERVICE_CLI_WAIT_S = 300
+SERVICE_DRAIN_S = 60
 # the launchers whose launches a batch chunk makes as often as one proof:
 # the tables once a chunk of steps, the accumulates once for the chunk's
 # witnesses, the folds and the lane trees once over the chunk's lanes
@@ -1338,26 +1398,36 @@ def check_window_kernels(torch, g2, shapes, peak_muls_per_s, device):
     def check(steps, lanes, n_digits, timed=False):
         bases, acc, mags, negs, s0 = window_case(torch, gen, g2, steps, lanes, n_digits, device)
         times = {}
+        # timed: the plain versions over the first WINDOW_PLAIN_STEPS steps
+        S = min(steps, WINDOW_PLAIN_STEPS) if timed else steps
         if timed:
             times["table"], table = cuda_ms(torch, lambda: table_of(bases, N_TABLE), 5)
-            times["table_plain"], want = cuda_ms(torch, lambda: table_plain(bases), 1, warmup=False)
+            times["table_plain"], want = cuda_ms(torch, lambda: table_plain(tuple(b[:S] for b in bases)), 1,
+                                                 warmup=False)
         else:
             table, want = table_of(bases, N_TABLE), table_plain(bases)
-        err_t = max_abs_err(torch, table, want)
+        err_t = max_abs_err(torch, tuple(c[:S] for c in table), want)
         if err_t:
             raise AssertionError(f"{name_t} ({steps} x {lanes}) differs from its plain version")
+        cut = tuple(c[:S] for c in table)
         if timed:
-            times["acc"], got = cuda_ms(torch, lambda: accumulate(acc, table, mags, negs, s0), 3)
+            times["acc"], whole = cuda_ms(torch, lambda: accumulate(acc, table, mags, negs, s0), 3)
+            # the whole chunk over the same digits laid out contiguously
+            if max_abs_err(torch, whole, accumulate(acc, table, mags.contiguous(), negs.contiguous(), s0)):
+                raise AssertionError(f"{name_a} ({n_digits} x {lanes}, {steps} steps) differs between the digits' "
+                                     "layouts")
+            del whole
             times["acc_plain"], want = cuda_ms(
-                torch, lambda: accumulate_plain(acc, table, mags, negs, s0), 1, warmup=False)
+                torch, lambda: accumulate_plain(acc, cut, mags, negs, s0), 1, warmup=False)
         else:
-            got = accumulate(acc, table, mags, negs, s0)
-            want = accumulate_plain(acc, table, mags, negs, s0)
+            want = accumulate_plain(acc, cut, mags, negs, s0)
+        got = accumulate(acc, cut, mags, negs, s0)
         # the same digits laid out contiguously
-        got_c = accumulate(acc, table, mags.contiguous(), negs.contiguous(), s0)
+        got_c = accumulate(acc, cut, mags.contiguous(), negs.contiguous(), s0)
         err_a = max(max_abs_err(torch, got, want), max_abs_err(torch, got_c, want))
         if err_a:
-            raise AssertionError(f"{name_a} ({n_digits} x {lanes}, {steps} steps) differs from its plain version")
+            raise AssertionError(f"{name_a} ({n_digits} x {lanes}, {S} steps) differs from its plain version")
+        times["plain_steps"] = S
         return times, (err_t, err_a), mags[:, s0:s0 + steps]
 
     for lanes, n_digits, steps in WINDOW_BATCHES:
@@ -1384,25 +1454,29 @@ def check_window_kernels(torch, g2, shapes, peak_muls_per_s, device):
     for k, (name, (n_digits, steps, lanes)) in enumerate(shapes.items()):
         times, (err_t, err_a), mags = check(steps, lanes, n_digits, timed=True)
         b_t, b_a, adds = bounds(steps, lanes, mags)
+        S = times["plain_steps"]
         at = {
             name_t: dict(shape=[steps, N_TABLE, lanes], max_abs_err=err_t, ms=times["table"],
-                         plain_ms=times["table_plain"], **b_t),
+                         plain_ms=times["table_plain"], plain_steps=S, **b_t),
             name_a: dict(shape=[n_digits, steps, N_TABLE, lanes], max_abs_err=err_a, ms=times["acc"],
-                         plain_ms=times["acc_plain"], adds=adds, ns_per_add=times["acc"] * 1e6 / max(adds, 1), **b_a),
+                         plain_ms=times["acc_plain"], plain_steps=S, adds=adds,
+                         ns_per_add=times["acc"] * 1e6 / max(adds, 1), **b_a),
         }
         for kernel, row in at.items():
             if k == 0:
                 rows[kernel].update(row, chunk=name)
             else:
                 rows[kernel].setdefault("at_shapes", {})[name] = row
-        log(f"{ks} at the {name} chunk ({n_digits} planes x {lanes} lanes x {steps} steps): bitwise equal to plain; "
-            f"table {times['table']:.4f} ms (plain {times['table_plain']:.1f}, bound {b_t['bound_ms']:.4f}), "
-            f"accumulate {times['acc']:.4f} ms (plain {times['acc_plain']:.1f}, bound {b_a['bound_ms']:.4f}, "
+        log(f"{ks} at the {name} chunk ({n_digits} planes x {lanes} lanes x {steps} steps): bitwise equal to plain "
+            f"over its first {S} steps; table {times['table']:.4f} ms (plain {times['table_plain']:.1f} over {S} "
+            f"steps, bound {b_t['bound_ms']:.4f}), accumulate {times['acc']:.4f} ms (plain "
+            f"{times['acc_plain']:.1f} over {S} steps, bound {b_a['bound_ms']:.4f}, "
             f"{at[name_a]['ns_per_add']:.3f} ns an add)")
     for row in rows.values():
         row["check"] = (f"bitwise equal to plain at (lanes, planes, steps) {list(WINDOW_BATCHES)} and at the "
-                        f"path's chunk shapes (shape, at_shapes), special lanes included; the {g.upper()} MSM "
-                        f"through it equal to the step loop")
+                        f"path's chunk shapes (shape, at_shapes) over their first {WINDOW_PLAIN_STEPS} steps "
+                        f"(plain_steps; the whole chunk timed, the accumulate's equal under both digit layouts), "
+                        f"special lanes included; the {g.upper()} MSM through it equal to the step loop")
     return rows
 
 
@@ -1587,17 +1661,21 @@ def check_fold_kernels(torch, g2, shapes, peak_muls_per_s, sm_clock_hz, device):
     cases = [(f"{lanes} x {planes} x {window}", (lanes, planes, window), False) for lanes, planes, window in FOLD_CASES]
     cases += [(label, shape, True) for label, shape in shapes.items()]
     inputs = {label: fold_case(torch, gen, g2, *shape, device) for label, shape, _ in cases}
+
+    def cut(shape):  # the (planes, window) the plain version runs
+        return min(shape[1], FOLD_PLAIN_PLANES), shape[2]
+
     want, plain_of = {}, {}
-    for key in dict.fromkeys(shape[1:] for _, shape, _ in cases):
-        labels = [label for label, shape, _ in cases if shape[1:] == key]
+    for key in dict.fromkeys(cut(shape) for _, shape, _ in cases):
+        labels = [label for label, shape, _ in cases if cut(shape) == key]
         init = tuple(torch.cat([inputs[label][0][c] for label in labels]) for c in range(3))
-        planes = tuple(torch.cat([inputs[label][1][c] for label in labels], dim=1) for c in range(3))
+        planes = tuple(torch.cat([inputs[label][1][c][:key[0]] for label in labels], dim=1) for c in range(3))
         ms, out = cuda_ms(torch, lambda: plain(init, planes, key[1]), 1, warmup=False)
         at = 0
         for label in labels:
             n = inputs[label][0][0].shape[0]
             want[label] = tuple(c[at:at + n] for c in out)
-            plain_of[label] = dict(plain_ms=ms, plain_lanes=init[0].shape[0])
+            plain_of[label] = dict(plain_ms=ms, plain_lanes=init[0].shape[0], plain_planes=key[0])
             at += n
 
     def call(init, planes, window):
@@ -1612,9 +1690,8 @@ def check_fold_kernels(torch, g2, shapes, peak_muls_per_s, sm_clock_hz, device):
     for label, (lanes, n_planes, window), timed in cases:
         init, planes = inputs[label]
         if timed:
-            ms, got = cuda_ms(torch, lambda: call(init, planes, window), 10)
-        else:
-            got = call(init, planes, window)
+            ms, _ = cuda_ms(torch, lambda: call(init, planes, window), 10)
+        got = call(init, tuple(c[:FOLD_PLAIN_PLANES] for c in planes), window)
         if max_abs_err(torch, got, want[label]):
             raise AssertionError(f"{name} ({label}) differs from its plain version")
         if not timed:
@@ -1629,12 +1706,15 @@ def check_fold_kernels(torch, g2, shapes, peak_muls_per_s, sm_clock_hz, device):
         else:
             row.update(at, fold=label)
         log(f"{ks} at the {label} fold ({lanes} lanes x {n_planes} planes x window {window}): bitwise equal to "
-            f"plain; {ms:.4f} ms (plain {at['plain_ms']:.1f} over {at['plain_lanes']} lanes, bound "
-            f"{at['bound_ms']:.4f}, chain floor {at['chain_floor_ms']:.4f})")
+            f"plain over its first {at['plain_planes']} planes; {ms:.4f} ms (plain {at['plain_ms']:.1f} over "
+            f"{at['plain_lanes']} lanes x {at['plain_planes']} planes, bound {at['bound_ms']:.4f}, chain floor "
+            f"{at['chain_floor_ms']:.4f})")
     row["check"] = (f"bitwise equal to plain at (lanes, planes, window) {list(FOLD_CASES)} and at the paths' "
-                    f"fold shapes (shape, at_shapes), special lanes included; the plain version run once over "
-                    f"all the lanes of a (planes, window)")
-    log(f"{ks}: bitwise equal to plain at {FOLD_CASES} (lanes, planes, window), special lanes included")
+                    f"fold shapes (shape, at_shapes), special lanes included, over the first {FOLD_PLAIN_PLANES} "
+                    f"planes (plain_planes; all of them timed); the plain version run once over all the lanes of "
+                    f"a (planes, window)")
+    log(f"{ks}: bitwise equal to plain at {FOLD_CASES} (lanes, planes, window) over the first {FOLD_PLAIN_PLANES} "
+        "planes, special lanes included")
     return {name: row}
 
 
@@ -1790,26 +1870,29 @@ def check_ntt_kernel(torch, peak_muls_per_s, device):
         bitrev = s0 == 0
         out = torch.empty_like(x)
         ms, got = cuda_ms(torch, lambda: cuda_ntt.ntt_pass(x, tw, s0, k, bitrev, f, out=out), 5)
-        plain_ms, want = cuda_ms(torch, lambda: cuda_ntt.ntt_pass_plain(x, tw, s0, k, bitrev, f), 1, warmup=False)
-        err = max_abs_err(torch, got, want)
+        plain_ms, want = cuda_ms(torch, lambda: cuda_ntt.ntt_pass_plain(x[:NTT_PLAIN_ROWS], tw, s0, k, bitrev, f),
+                                 1, warmup=False)
+        err = max_abs_err(torch, got[:NTT_PLAIN_ROWS], want)
         if not bitrev:
             y = x.clone()
             cuda_ntt.ntt_pass(y, tw, s0, k, out=y)
-            err = max(err, max_abs_err(torch, y, want))
+            err = max(err, max_abs_err(torch, y, got))
         if err:
             raise AssertionError(f"fr_ntt_pass at 2^{log_full} x {LADDER_ROWS} ({label}) differs from plain")
         products = LADDER_ROWS * (k * m // 2 + (m if f is not None else 0))
         nbytes = (2 * LADDER_ROWS * m + (m if f is not None else 0) + (1 << (s0 + k - 1))) * 64
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, products * MULS_PER_MONT / peak_muls_per_s
         at = dict(shape=[LADDER_ROWS, m], stages=[s0, k], max_abs_err=0, ms=ms, plain_ms=plain_ms,
-                  bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes > t_ops else "operations",
+                  plain_rows=NTT_PLAIN_ROWS, bound_ms=max(t_bytes, t_ops) * 1e3,
+                  bound_by="bytes" if t_bytes > t_ops else "operations",
                   products=products, shared_bytes_per_block=32 << k)
         if row:
             row.setdefault("at_shapes", {})[label] = at
         else:
             row.update(at, **{"pass": label})
-        log(f"K12 at 2^{log_full} x {LADDER_ROWS}, {label}, stages {s0}..{s0 + k - 1}: bitwise equal to plain; "
-            f"{ms:.4f} ms (plain {plain_ms:.1f}, bound {at['bound_ms']:.4f} by {at['bound_by']}; "
+        log(f"K12 at 2^{log_full} x {LADDER_ROWS}, {label}, stages {s0}..{s0 + k - 1}: bitwise equal to plain on "
+            f"its first {NTT_PLAIN_ROWS} row(s), in place equal to out of place; {ms:.4f} ms (plain {plain_ms:.1f} "
+            f"over {NTT_PLAIN_ROWS} row(s), bound {at['bound_ms']:.4f} by {at['bound_by']}; "
             f"{32 << k} B of shared memory a block)")
     # whole transforms of one 2^23 row against the stage-at-a-time ladder
     x = ntt_rows(torch, gen, 1, m, device)[0]
@@ -1818,8 +1901,9 @@ def check_ntt_kernel(torch, peak_muls_per_s, device):
         raise AssertionError(f"ntt / intt at 2^{log_full} differ from _ntt_core")
     log(f"ntt and intt at 2^{log_full}: bitwise equal to _ntt_core (plan {plan})")
     row["check"] = (f"bitwise equal to plain at every pass of the plans of 2^{list(NTT_CHECK_LOGS)} (3 rows; no "
-                    f"factor, 1/m, g^i/m; in place) and of 2^{log_full} at the ladder's 3 rows (shape, at_shapes); "
-                    f"ntt, intt and coset_ladder equal to _ntt_core there, ntt and intt at 2^{log_full}")
+                    f"factor, 1/m, g^i/m; in place) and of 2^{log_full} at the ladder's 3 rows (shape, at_shapes; "
+                    f"the plain version over the first {NTT_PLAIN_ROWS}, plain_rows); ntt, intt and coset_ladder "
+                    f"equal to _ntt_core there, ntt and intt at 2^{log_full}")
     row["library_ms_reason"] = "no PyTorch call computes an NTT over Fr (torch.fft is complex floating point)"
     return {"fr_ntt_pass": row}
 
@@ -2531,7 +2615,8 @@ def check_msms(torch, key, witness, ix, tables, stages):
 
 
 def check_h_evals(torch, device):
-    """h_evals on the card against the plain path (the CPU) at 2^16."""
+    """h_evals on the card against the plain path (the CPU) at
+    2^H_CHECK_LOG_M."""
     from zkp2p_tpu_torch.field.tfield import FR
     from zkp2p_tpu_torch.prover.groth16_gpu import h_evals
 
@@ -2553,7 +2638,7 @@ def check_h_evals(torch, device):
     got = h_evals(gpu, w.to(device)).cpu()
     want = h_evals(cpu, w)
     if not torch.equal(got, want):
-        raise AssertionError("h_evals on the card differs from the plain path at 2^16")
+        raise AssertionError(f"h_evals on the card differs from the plain path at 2^{log_m}")
 
 
 # --------------------------------------------------------------- phase 3
@@ -2911,24 +2996,13 @@ PINNED_MAIN = ("import json, runpy, secrets, sys\n"
                "runpy.run_module('zkp2p_tpu_torch', run_name='__main__', alter_sys=True)\n")
 
 
-def cli_subprocess(args, draws=None, timeout=900):
-    """python -m zkp2p_tpu_torch <args> from the root of the checkout;
-    with `draws`, the package's __main__ runs as -m runs it, with
-    secrets.randbelow returning `draws` in turn (the provers draw r then
-    s a proof).  Returns (wall-clock seconds, the completed process); its
-    log goes to ours."""
-    import os
-    import tempfile
-
-    with tempfile.TemporaryDirectory() as t:
-        return cli_finish(cli_start(args, os.path.join(t, "log"), draws), timeout)[:2]
-
-
 def cli_start(args, log_path, draws=None):
-    """cli_subprocess's command started in the background, its standard
-    errors and output to `log_path` and `log_path`.out, its resident
-    memory sampled every 0.1 s from /proc/<pid>/statm by a thread;
-    cli_finish waits for it."""
+    """python -m zkp2p_tpu_torch <args> from the root of the checkout,
+    started in the background; with `draws`, the package's __main__ runs
+    as -m runs it, with secrets.randbelow returning `draws` in turn (the
+    provers draw r then s a proof).  Its standard errors and output go to
+    `log_path` and `log_path`.out, its resident memory is sampled every
+    0.1 s from /proc/<pid>/statm by a thread; cli_finish waits for it."""
     import os
     import threading
 
@@ -2937,7 +3011,7 @@ def cli_start(args, log_path, draws=None):
         cmd = [sys.executable, "-c", PINNED_MAIN, json.dumps(draws), *args]
     err, out = open(log_path, "w"), open(log_path + ".out", "w")
     proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), stdout=out, stderr=err, text=True)
-    rss = {"peak": None}
+    rss = {"peak": None, "end": None}
 
     def sample():
         page = os.sysconf("SC_PAGE_SIZE")
@@ -2949,6 +3023,7 @@ def cli_start(args, log_path, draws=None):
             except (OSError, ValueError, IndexError):
                 pass
             time.sleep(0.1)
+        rss["end"] = time.perf_counter()  # within 0.1 s of its exit
 
     sampler = threading.Thread(target=sample, daemon=True)
     sampler.start()
@@ -2956,10 +3031,10 @@ def cli_start(args, log_path, draws=None):
 
 
 def cli_finish(handle, timeout=900):
-    """(wall-clock seconds from cli_start, the finished process with its
-    stdout and stderr read back, its peak resident memory in GiB as
-    sampled, None where /proc/<pid>/statm cannot be read); its log goes
-    to ours."""
+    """(wall-clock seconds from cli_start to its exit, the finished
+    process with its stdout and stderr read back, its peak resident memory
+    in GiB as sampled, None where /proc/<pid>/statm cannot be read); its
+    log goes to ours."""
     proc, t0, log_path, files, sampler, rss = handle
     try:
         proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
@@ -2970,7 +3045,7 @@ def cli_finish(handle, timeout=900):
         sampler.join()
         for f in files:
             f.close()
-    wall = time.perf_counter() - t0
+    wall = rss["end"] - t0
     with open(log_path) as f:
         stderr = f.read()
     with open(log_path + ".out") as f:
@@ -3049,24 +3124,27 @@ def same_file(a, b) -> bool:
         return fa.read() == fb.read()
 
 
-def cli_phase(torch, inp, jac_launches, batch_launches, device):
+def cli_phase(torch, inp, device, beside):
     """Phase 7: the command line at full size, from the files phase 6
-    wrote.  `python -m zkp2p_tpu_torch prove`, then `verify` (exit 0), as
-    subprocesses, timed on the wall clock; main(["prove", ...]) in this
-    process with r and s pinned, its launches counted and held to the
-    Jacobian path's kernels, each step of its path timed with a
-    synchronise at each boundary (CLI_STEPS and infer_zkey_widths), its
-    gpu/prove span, the classes of the key it imported, its proof.json
-    byte-equal to prove_gpu's on that key; `batch` at chunk BATCH_CHUNK
-    over the CLI_SEEDED + 1 witnesses as a subprocess and as main() here
-    (on the zkey and key the in-process prove read and imported, its
-    launches counted and held to the batch path's), the draws pinned in
-    both, every file equal between the two and to the proofs that
-    main()'s prove_gpu_batch returned, w0's to prove_gpu's; the
-    satisfying witness's batch proof verifies, a seeded one's does not;
-    both subprocesses' spans read from their --trace files.  Deletes
-    CLI_DIR.  Returns the cli_real_size line and the launches of the
-    CLI's prove and batch run here."""
+    wrote, before phase 4.
+    `python -m zkp2p_tpu_torch prove`, then `verify` (exit 0), as
+    subprocesses, timed on the wall clock, and beside them `batch` at
+    chunk BATCH_CHUNK over the CLI_SEEDED + 1 witnesses as a subprocess
+    with the draws pinned; then main(["prove", ...]) in this process with
+    r and s pinned, its launches counted, each step of its path timed
+    with a synchronise at each boundary (CLI_STEPS and
+    infer_zkey_widths), its gpu/prove span, the classes of the key it
+    imported, its proof.json byte-equal to prove_gpu's on that key; and
+    main(["batch", ...]) here on the zkey and key the in-process prove
+    read and imported, its launches counted, the same draws: every file
+    equal to the subprocess's and to the proofs its prove_gpu_batch
+    returned, w0's to prove_gpu's; the satisfying witness's batch proof
+    verifies, a seeded one's does not; both subprocesses' spans read from
+    their --trace files.  `beside()` runs in this process while `prove`
+    and `batch` run (phase 4's set-up).  Deletes CLI_DIR.  Returns the
+    cli_real_size line, the launches of the CLI's prove and batch run
+    here, what check_cli_launches holds them to once phase 4 has run, and
+    what beside() returned."""
     import os
     import secrets
     import shutil
@@ -3078,12 +3156,13 @@ def cli_phase(torch, inp, jac_launches, batch_launches, device):
     from zkp2p_tpu_torch.ops.ntt import pass_plan
     from zkp2p_tpu_torch.pipeline import cli
     from zkp2p_tpu_torch.prover import groth16_gpu
-    from zkp2p_tpu_torch.prover.groth16_gpu import batch_spans, prove_gpu, prove_gpu_batch
+    from zkp2p_tpu_torch.prover.groth16_gpu import batch_spans, prove_gpu
     from zkp2p_tpu_torch.snark.groth16 import verify
     from zkp2p_tpu_torch.utils import trace
 
     paths, vk, pub = inp["paths"], inp["vk"], inp["pub"]
     d = os.path.abspath(CLI_DIR)
+    started = []
 
     def out_path(name):
         return os.path.join(d, name)
@@ -3094,28 +3173,49 @@ def cli_phase(torch, inp, jac_launches, batch_launches, device):
         free, total = torch.cuda.mem_get_info()
         held = torch.cuda.memory_allocated()
         log(f"before the CLI subprocesses: {free / 2**30:.2f} of {total / 2**30:.2f} GiB free on the card, "
-            f"{held / 2**30:.2f} GiB allocated here (phase 4's key)")
+            f"{held / 2**30:.2f} GiB allocated here")
+        rng = random.Random(SEED + 210)
+        r, s = rng.randrange(1, R), rng.randrange(1, R)
+        ws = [reduce_rows(read_wtns(os.path.join(paths["indir"], f"w{i}.wtns"))) for i in range(len(inp["batch"]))]
+        if any((a != b).any() for a, b in zip(ws, inp["batch"])):
+            raise AssertionError("a batch witness read back differs from the one written")
+        rs = [(rng.randrange(1, R), rng.randrange(1, R)) for _ in ws]
 
-        # the drop-in path as a user runs it
+        # the drop-in path as a user runs it: `prove` and `batch` (the
+        # draws pinned) together, then `verify` once the proof exists
         files = ["--zkey", paths["zkey"], "--wtns", paths["wtns"]]
-        prove_s, run = cli_subprocess(["--build-dir", d, "prove", *files, "--proof", out_path("proof.json"),
-                                       "--public", out_path("public.json"), "--trace", out_path("prove.trace")])
+        prove_sub = cli_start(["--build-dir", d, "prove", *files, "--proof", out_path("proof.json"),
+                               "--public", out_path("public.json"), "--trace", out_path("prove.trace")],
+                              out_path("prove.log"))
+        started.append(prove_sub[0])
+        batch_args = ["--build-dir", d, "batch", "--zkey", paths["zkey"], "--indir", paths["indir"],
+                      "--chunk", str(BATCH_CHUNK)]
+        batch_sub = cli_start(batch_args + ["--outdir", out_path("sub"), "--trace", out_path("batch.trace")],
+                              out_path("batch.log"), draws=pinned_draws(rs))
+        started.append(batch_sub[0])
+        beside_out = beside()
+        prove_s, run, _ = cli_finish(prove_sub)
         if run.returncode:
             raise AssertionError(f"python -m zkp2p_tpu_torch prove exited {run.returncode}")
         if load(out_path("public.json")) != [str(v) for v in pub]:
             raise AssertionError("public.json differs from the witness's public inputs")
         prove_log = dict(cli_log_seconds(run.stderr), span_ms=trace_file_span(out_path("prove.trace"), "gpu/prove"))
-        verify_s, run = cli_subprocess(["--build-dir", d, "verify", "--proof", out_path("proof.json"),
-                                        "--public", out_path("public.json")])
+        verify_sub = cli_start(["--build-dir", d, "verify", "--proof", out_path("proof.json"),
+                                "--public", out_path("public.json")], out_path("verify.log"))
+        started.append(verify_sub[0])
+        sub_s, run, _ = cli_finish(batch_sub)
+        if run.returncode:
+            raise AssertionError(f"python -m zkp2p_tpu_torch batch exited {run.returncode}")
+        sub_log = dict(cli_log_seconds(run.stderr),
+                       span_ms=trace_file_span(out_path("batch.trace"), "gpu/prove_batch"))
+        verify_s, run, _ = cli_finish(verify_sub)
         if run.returncode or run.stdout.strip() != "OK":
             raise AssertionError(f"python -m zkp2p_tpu_torch verify exited {run.returncode}: {run.stdout!r}")
-        log(f"CLI subprocesses: prove {prove_s:.1f} s (files to proof.json; its log: {prove_log}), verify "
-            f"{verify_s:.1f} s: OK")
+        log(f"CLI subprocesses: prove {prove_s:.1f} s (files to proof.json, beside the batch subprocess; its log: "
+            f"{prove_log}), verify {verify_s:.1f} s (beside the batch subprocess): OK")
 
         # main(["prove", ...]) in this process: r and s pinned, its launches
         # counted, each step of its path timed to a synchronise, its key kept
-        rng = random.Random(SEED + 210)
-        r, s = rng.randrange(1, R), rng.randrange(1, R)
         steps, kept = {}, {}
         draws = iter(pinned_draws([(r, s)]))
         trace.reset()
@@ -3139,18 +3239,7 @@ def cli_phase(torch, inp, jac_launches, batch_launches, device):
             raise AssertionError("the CLI's proof.json with r, s pinned differs from prove_gpu's on the imported key")
         if not verify(vk, proof, pub):
             raise AssertionError("the proof under the imported key does not verify")
-        # the Jacobian path's kernels, K18 once a tree and K2 once a join of
-        # this key's classes
         trees = tree_and_join_launches(key)
-        want = {k for k, v in jac_launches.items() if v} - {"zk_" + k for k, v in trees.items() if not v}
-        got = {k for k, v in prove_launches.items() if v}
-        passes = 2 * len(pass_plan(key.log_m))
-        fixed = {k: prove_launches[k] for k in ("zk_fr_ntt_pass", "zk_fr_matvec", "zk_signed_recode")}
-        fixed.update({"zk_" + k: prove_launches["zk_" + k] for k in trees})
-        if got != want or fixed != {"zk_fr_ntt_pass": passes, "zk_fr_matvec": 2, "zk_signed_recode": 2,
-                                    **{"zk_" + k: v for k, v in trees.items()}}:
-            raise AssertionError(f"the CLI's prove launched {sorted(got)} ({fixed}), the Jacobian path "
-                                 f"{sorted(want)}, K18 / K2 {trees}")
         classes = {k: getattr(key, k).numel() for k in ("a_nsel", "a_wsel", "b_nsel", "b_wsel", "c_nsel", "c_wsel")}
         del kept
         log(f"CLI prove in process, r and s pinned: {main_s:.1f} s (" + ", ".join(
@@ -3159,22 +3248,10 @@ def cli_phase(torch, inp, jac_launches, batch_launches, device):
             f"{int((widths <= 11).sum())}; classes {json.dumps(classes)}; launches "
             + json.dumps({k[3:]: v for k, v in prove_launches.items() if v}))
 
-        # batch: a subprocess, then main(["batch", ...]) here on the zkey and
-        # key the CLI's prove read and imported above (its launches counted),
-        # both with the draws pinned; the files of the two and the proofs
-        # its prove_gpu_batch returned all equal
-        ws = [reduce_rows(read_wtns(os.path.join(paths["indir"], f"w{i}.wtns"))) for i in range(len(inp["batch"]))]
-        if any((a != b).any() for a, b in zip(ws, inp["batch"])):
-            raise AssertionError("a batch witness read back differs from the one written")
-        rs = [(rng.randrange(1, R), rng.randrange(1, R)) for _ in ws]
-        batch_args = ["--build-dir", d, "batch", "--zkey", paths["zkey"], "--indir", paths["indir"],
-                      "--chunk", str(BATCH_CHUNK)]
-        sub_s, run = cli_subprocess(batch_args + ["--outdir", out_path("sub"), "--trace", out_path("batch.trace")],
-                                    draws=pinned_draws(rs))
-        if run.returncode:
-            raise AssertionError(f"python -m zkp2p_tpu_torch batch exited {run.returncode}")
-        sub_log = dict(cli_log_seconds(run.stderr),
-                       span_ms=trace_file_span(out_path("batch.trace"), "gpu/prove_batch"))
+        # main(["batch", ...]) here on the zkey and key the CLI's prove read
+        # and imported above (its launches counted), the draws pinned as the
+        # subprocess's; the files of the two and the proofs its
+        # prove_gpu_batch returned all equal
         batch_steps, batch_kept = {}, {}
         draws = iter(pinned_draws(rs))
         with patched(timed_calls(torch, batch_steps, batch_kept, cli, ("prove_gpu_batch",)) + [
@@ -3199,6 +3276,8 @@ def cli_phase(torch, inp, jac_launches, batch_launches, device):
                     int.from_bytes(ws[i][j].tobytes(), "little") for j in range(1, n_public + 1)):
                 raise AssertionError(f"the CLI batch's w{i}.public.json differs from the witness's")
         dump(proof_to_json(prove_gpu(key, ws[0], r=rs[0][0], s=rs[0][1], device=device)), out_path("w0.single.json"))
+        limits = dict(trees=trees, passes=2 * len(pass_plan(key.log_m)),
+                      n_chunks=len(batch_spans(len(ws), BATCH_CHUNK)))
         del key
         if not same_file(out_path("w0.single.json"), os.path.join(d, "main", "w0.proof.json")):
             raise AssertionError("the CLI batch's w0.proof.json differs from prove_gpu's with its r, s")
@@ -3206,15 +3285,6 @@ def cli_phase(torch, inp, jac_launches, batch_launches, device):
         seeded_pub = load(os.path.join(d, "sub", "w1.public.json"))
         if not verify(vk, sub_proof, pub) or verify(vk, proofs[1], [int(v) for v in seeded_pub]):
             raise AssertionError("the satisfying witness's batch proof must verify and a seeded one's must not")
-        n_chunks = len(batch_spans(len(ws), BATCH_CHUNK))
-        want = {k for k, v in batch_launches.items() if v} - {"zk_" + k for k, v in trees.items() if not v}
-        got = {k for k, v in cli_batch_launches.items() if v}
-        fixed = {k: cli_batch_launches[k] / n_chunks for k in ("zk_fr_ntt_pass", "zk_fr_matvec", "zk_signed_recode")}
-        fixed.update({"zk_" + k: cli_batch_launches["zk_" + k] / n_chunks for k in trees})
-        if got != want or fixed != {"zk_fr_ntt_pass": passes, "zk_fr_matvec": 2, "zk_signed_recode": 2,
-                                    **{"zk_" + k: v for k, v in trees.items()}}:
-            raise AssertionError(f"the CLI's batch launched {sorted(got)} ({fixed} a chunk), the batch path "
-                                 f"{sorted(want)}, K18 / K2 {trees} a chunk")
         n = len(ws)
         log(f"CLI batch ({n} wtns, chunk {BATCH_CHUNK}): subprocess {sub_s:.1f} s (its log: {sub_log}); main() "
             f"here on the imported key {main_batch_s:.2f} s, its prove_gpu_batch {batch_s:.2f} s ({n / batch_s:.3f} "
@@ -3235,9 +3305,32 @@ def cli_phase(torch, inp, jac_launches, batch_launches, device):
                       "main_in_process_s": main_batch_s, "prove_gpu_batch_s": batch_s,
                       "prove_gpu_batch_proofs_per_s": n / batch_s, "files_equal": True,
                       "launches": {k[3:]: v for k, v in cli_batch_launches.items() if v}},
-        }, prove_launches, cli_batch_launches
+            "concurrency": "the prove and batch subprocesses together, beside phase 4's set-up here (h_evals "
+                           "check, synthetic key), then verify beside the batch; the in-process prove and batch "
+                           "after them, alone",
+        }, prove_launches, cli_batch_launches, limits, beside_out
     finally:
+        stop(started)
         shutil.rmtree(d, ignore_errors=True)
+
+
+def check_cli_launches(prove_launches, batch_launches_cli, limits, jac_launches, batch_launches):
+    """Phase 7's launches, once phase 4 has counted the paths: the CLI's
+    prove launches the Jacobian path's kernels, its batch the batch path's
+    (a chunk), K18 once a tree and K2 once a join of the imported key's
+    classes (limits["trees"]), K12 once a pass, K13 and K14 twice."""
+    trees, passes, n_chunks = limits["trees"], limits["passes"], limits["n_chunks"]
+    skip = {"zk_" + k for k, v in trees.items() if not v}
+    for what, launches, path, per in (("prove", prove_launches, jac_launches, 1),
+                                      ("batch", batch_launches_cli, batch_launches, n_chunks)):
+        want = {k for k, v in path.items() if v} - skip
+        got = {k for k, v in launches.items() if v}
+        fixed = {k: launches[k] / per for k in ("zk_fr_ntt_pass", "zk_fr_matvec", "zk_signed_recode")}
+        fixed.update({"zk_" + k: launches["zk_" + k] / per for k in trees})
+        if got != want or fixed != {"zk_fr_ntt_pass": passes, "zk_fr_matvec": 2, "zk_signed_recode": 2,
+                                    **{"zk_" + k: v for k, v in trees.items()}}:
+            raise AssertionError(f"the CLI's {what} launched {sorted(got)} ({fixed} a chunk), its path "
+                                 f"{sorted(want)}, K18 / K2 {trees} a chunk")
 
 
 # --------------------------------------------------------------- phase 8
@@ -3309,52 +3402,48 @@ def build_flagship():
                 rss_gib={"before": rss0, "after": rss_gib()})
 
 
-def flagship_phase(torch, built, device):
-    """Phase 8: the flagship circuit `built` by the port's builder at full
-    width.  `prove --circuit venmo` (1024/6400, r and s pinned) starts
-    first as a subprocess: it builds its circuit on the host for 80-100 s
-    before it reads the zkey.  Meanwhile this process sets the flagship up
-    on the card (setup_device; its counts held to VENMO) and writes the
-    CLI setup's files, then starts the 256/192 `setup` (audit on) as a
-    second subprocess, witnesses four synthetic signed Venmo emails,
-    infers the zkey's classes and sets the 256/192 circuit up; the card
-    work of the three overlaps nowhere.  Once both subprocesses have
-    ended it proves with prove_gpu under the tagged and the inferred
-    classes and with prove_gpu_batch and verifies, and holds the
-    subprocesses' files against its own; then `verify` runs.  Returns (the flagship line, the launches of the setup,
-    of the proof and of the batch)."""
-    import dataclasses
+def stop(procs):
+    """Kill each of `procs` still running (a failed check leaves no
+    subprocess behind)."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def flagship_start(torch, built, device):
+    """Phase 8's start, run just after phase 1 so that its two subprocesses
+    run beside the rest of phase 8 and phase 9: the flagship circuit
+    `built` by the port's builder
+    is set up on the card (setup_device; its counts held to VENMO, its a
+    classes to the circuit's tagged widths, its launches counted); then
+    the files the CLI's setup writes go under FLAGSHIP_DIR/full in one
+    rename, `prove --circuit venmo` (1024/6400, r and s pinned to the
+    first proof's) and the 256/192 `setup` (audit on) start as
+    subprocesses and the zkey's classes are inferred (infer_zkey_widths).
+    The files, the subprocesses and the inference run in a thread, which
+    flagship_join waits for.  Returns phase 8's state for flagship_phase;
+    on a failure here the directory is removed, after it the caller joins
+    the thread, then stops st["procs"]."""
     import os
     import shutil
 
-    import numpy as np
-
-    from zkp2p_tpu_torch.formats.proof_json import dump, proof_to_json, public_to_json
     from zkp2p_tpu_torch.formats.zkey import zkey_from_key
-    from zkp2p_tpu_torch.inputs.email import generate_inputs, make_test_key, make_venmo_email
-    from zkp2p_tpu_torch.models.venmo import VenmoParams, build_venmo_circuit
     from zkp2p_tpu_torch.ops import cuda_build
     from zkp2p_tpu_torch.prover import setup_device as sd
-    from zkp2p_tpu_torch.prover.groth16_gpu import (NARROW_WIDTH, _selections, infer_zkey_widths, prove_gpu,
-                                                    prove_gpu_batch)
-    from zkp2p_tpu_torch.snark.groth16 import proof_bytes, verify
+    from zkp2p_tpu_torch.prover.groth16_gpu import NARROW_WIDTH, infer_zkey_widths
 
     V = VENMO
-    cs, lay, params = built["cs"], built["lay"], built["params"]
+    cs = built["cs"]
     d = os.path.abspath(FLAGSHIP_DIR)
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
-    started = []
+    procs = []
     try:
-        t_start = time.perf_counter()
         full = os.path.join(d, "full")
         rng = random.Random(SEED + 80)
         rs = [(rng.randrange(1, 1 << 250), rng.randrange(1, 1 << 250)) for _ in FLAGSHIP_EMAILS]
         flags = ["--build-dir", full, "--circuit", "venmo", "--max-header", "1024", "--max-body", "6400"]
-        cli_prove = cli_start(flags + ["prove", "--demo", "--proof", os.path.join(d, "proof.json"),
-                                       "--public", os.path.join(d, "public.json")],
-                              os.path.join(d, "prove.log"), draws=pinned_draws(rs[:1]))
-        started.append(cli_prove[0])
 
         secs, res, stages = {}, {}, {}
         torch.cuda.reset_peak_memory_stats()
@@ -3383,55 +3472,111 @@ def flagship_phase(torch, built, device):
             f"{secs['widths_array']:.2f} s; " + ", ".join(f"{k[2:]} {v:.3f}" for k, v in stages.items())
             + f"), peak {setup_peak:.2f} GiB; counts equal to VENMO; classes {tagged}")
 
-        t0 = time.perf_counter()
         zk = zkey_from_key(key, vk)
-        setup_files(zk, vk, full + ".part")
-        os.replace(full + ".part", full)  # the CLI's prove sees all three files or none
-        files_s = time.perf_counter() - t0
-        zkey_bytes = os.path.getsize(os.path.join(full, SETUP_FILES[0]))
-        if cli_prove[0].poll() is not None:
-            raise AssertionError("`prove --circuit venmo` ended before the zkey was written")
-        cli_setup = cli_start(["--build-dir", os.path.join(d, "small_cli"), "--circuit", "venmo", "setup",
-                               "--seed", FLAGSHIP_SEED], os.path.join(d, "setup.log"))
-        started.append(cli_setup[0])
+
+        def files_then_subprocesses():
+            # host work (numpy, file writes, a Python scan of the zkey's
+            # rows), off the card, in a thread beside phase 8
+            t0 = time.perf_counter()
+            setup_files(zk, vk, full + ".part")
+            os.replace(full + ".part", full)
+            out = dict(files_s=time.perf_counter() - t0,
+                       zkey_bytes=os.path.getsize(os.path.join(full, SETUP_FILES[0])))
+            out["cli_prove"] = cli_start(flags + ["prove", "--demo", "--proof", os.path.join(d, "proof.json"),
+                                                  "--public", os.path.join(d, "public.json")],
+                                         os.path.join(d, "prove.log"), draws=pinned_draws(rs[:1]))
+            procs.append(out["cli_prove"][0])
+            out["cli_setup"] = cli_start(["--build-dir", os.path.join(d, "small_cli"), "--circuit", "venmo",
+                                          "setup", "--seed", FLAGSHIP_SEED], os.path.join(d, "setup.log"))
+            procs.append(out["cli_setup"][0])
+            t0 = time.perf_counter()
+            out["inferred"] = infer_zkey_widths(zk)
+            out["infer_s"] = time.perf_counter() - t0
+            return out
+
+        pool = ThreadPoolExecutor(1)
+        pending = pool.submit(files_then_subprocesses)
+        pool.shutdown(wait=False)
+        return dict(dir=d, rs=rs, flags=flags, key=key, vk=vk, counts=counts, tagged=tagged, setup_s=setup_s,
+                    secs=secs, stages=stages, setup_peak=setup_peak, setup_launches=setup_launches,
+                    pending=pending, procs=procs)
+    except BaseException:
+        stop(procs)
+        shutil.rmtree(d, ignore_errors=True)
+        raise
+
+
+def flagship_join(st):
+    """Wait for flagship_start's thread; its results go into `st` (its
+    error raises).  The subprocesses it started are in st["procs"]."""
+    if "pending" in st:
+        pending = st.pop("pending")
+        st.update(pending.result())
+
+
+def flagship_phase(torch, built, st, device):
+    """Phase 8 in this process, on flagship_start's state `st` (its key on
+    the card; its subprocesses run beside this and phase 9): four
+    synthetic signed Venmo emails witnessed (generate_inputs; the first
+    through cs.witness, all four through cs.witness_batch, the first equal
+    both ways), the 256/192 circuit set up here, the first witness checked
+    against the R1CS (cs.check_witness, which builds the check's matrices
+    once: phase 9's service checks every witness); prove_gpu under the
+    tagged classes and, once flagship_start's thread has inferred them,
+    under the zkey's, and prove_gpu_batch, each verified; then, the
+    256/192 `setup` having ended, its files held against this process's
+    and phase 9's `service` subprocess started on them
+    (service_cli_start).  Returns (the flagship line, the launches of the
+    setup, of the proof and of the batch, and phase 9's context: the key,
+    the circuit, the batch's proofs); flagship_finish and flagship_verified
+    complete the line with the CLI's prove and verify."""
+    import dataclasses
+    import os
+    import shutil
+
+    import numpy as np
+
+    from zkp2p_tpu_torch.formats.proof_json import dump, proof_to_json, public_to_json
+    from zkp2p_tpu_torch.formats.zkey import zkey_from_key
+    from zkp2p_tpu_torch.inputs.email import generate_inputs, make_test_key, make_venmo_email
+    from zkp2p_tpu_torch.models.venmo import VenmoParams, build_venmo_circuit
+    from zkp2p_tpu_torch.ops import cuda_build
+    from zkp2p_tpu_torch.prover import setup_device as sd
+    from zkp2p_tpu_torch.prover.groth16_gpu import NARROW_WIDTH, _selections, prove_gpu, prove_gpu_batch
+    from zkp2p_tpu_torch.snark.groth16 import proof_bytes, verify
+
+    cs, lay, params = built["cs"], built["lay"], built["params"]
+    d, rs, key, vk = st["dir"], st["rs"], st["key"], st["vk"]
+    try:
         rsa = make_test_key(1)
-        wits, pubs, inputs_s, witness_s = [], [], [], []
+        pubs, seeds, inputs_s = [], [], []
         for raw_id, amount, order_id in FLAGSHIP_EMAILS:
             t0 = time.perf_counter()
             inputs = generate_inputs(make_venmo_email(rsa, raw_id=raw_id, amount=amount), rsa.n, order_id, 0,
                                      params, lay)
             inputs_s.append(time.perf_counter() - t0)
-            t0 = time.perf_counter()
-            wits.append(cs.witness(inputs.public_signals, inputs.seed))
-            witness_s.append(time.perf_counter() - t0)
             pubs.append(inputs.public_signals)
-        log(f"flagship witnesses of {len(wits)} emails: inputs {[round(x, 2) for x in inputs_s]} s, cs.witness "
-            f"{[round(x, 2) for x in witness_s]} s")
+            seeds.append(inputs.seed)
+        t0 = time.perf_counter()
+        first = cs.witness(pubs[0], seeds[0])
+        witness_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wits = cs.witness_batch(list(zip(pubs, seeds)))
+        witness_batch_s = time.perf_counter() - t0
+        if list(wits[0]) != list(first):
+            raise AssertionError("the first email's witness differs between cs.witness and cs.witness_batch")
+        del first
+        log(f"flagship witnesses of {len(wits)} emails: inputs {[round(x, 2) for x in inputs_s]} s, cs.witness of "
+            f"the first {witness_s:.2f} s, cs.witness_batch of all {witness_batch_s:.2f} s (the first equal)")
 
-        infer_s, inferred = wall_s(torch, lambda: infer_zkey_widths(zk))
-        del zk
         small_s, (cs_small, _) = wall_s(torch, lambda: build_venmo_circuit(VenmoParams(*SMALL_VENMO)))
         small_setup_s, (key_s, vk_s) = wall_s(torch, lambda: sd.setup_device(cs_small, seed=FLAGSHIP_SEED,
                                                                              device=device))
         mine = setup_files(zkey_from_key(key_s, vk_s), vk_s, os.path.join(d, "small_here"))
         del key_s, cs_small
-
-        host_s = time.perf_counter() - t_start
-
-        small_wall, sout, small_rss = cli_finish(cli_setup)
-        if sout.returncode:
-            raise AssertionError(f"`setup --circuit venmo` at {SMALL_VENMO} exited {sout.returncode}")
-        for path in mine:
-            if not same_file(path, os.path.join(d, "small_cli", os.path.basename(path))):
-                raise AssertionError(f"the CLI setup's {os.path.basename(path)} differs from the in-process setup's")
-        small_steps = cli_log_steps(sout.stderr)
-        log(f"flagship at {SMALL_VENMO}: built {small_s:.1f} s, set up here {small_setup_s:.2f} s; `setup` "
-            f"(audit on) {small_wall:.1f} s wall, peak RSS {small_rss} GiB ({small_steps}), its three files "
-            "equal to this process's")
-        prove_wall, out, prove_rss = cli_finish(cli_prove)
-        if out.returncode:
-            raise AssertionError(f"`prove --circuit venmo` exited {out.returncode}")
-        steps = cli_log_steps(out.stderr)
+        t0 = time.perf_counter()
+        cs.check_witness(wits[0])
+        check_s = time.perf_counter() - t0
 
         pst, warm = {}, {}
         cuda_build.reset_launches()
@@ -3466,8 +3611,25 @@ def flagship_phase(torch, built, device):
         log(f"flagship prove_gpu_batch of {n_wits} (chunk {BATCH_CHUNK}): {batch_s:.3f} s "
             f"({n_wits / batch_s:.3f} proofs/s); every proof verifies")
 
-        # the classes the CLI's prove inferred from the zkey, on this key:
+        # the 256/192 `setup` has ended by now: its files, then phase 9's
+        # `service` subprocess on them, whose build runs beside what follows
+        flagship_join(st)
+        small_wall, sout, small_rss = cli_finish(st["cli_setup"])
+        if sout.returncode:
+            raise AssertionError(f"`setup --circuit venmo` at {SMALL_VENMO} exited {sout.returncode}")
+        for path in mine:
+            if not same_file(path, os.path.join(d, "small_cli", os.path.basename(path))):
+                raise AssertionError(f"the CLI setup's {os.path.basename(path)} differs from the in-process setup's")
+        small_steps = cli_log_steps(sout.stderr)
+        log(f"flagship at {SMALL_VENMO}: built {small_s:.1f} s, set up here {small_setup_s:.2f} s; `setup` "
+            f"(audit on, beside this phase) {small_wall:.1f} s wall, peak RSS {small_rss} GiB ({small_steps}), its "
+            "three files equal to this process's")
+        svc_cli = service_cli_start(os.path.join(d, "small_cli"))
+        st["procs"].append(svc_cli["handle"][0])
+
+        # the classes the CLI's prove infers from the zkey, on this key:
         # the same proof bytes under them, its stages timed
+        inferred = st["inferred"]
         sels = _selections(inferred, key.n_wires, key.b_sel.cpu().numpy(), key.c_sel.cpu().numpy())
         ikey = dataclasses.replace(
             key, _split={}, inferred_narrow_wires=np.flatnonzero(inferred <= NARROW_WIDTH).astype(np.int64).tobytes(),
@@ -3482,37 +3644,25 @@ def flagship_phase(torch, built, device):
                                                     stages=iwarm))
         if proof_bytes(iproof) != proof_bytes(proof):
             raise AssertionError("the proof under the zkey's inferred classes differs from the tagged key's")
-        log(f"flagship under the zkey's inferred classes {inferred_classes} (inferred in {infer_s:.2f} s): first "
-            f"{ifirst_s:.3f} s, warm {iwarm_s:.3f} s ("
+        log(f"flagship under the zkey's inferred classes {inferred_classes} (inferred in {st['infer_s']:.2f} s): "
+            f"first {ifirst_s:.3f} s, warm {iwarm_s:.3f} s ("
             + ", ".join(f"{k[2:]} {v:.4f}" for k, v in iwarm.items() if k.startswith("s_"))
             + "); the same bytes as under the tagged classes")
-        del key, ikey, again, proofs, wits
+        del ikey, again, wits
         torch.cuda.empty_cache()
-
         dump(proof_to_json(proof), os.path.join(d, "want.proof.json"))
         dump(public_to_json(pubs[0]), os.path.join(d, "want.public.json"))
-        for name in ("proof", "public"):
-            if not same_file(os.path.join(d, f"{name}.json"), os.path.join(d, f"want.{name}.json")):
-                raise AssertionError(f"the CLI's {name}.json differs from prove_gpu's on the demo email")
-        if steps.get("classes") != inferred_classes:
-            raise AssertionError(f"the CLI's key has the classes {steps.get('classes')}, {inferred_classes} expected")
-        verify_wall, vout = cli_subprocess(flags + ["verify", "--proof", os.path.join(d, "proof.json"),
-                                                    "--public", os.path.join(d, "public.json")])
-        if vout.returncode or vout.stdout.strip() != "OK":
-            raise AssertionError(f"`verify` exited {vout.returncode}: {vout.stdout!r}")
-        log(f"flagship CLI: the setup's files written in {files_s:.1f} s (zkey {zkey_bytes / 2**30:.3f} GiB); "
-            f"`prove --circuit venmo --demo` {prove_wall:.1f} s wall, peak RSS {prove_rss} GiB ({steps}; this "
-            f"process's host work beside it {host_s:.1f} s), its files equal to prove_gpu's; `verify` "
-            f"{verify_wall:.1f} s: OK")
+
         line = {
             "shape": "venmo 1024/6400: VenmoParams() built by zkp2p_tpu_torch.models.venmo, synthetic signed "
                      "emails (make_venmo_email(make_test_key(1)))",
-            "counts": counts, "counts_equal_venmo": True, "build_s_beside_kernel_build": built["build_s"],
+            "counts": st["counts"], "counts_equal_venmo": True, "build_s_beside_kernel_build": built["build_s"],
             "build_rss_gib": built["rss_gib"],
-            "emails": [list(e) for e in FLAGSHIP_EMAILS], "inputs_s": inputs_s, "witness_s": witness_s,
-            "setup_s": setup_s, "qap_coo_s": secs["qap_coo"], "widths_array_s": secs["widths_array"],
-            "setup_stage_s": {k[2:]: v for k, v in stages.items()}, "setup_peak_device_gib": setup_peak,
-            "tagged_classes": tagged, "inferred_classes": inferred_classes, "infer_zkey_widths_s": infer_s,
+            "emails": [list(e) for e in FLAGSHIP_EMAILS], "inputs_s": inputs_s, "witness_first_s": witness_s,
+            "witness_batch_s": witness_batch_s, "check_witness_first_s": check_s,
+            "setup_s": st["setup_s"], "qap_coo_s": st["secs"]["qap_coo"], "widths_array_s": st["secs"]["widths_array"],
+            "setup_stage_s": {k[2:]: v for k, v in st["stages"].items()}, "setup_peak_device_gib": st["setup_peak"],
+            "tagged_classes": st["tagged"], "inferred_classes": inferred_classes, "infer_zkey_widths_s": st["infer_s"],
             "inferred_prove_s": ifirst_s, "inferred_warm_prove_s": iwarm_s,
             "inferred_warm_stage_s": {k[2:]: v for k, v in iwarm.items() if k.startswith("s_")},
             "inferred_same_bytes": True, "prove_s": prove_s,
@@ -3521,20 +3671,320 @@ def flagship_phase(torch, built, device):
             "verify_s": verify_s, "verify": True, "changed_public_rejected": True, "same_bytes_again": True,
             "batch": {"witnesses": n_wits, "chunk": BATCH_CHUNK, "s": batch_s,
                       "proofs_per_s": n_wits / batch_s, "all_verify": True},
-            "cli": {"setup_files_s": files_s, "zkey_bytes": zkey_bytes, "prove_wall_s": prove_wall,
-                    "prove_steps": steps, "prove_peak_rss_gib_sampled": prove_rss,
-                    "host_work_beside_s": host_s, "files_equal_prove_gpu": True,
-                    "classes_equal_inferred": True, "verify_wall_s": verify_wall, "verify": "OK"},
+            "cli": {"setup_files_s": st["files_s"], "zkey_bytes": st["zkey_bytes"],
+                    "beside": "phase 8 in process and phase 9"},
             "small": {"shape": list(SMALL_VENMO), "build_s": small_s, "setup_here_s": small_setup_s,
                       "cli_setup_wall_s": small_wall, "cli_setup_peak_rss_gib_sampled": small_rss,
                       "cli_setup_steps": small_steps, "files_equal": True},
-            "launches": {"setup": {k[3:]: v for k, v in setup_launches.items() if v},
+            "launches": {"setup": {k[3:]: v for k, v in st["setup_launches"].items() if v},
                          "prove": {k[3:]: v for k, v in prove_launches.items() if v},
                          "batch": {k[3:]: v for k, v in batch_launches.items() if v}},
         }
-        return line, setup_launches, prove_launches, batch_launches
+        # phase 9's: the resident key, the circuit, the batch's proofs
+        # with their (r, s) and public signals, the 256/192 CLI build
+        # directory and its `service` subprocess
+        ctx = dict(key=key, vk=vk, cs=cs, lay=lay, params=params, rs=rs, pubs=pubs, proofs=proofs,
+                   small_cli=os.path.join(d, "small_cli"), service_cli=svc_cli, flagship_cli=st["cli_prove"][0])
+        return line, st["setup_launches"], prove_launches, batch_launches, ctx
+    except BaseException:
+        stop(st["procs"])
+        shutil.rmtree(os.path.abspath(SERVICE_DIR), ignore_errors=True)
+        raise
+
+
+def flagship_finish(st, line):
+    """Phase 8's CLI, after phase 9: `prove --circuit venmo` (started by
+    flagship_start) must have exited 0 with proof.json and public.json
+    equal to prove_gpu's on the demo email and its key's classes equal to
+    the inferred ones; then `verify` of its proof starts as a subprocess,
+    beside phase 2 (flagship_verified waits for it)."""
+    import os
+
+    d = st["dir"]
+    prove_wall, out, prove_rss = cli_finish(st["cli_prove"])
+    if out.returncode:
+        raise AssertionError(f"`prove --circuit venmo` exited {out.returncode}")
+    steps = cli_log_steps(out.stderr)
+    for name in ("proof", "public"):
+        if not same_file(os.path.join(d, f"{name}.json"), os.path.join(d, f"want.{name}.json")):
+            raise AssertionError(f"the CLI's {name}.json differs from prove_gpu's on the demo email")
+    if steps.get("classes") != line["inferred_classes"]:
+        raise AssertionError(f"the CLI's key has the classes {steps.get('classes')}, {line['inferred_classes']} "
+                             "expected")
+    st["cli_verify"] = cli_start(st["flags"] + ["verify", "--proof", os.path.join(d, "proof.json"),
+                                                "--public", os.path.join(d, "public.json")],
+                                 os.path.join(d, "verify.log"))
+    st["procs"].append(st["cli_verify"][0])
+    line["cli"].update(prove_wall_s=prove_wall, prove_steps=steps, prove_peak_rss_gib_sampled=prove_rss,
+                       files_equal_prove_gpu=True, classes_equal_inferred=True)
+    log(f"flagship CLI: the setup's files written in {st['files_s']:.1f} s (in a thread; zkey "
+        f"{st['zkey_bytes'] / 2**30:.3f} GiB); `prove --circuit venmo --demo` (beside phases 8 and 9) "
+        f"{prove_wall:.1f} s wall, peak RSS {prove_rss} GiB ({steps}), its files equal to prove_gpu's")
+
+
+def flagship_verified(st, line):
+    """flagship_finish's `verify` must have printed OK and exited 0."""
+    verify_wall, vout, _ = cli_finish(st["cli_verify"])
+    if vout.returncode or vout.stdout.strip() != "OK":
+        raise AssertionError(f"`verify` exited {vout.returncode}: {vout.stdout!r}")
+    line["cli"].update(verify_wall_s=verify_wall, verify="OK")
+    log(f"flagship CLI `verify` (beside phase 2): {verify_wall:.1f} s: OK")
+
+
+# --------------------------------------------------------------- phase 9
+
+
+def write_requests(spool, payloads):
+    """One <name>.req.json a payload ({name: payload})."""
+    import os
+
+    os.makedirs(spool, exist_ok=True)
+    for name, payload in payloads.items():
+        with open(os.path.join(spool, name + ".req.json"), "w") as f:
+            json.dump(payload, f)
+
+
+def demo_payload(raw_id, amount, order_id, **extra):
+    return {"raw_id": raw_id, "amount": amount, "order_id": order_id, "claim_id": 0, **extra}
+
+
+def sink_records(spool, kind):
+    with open(spool.rstrip("/") + ".metrics.jsonl") as f:
+        return [rec for rec in map(json.loads, f) if rec.get("type") == kind]
+
+
+def verify_spool(vk, spool, names):
+    """Every <name>.proof.json of `names` verifies under `vk` against its
+    .public.json; returns the host seconds."""
+    import os
+
+    from zkp2p_tpu_torch.formats.proof_json import load, proof_from_json
+    from zkp2p_tpu_torch.snark.groth16 import verify
+
+    t0 = time.perf_counter()
+    for name in names:
+        base = os.path.join(spool, name)
+        if not verify(vk, proof_from_json(load(base + ".proof.json")), [int(v) for v in load(base + ".public.json")]):
+            raise AssertionError(f"{base}.proof.json does not verify")
+    return time.perf_counter() - t0
+
+
+def service_cli_start(small_cli):
+    """Phase 9's `python -m zkp2p_tpu_torch --circuit venmo service
+    --batch 2` on the 256/192 key in `small_cli`, over SERVICE_CLI_EMAILS
+    spooled under SERVICE_DIR/cli, started in the background (phase 8
+    starts it once its `setup` has written the key, so that its circuit
+    build and its three proofs are done when phase 9 sends it SIGTERM).
+    Returns its handle, spool and request names."""
+    import os
+    import shutil
+
+    d = os.path.abspath(SERVICE_DIR)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    spool = os.path.join(d, "cli")
+    names = [f"c{i}" for i in range(len(SERVICE_CLI_EMAILS))]
+    write_requests(spool, {n: demo_payload(*e) for n, e in zip(names, SERVICE_CLI_EMAILS)})
+    handle = cli_start(["--build-dir", small_cli, "--circuit", "venmo", "service", "--spool", spool, "--batch", "2"],
+                       os.path.join(d, "service.log"))
+    return dict(handle=handle, spool=spool, names=names)
+
+
+def service_phase(torch, fl, device):
+    """Phase 9: the proving service on the card, on phase 8's resident
+    flagship key (`fl`).  The CLI's `service` over SERVICE_CLI_EMAILS runs
+    as a subprocess on the 256/192 key phase 8's `setup` wrote, started
+    by phase 8 (service_cli_start).  ProvingService.for_venmo
+    at batch SERVICE_BATCH sweeps (1) FLAGSHIP_EMAILS as demo payloads, a
+    payload with no raw_id, a torn request past the grace and one past its
+    deadline, proving with prove_gpu_batch at phase 8's pinned (r, s): 4
+    done, 2 error-bad-input, 1 error-deadline-exceeded, the files equal to
+    phase 8's batch proofs byte for byte; once the subprocess has written
+    its three proofs it gets SIGTERM and must drain and exit 0 within
+    SERVICE_DRAIN_S, no claim left, its proofs verifying under its vk, its
+    sink holding three done records and a time-series line; then (2) the
+    default prover (random r, s) over SERVICE_EMAILS at prefetch
+    SERVICE_PREFETCH (phase 8's `prove --circuit venmo` may run beside
+    it; the line says whether it did): two batches, the second's witnesses
+    made while the first proves; launches counted over the sweep (the batch
+    rule a chunk), every proof verified.  Returns (the service line, the
+    sweep's launches)."""
+    import os
+    import shutil
+    import signal
+    import threading
+
+    from zkp2p_tpu_torch.formats.proof_json import dump, load, proof_to_json, public_to_json, vkey_from_json
+    from zkp2p_tpu_torch.ops import cuda_build
+    from zkp2p_tpu_torch.pipeline.service import ProvingService
+    from zkp2p_tpu_torch.prover.groth16_gpu import prove_gpu_batch
+    from zkp2p_tpu_torch.utils import trace as tr
+
+    d = os.path.abspath(SERVICE_DIR)
+    cs, n_pub = fl["cs"], fl["cs"].num_public
+    cli, cli_spool, cli_names = fl["service_cli"]["handle"], fl["service_cli"]["spool"], fl["service_cli"]["names"]
+    started = [cli[0]]
+    try:
+        # (1) the bytes: phase 8's emails at its pinned (r, s)
+        spool = os.path.join(d, "pinned")
+        names = [f"a{i}" for i in range(len(FLAGSHIP_EMAILS))]
+        write_requests(spool, {**{n: demo_payload(*e) for n, e in zip(names, FLAGSHIP_EMAILS)},
+                               "b_bad": {"amount": "30", "order_id": 9, "claim_id": 0},
+                               "c_late": demo_payload("6789123456789123456", "5", 10, deadline_s=1)})
+        with open(os.path.join(spool, "d_torn.req.json"), "w") as f:
+            f.write('{"raw_id": "1"')
+        past = time.time() - 60
+        for n in ("c_late", "d_torn"):
+            os.utime(os.path.join(spool, n + ".req.json"), (past, past))
+        rs_of = {tuple(p): rs for p, rs in zip(fl["pubs"], fl["rs"])}
+
+        def pinned(dpk, wits):
+            return prove_gpu_batch(dpk, wits, rs=[rs_of[tuple(int(v) for v in w[1:n_pub + 1])] for w in wits],
+                                   device=device)
+
+        svc = ProvingService.for_venmo(cs, fl["lay"], fl["params"], fl["key"], fl["vk"], batch_size=SERVICE_BATCH,
+                                       prover_fn=pinned, device=device)
+        pinned_s, pinned_stats = wall_s(torch, lambda: svc.process_dir(spool))
+        want = {"done": 4, "error-bad-input": 2, "error-failed-to-prove": 0, "error-deadline-exceeded": 1,
+                "error-shed": 0}
+        if pinned_stats != want:
+            raise AssertionError(f"the pinned sweep ended {pinned_stats}, {want} expected")
+        for name, proof, pub in zip(names, fl["proofs"], fl["pubs"]):
+            dump(proof_to_json(proof), os.path.join(d, "want.proof.json"))
+            dump(public_to_json(pub), os.path.join(d, "want.public.json"))
+            for ext in ("proof", "public"):
+                if not same_file(os.path.join(spool, f"{name}.{ext}.json"), os.path.join(d, f"want.{ext}.json")):
+                    raise AssertionError(f"the service's {name}.{ext}.json differs from phase 8's prove_gpu_batch")
+        recs = {r["request_id"]: r for r in sink_records(spool, "request")}
+        states = {k: v["state"] for k, v in sorted(recs.items())}
+        if states != {**dict.fromkeys(names, "done"), "b_bad": "error-bad-input",
+                      "c_late": "error-deadline-exceeded", "d_torn": "error-bad-input"}:
+            raise AssertionError(f"the pinned sweep's records: {states}")
+        bad = [n for n in names if (recs[n].get("batch_n"), recs[n].get("batch_index")) != (4, names.index(n))
+               or not recs[n].get("hbm_peak_bytes")]
+        if bad:
+            raise AssertionError(f"done records without their batch slot or device memory: {bad}")
+        log(f"service, pinned sweep: {pinned_stats} in {pinned_s:.2f} s; the four proofs and publics equal phase 8's "
+            "prove_gpu_batch files; records carry batch_index, batch_n, hbm_peak_bytes")
+
+        # (3) the command: its three proofs, then SIGTERM
+        t0 = time.perf_counter()
+        while len([f for f in os.listdir(cli_spool) if f.endswith(".proof.json")]) < len(cli_names):
+            if cli[0].poll() is not None:
+                break
+            if time.perf_counter() - t0 > SERVICE_CLI_WAIT_S:
+                raise AssertionError(f"`service` wrote no three proofs in {SERVICE_CLI_WAIT_S} s")
+            time.sleep(0.2)
+        waited_s = time.perf_counter() - t0
+        if cli[0].poll() is not None:
+            cli_finish(cli)
+            raise AssertionError(f"`service` exited {cli[0].returncode} before SIGTERM")
+        cli[0].send_signal(signal.SIGTERM)
+        t0 = time.perf_counter()
+        try:
+            cli[0].wait(timeout=SERVICE_DRAIN_S)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"`service` did not exit within {SERVICE_DRAIN_S} s of SIGTERM") from None
+        drain_s = time.perf_counter() - t0
+        cli_wall, out, cli_rss = cli_finish(cli)
+        for line in out.stdout.splitlines():
+            log(f"  | {line}")
+        if out.returncode or "exiting (drained)" not in out.stdout:
+            raise AssertionError(f"`service` exited {out.returncode} after SIGTERM, not drained")
+        left = [f for f in os.listdir(cli_spool) if f.endswith(".claim")]
+        if left:
+            raise AssertionError(f"`service` left claims {left}")
+        small_vk = vkey_from_json(load(os.path.join(fl["small_cli"], "verification_key.json")))
+        cli_verify_s = verify_spool(small_vk, cli_spool, cli_names)
+        cli_done = sorted(r["request_id"] for r in sink_records(cli_spool, "request") if r["state"] == "done")
+        cli_ts = sink_records(cli_spool, "timeseries")
+        if cli_done != cli_names or not cli_ts:
+            raise AssertionError(f"`service`'s sink: done {cli_done}, {len(cli_ts)} time-series lines")
+        log(f"service CLI (256/192, batch 2): three proofs {waited_s:.1f} s after the pinned sweep, drained "
+            f"{drain_s:.2f} s after SIGTERM, exit 0, {cli_wall:.1f} s wall, peak RSS {cli_rss} GiB; no claim left, "
+            f"the proofs verify ({cli_verify_s:.2f} s), {len(cli_ts)} time-series lines")
+
+        # (2) the default prover (phase 8's CLI prove may still run)
+        spool = os.path.join(d, "default")
+        names = [f"r{i}" for i in range(len(SERVICE_EMAILS))]
+        write_requests(spool, {n: demo_payload(*e) for n, e in zip(names, SERVICE_EMAILS)})
+        svc = ProvingService.for_venmo(cs, fl["lay"], fl["params"], fl["key"], fl["vk"], batch_size=SERVICE_BATCH,
+                                       prefetch=SERVICE_PREFETCH, device=device)
+        check_s = []
+        real_check = cs.check_witness
+
+        def timed_check(w):
+            t0 = time.perf_counter()
+            real_check(w)
+            check_s.append(time.perf_counter() - t0)
+
+        rss = {"peak": rss_gib(), "stop": threading.Event()}
+
+        def sample_rss():
+            while not rss["stop"].wait(0.1):
+                rss["peak"] = max(rss["peak"], rss_gib())
+
+        sampler = threading.Thread(target=sample_rss, daemon=True)
+        sampler.start()
+        tr.reset()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        beside = [fl["flagship_cli"].poll() is None]
+        cuda_build.reset_launches()
+        try:
+            with patched([(cs, "check_witness", timed_check)]):
+                wall, stats = wall_s(torch, lambda: svc.process_dir(spool))
+        finally:
+            rss["stop"].set()
+            sampler.join()
+        launches = dict(cuda_build.LAUNCHES)
+        beside.append(fl["flagship_cli"].poll() is None)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        spans = tr.records()
+        if stats["done"] != len(names) or sum(stats.values()) != len(names):
+            raise AssertionError(f"the default sweep ended {stats}")
+        chunks = -(-len(names) // SERVICE_BATCH)
+        want = {"fr_ntt_pass": 6, "fr_matvec": 2, "signed_recode": 2, **CLASSED_PROOF_LAUNCHES}
+        got = {k: launches["zk_" + k] for k in want}
+        if got != {k: v * chunks for k, v in want.items()}:
+            raise AssertionError(f"the sweep's launches {got}, {chunks} chunks of {want} expected")
+        missing = [k for k in PATH_KERNELS["batch"] if not launches["zk_" + k]]
+        stray = [k for k in NOT_ON_JACOBIAN if launches["zk_" + k]]
+        if missing or stray:
+            raise AssertionError(f"the sweep launched {launches}: missing {missing}, stray {stray}")
+        verify_s = verify_spool(fl["vk"], spool, names)
+        witness_s = [r["ms"] / 1e3 for r in spans if r["stage"] == "service/witness_batch"]
+        prove_s = [r["ms"] / 1e3 for r in spans if r["stage"] == "service/prove"]
+        inputs_s = [r["ms"] / 1e3 for r in spans if r["stage"] == "service/inputs"]
+        sample_verify_s = [r["ms"] / 1e3 for r in spans if r["stage"] == "service/verify"]
+        if len(witness_s) != chunks or len(prove_s) != chunks:
+            raise AssertionError(f"spans: witness_batch {witness_s}, prove {prove_s}")
+        recs = sink_records(spool, "request")
+        line = {
+            "shape": "venmo 1024/6400, phase 8's key; synthetic signed emails as demo payloads",
+            "pinned": {"requests": 7, "stats": pinned_stats, "s": pinned_s, "files_equal_prove_gpu_batch": True},
+            "default": {"requests": len(names), "batch": SERVICE_BATCH, "prefetch": SERVICE_PREFETCH,
+                        "wall_s": wall, "requests_per_s": len(names) / wall, "witness_batch_s": witness_s,
+                        "check_witness_s": check_s, "inputs_s": inputs_s, "prove_s": prove_s,
+                        "sample_verify_s": sample_verify_s, "busy_share": sum(prove_s) / wall,
+                        "peak_device_gib": peak, "resident_device_gib": resident / 2**30,
+                        "host_rss_gib_peak_sampled": rss["peak"], "all_verify": True, "verify_s": verify_s,
+                        "queue_wait_s": [r.get("queue_wait_s") for r in recs],
+                        "flagship_cli_running_at_start_end": beside,
+                        "launches": {k[3:]: v for k, v in launches.items() if v}},
+            "cli": {"shape": "venmo 256/192, phase 8's `setup` files", "requests": len(cli_names), "batch": 2,
+                    "proofs_after_pinned_s": waited_s, "drain_s": drain_s, "wall_s": cli_wall, "exit": 0,
+                    "peak_rss_gib_sampled": cli_rss, "claims_left": 0, "timeseries_lines": len(cli_ts),
+                    "all_verify": True},
+        }
+        log(f"service, default prover: {len(names)} requests in {wall:.2f} s ({len(names) / wall:.3f} requests/s); "
+            f"witness_batch {[round(x, 2) for x in witness_s]} s, check_witness {[round(x, 2) for x in check_s]} s, "
+            f"prove {[round(x, 3) for x in prove_s]} s, busy share {sum(prove_s) / wall:.3f}, peak device "
+            f"{peak:.2f} GiB, host RSS peak {rss['peak']:.2f} GiB; every proof verifies ({verify_s:.2f} s); phase 8's "
+            f"`prove --circuit venmo` running at the sweep's start and end: {beside}")
+        return line, launches
     finally:
-        for proc in started:  # a failed check leaves no subprocess behind
+        for proc in started:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
@@ -3720,33 +4170,12 @@ def batch_phase(torch, key, witness, ix, tables, jac_launches, device):
     return real, same, launches
 
 
-def run(torch, device, peak_muls, sm_clock_hz):
-    """Phases 1-8 on `device`; returns what main prints."""
-    from zkp2p_tpu_torch.ops import cuda_build
+def kernels_phase(torch, peak_muls, sm_clock_hz, device):
+    """Phase 2: every launcher against its plain version at the main
+    path's shapes.  Returns (the kernels' rows, the affine MSMs' same-run
+    line)."""
     from zkp2p_tpu_torch.ops.cuda_msm_window import chunk_steps
     from zkp2p_tpu_torch.ops.msm import default_lanes
-    from zkp2p_tpu_torch.ops.ntt import pass_plan
-    from zkp2p_tpu_torch.prover.groth16_gpu import key_from_numpy, prove_gpu
-    from zkp2p_tpu_torch.prover.vector import load_vector
-    from zkp2p_tpu_torch.snark.groth16 import proof_bytes
-
-    # phase 1, and phase 8's circuit built beside it
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
-        flagship_build = pool.submit(build_flagship)
-        libs = cuda_build.build_all()
-        build_s = time.perf_counter() - t0
-        built = flagship_build.result()
-    # its tens of millions of objects live to the end: no collection scans them
-    gc.freeze()
-    log(f"flagship: VenmoParams() built by the port in {built['build_s']:.1f} s beside the kernel build: "
-        f"{built['cs'].num_constraints} constraints, {built['cs'].num_wires} wires; RSS "
-        f"{built['rss_gib']['before']:.2f} -> {built['rss_gib']['after']:.2f} GiB")
-    for stem, path in libs.items():
-        for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log(f"ptxas {stem}: {line.strip()}")
-    log(f"build: {build_s:.1f} s")
 
     # the main path's shapes: K1 at the domain (a*b; the NTT's products
     # run in K12); G1's K2 and K4 at the h
@@ -3805,8 +4234,8 @@ def run(torch, device, peak_muls, sm_clock_hz):
         True: {"b2 wide": (b2w_lanes, 64, 4), "b2 narrow": (b2_lanes, 3, 4)},
     }
 
-    # phase 2
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     rows = check_kernels(torch, geometry, peak_muls, device)
     rows["mont_pow"] = check_mont_pow(torch, peak_muls, sm_clock_hz, device)
     for g2 in (False, True):
@@ -3835,7 +4264,76 @@ def run(torch, device, peak_muls, sm_clock_hz):
     fb_sizes = {"setup G1 launch (a, b1, c, h)": (False, sum(g1_queries.values())),
                 **{q: (False, n) for q, n in g1_queries.items()}, "setup G2 launch (b2)": (True, g1_queries["b1"])}
     rows.update(check_fixed_base_kernels(torch, fb_sizes, peak_muls, device))
-    log(f"kernels against plain: {time.perf_counter() - t0:.1f} s")
+    free, total = torch.cuda.mem_get_info()
+    log(f"kernels against plain: {time.perf_counter() - t0:.1f} s; peak device memory allocated here "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, {free / 2**30:.2f} of "
+        f"{total / 2**30:.2f} GiB free on the card at the end")
+    return rows, affine_msm_same_run
+
+
+def run(torch, device, peak_muls, sm_clock_hz):
+    """Phases 1-9 on `device`, in the order 1, 8 (its subprocesses beside
+    it and 9), 9, 2, 3, 6, 7 (phase 4's set-up beside its subprocesses),
+    4, 5; returns what main prints."""
+    from zkp2p_tpu_torch.ops import cuda_build
+    from zkp2p_tpu_torch.ops.ntt import pass_plan
+    from zkp2p_tpu_torch.prover.groth16_gpu import key_from_numpy, prove_gpu
+    from zkp2p_tpu_torch.prover.vector import load_vector
+    from zkp2p_tpu_torch.snark.groth16 import proof_bytes
+
+    # phase 1, and phase 8's circuit built beside it
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        flagship_build = pool.submit(build_flagship)
+        libs = cuda_build.build_all()
+        build_s = time.perf_counter() - t0
+        built = flagship_build.result()
+    # its tens of millions of objects live to the end: no collection scans them
+    gc.freeze()
+    log(f"flagship: VenmoParams() built by the port in {built['build_s']:.1f} s beside the kernel build: "
+        f"{built['cs'].num_constraints} constraints, {built['cs'].num_wires} wires; RSS "
+        f"{built['rss_gib']['before']:.2f} -> {built['rss_gib']['after']:.2f} GiB")
+    for stem, path in libs.items():
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"ptxas {stem}: {line.strip()}")
+    log(f"build: {build_s:.1f} s")
+
+    # phase 8's start: the flagship set up on the card; its files written
+    # and its two CLI subprocesses started in a thread, which run beside
+    # phase 8 in this process and phase 9 (phase 2's kernel times run with
+    # no other process on the card)
+    t0 = time.perf_counter()
+    fl_start = flagship_start(torch, built, device)
+    log(f"phase 8's start (setup_device, the zkey's data; its files, subprocesses and inference follow in a "
+        f"thread): {time.perf_counter() - t0:.1f} s")
+    try:
+        t0 = time.perf_counter()
+        flagship, fl_setup, fl_prove, fl_batch, fl = flagship_phase(torch, built, fl_start, device)
+        log(f"phase 8 (the flagship circuit) in this process: {time.perf_counter() - t0:.1f} s")
+        del built
+        # phase 9, on phase 8's key
+        t0 = time.perf_counter()
+        service, service_launches = service_phase(torch, fl, device)
+        del fl
+        fl_start.pop("key")  # the flagship key leaves the card before phase 2
+        torch.cuda.empty_cache()
+        log(f"phase 9 (the proving service): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        flagship_finish(fl_start, flagship)
+        log(f"phase 8's CLI after phase 9: {time.perf_counter() - t0:.1f} s")
+        # phase 2
+        rows, affine_msm_same_run = kernels_phase(torch, peak_muls, sm_clock_hz, device)
+        flagship_verified(fl_start, flagship)
+    finally:
+        import shutil
+
+        with contextlib.suppress(BaseException):
+            flagship_join(fl_start)  # its thread may still start the subprocesses
+        stop(fl_start["procs"])
+        shutil.rmtree(fl_start["dir"], ignore_errors=True)
+    del fl_start
+    torch.cuda.empty_cache()
 
     # phase 3
     t0 = time.perf_counter()
@@ -3848,16 +4346,34 @@ def run(torch, device, peak_muls, sm_clock_hz):
         log(f"test vector {arms}: proof equal to the committed one ({time.perf_counter() - t0:.1f} s)")
     setup_vector = check_setup_vector(torch, device)
 
-    # phase 4
+    # phase 6, then phase 7 on its files, phase 4's set-up beside its
+    # subprocesses
+    cli_files, real_setup, setup_launches = real_size_setup(torch, rows, peak_muls, device)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    check_h_evals(torch, device)
-    log(f"h_evals at 2^{H_CHECK_LOG_M}: equal to the plain path ({time.perf_counter() - t0:.1f} s)")
-    t0 = time.perf_counter()
-    key, witness, ix, tables = synthetic_key(torch, device)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    log(f"real-size synthetic key: {setup_s:.1f} s")
+
+    def phase4_setup():  # beside phase 7's `prove` and `batch` subprocesses
+        t0 = time.perf_counter()
+        check_h_evals(torch, device)
+        log(f"h_evals at 2^{H_CHECK_LOG_M}: equal to the plain path ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        made = synthetic_key(torch, device)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        log(f"real-size synthetic key (beside phase 7's subprocesses): {setup_s:.1f} s")
+        return made, setup_s
+
+    cli_line, cli_launches, cli_batch_launches, cli_limits, ((key, witness, ix, tables), setup_s) = cli_phase(
+        torch, cli_files, device, phase4_setup)
+    del cli_files
+    torch.cuda.empty_cache()
+    log(f"phase 7 (the CLI at full size): {time.perf_counter() - t0:.1f} s")
+
+    # phase 4, on the key made beside phase 7
+    # phase 6's setup shape of K13 stays beside the key's
+    setup_shapes = rows["fr_matvec"].get("at_shapes", {})
     rows["fr_matvec"].update(time_matvec_path(torch, key, witness, peak_muls, device))
+    rows["fr_matvec"]["at_shapes"] = {**setup_shapes, **rows["fr_matvec"].get("at_shapes", {})}
     rs = random.Random(SEED + 5)
     runs, jac_launches, peak_gib = real_size_proofs(torch, key, witness, ix, tables, rs, device, JACOBIAN_TIMED)
     witness_same_run = compare_witness_side(torch, key, witness, device)
@@ -3868,29 +4384,12 @@ def run(torch, device, peak_muls, sm_clock_hz):
 
     # the batch phase
     real_batch, batch_same_run, batch_launches = batch_phase(torch, key, witness, ix, tables, jac_launches, device)
+    check_cli_launches(cli_launches, cli_batch_launches, cli_limits, jac_launches, batch_launches)
 
-    # phase 5
+    # phase 5 (the phase-4 key stays resident for the profiles)
     aff_runs, aff_launches, aff_peak_gib = real_size_proofs(torch, key, witness, ix, tables, rs, device,
                                                             AFFINE_TIMED, **AFFINE_ARMS)
     affine_same_run = compare_affine_routes(torch, key, witness, rs, device)
-
-    # phase 6 (the phase-4 key stays resident for the profiles)
-    cli_files, real_setup, setup_launches = real_size_setup(torch, rows, peak_muls, device)
-    torch.cuda.empty_cache()
-
-    # phase 7
-    t0 = time.perf_counter()
-    cli_line, cli_launches, cli_batch_launches = cli_phase(torch, cli_files, jac_launches, batch_launches, device)
-    del cli_files
-    torch.cuda.empty_cache()
-    log(f"phase 7 (the CLI at full size): {time.perf_counter() - t0:.1f} s")
-
-    # phase 8
-    t0 = time.perf_counter()
-    flagship, fl_setup, fl_prove, fl_batch = flagship_phase(torch, built, device)
-    del built
-    torch.cuda.empty_cache()
-    log(f"phase 8 (the flagship circuit): {time.perf_counter() - t0:.1f} s")
     # last, so that no timed proof runs after the profiler
     profile = profile_proof(torch, lambda: prove_gpu(
         key, witness, r=rs.randrange(1, 1 << 250), s=rs.randrange(1, 1 << 250), device=device), "jacobian")
@@ -3899,7 +4398,7 @@ def run(torch, device, peak_muls, sm_clock_hz):
         "affine")
     by_path = {"jacobian": jac_launches, "affine": aff_launches, "batch": batch_launches, "setup": setup_launches,
                "cli_prove": cli_launches, "cli_batch": cli_batch_launches, "flagship_setup": fl_setup,
-               "flagship_prove": fl_prove, "flagship_batch": fl_batch}
+               "flagship_prove": fl_prove, "flagship_batch": fl_batch, "service": service_launches}
     for path, names in PATH_KERNELS.items():
         missing = [k for k in names if by_path[path]["zk_" + k] == 0]
         if missing:
@@ -3907,7 +4406,7 @@ def run(torch, device, peak_muls, sm_clock_hz):
     for path, names in (("jacobian", NOT_ON_JACOBIAN), ("affine", NOT_ON_AFFINE), ("batch", NOT_ON_JACOBIAN),
                         ("setup", OFF_PATH), ("cli_prove", NOT_ON_JACOBIAN), ("cli_batch", NOT_ON_JACOBIAN),
                         ("flagship_setup", OFF_PATH), ("flagship_prove", NOT_ON_JACOBIAN),
-                        ("flagship_batch", NOT_ON_JACOBIAN)):
+                        ("flagship_batch", NOT_ON_JACOBIAN), ("service", NOT_ON_JACOBIAN)):
         stray = [k for k in names if by_path[path]["zk_" + k]]
         if stray:
             raise AssertionError(f"launchers launched on the {path} path, which no longer runs them: {stray}")
@@ -3916,6 +4415,7 @@ def run(torch, device, peak_muls, sm_clock_hz):
               and k[len("zk_"):] not in OFF_PATH]
     if unused:
         raise AssertionError(f"launchers launched on no path: {unused}")
+    V = VENMO
     passes = 2 * len(pass_plan(V["log_m"]))  # the iNTT's and the NTT's, all three rows in each
     for launcher, want in (("zk_fr_ntt_pass", passes), ("zk_fr_matvec", 2), ("zk_signed_recode", 2)):
         if any(v[launcher] != want for v in (jac_launches, aff_launches)):
@@ -3968,7 +4468,7 @@ def run(torch, device, peak_muls, sm_clock_hz):
              "msm_b2_same_run": msm_b2_same_run, "proof_same_run": proof_same_run,
              "affine_msm_same_run": affine_msm_same_run, "affine_same_run": affine_same_run,
              "real_size_batch": real_batch, "batch_same_run": batch_same_run, "setup_vector": setup_vector,
-             "real_size_setup": real_setup, "cli_real_size": cli_line, "flagship": flagship}
+             "real_size_setup": real_setup, "cli_real_size": cli_line, "flagship": flagship, "service": service}
     return lines
 
 

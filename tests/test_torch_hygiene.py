@@ -410,3 +410,85 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA kernel build failed"):
         cuda_build.build_all(["broken"])
     assert not list((tmp_path / "_build").glob("*.so"))
+
+
+def test_ast_scan_finds_no_environment_read():
+    """The port takes its settings as arguments: nothing in it reads
+    os.environ or os.getenv (the reference's service was driven by its
+    environment)."""
+    bad = []
+    for f in PKG.rglob("*.py"):
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Attribute) and node.attr in ("environ", "environb", "getenv", "getenvb"):
+                bad.append((f.name, node.lineno, node.attr))
+            elif isinstance(node, ast.ImportFrom) and node.module == "os":
+                bad += [(f.name, node.lineno, a.name) for a in node.names if a.name.startswith(("environ", "getenv"))]
+    assert bad == []
+
+
+def test_service_without_cuda_raises(monkeypatch, tmp_path):
+    """ProvingService runs its default prover on CUDA unless given
+    device="cpu"; the service command raises without CUDA before it reads
+    the spool or a file, and refuses a circuit other than venmo and
+    email_verify as the reference does."""
+    from zkp2p_tpu.pipeline import cli as ref_cli
+
+    from zkp2p_tpu_torch.pipeline import cli
+    from zkp2p_tpu_torch.pipeline.service import ProvingService
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ProvingService(None, None, None, None, None)
+    assert ProvingService(None, None, None, None, None, device="cpu").device == torch.device("cpu")
+
+    def no_read(*a, **k):
+        raise AssertionError("read a file or built a circuit")
+
+    monkeypatch.setattr(cli, "read_zkey", no_read)
+    monkeypatch.setattr(cli, "_build_circuit", no_read)
+    spool = tmp_path / "spool"
+    for argv in (["--circuit", "venmo", "service", "--spool", str(spool)],
+                 ["--circuit", "venmo", "service", "--spool", str(spool), "--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["--build-dir", str(tmp_path / "build")] + argv)
+    assert not spool.exists()
+    out = subprocess.run([sys.executable, "-m", "zkp2p_tpu_torch", "--circuit", "venmo", "service", "--spool",
+                          str(spool)], cwd=ROOT, capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0 and "no CUDA device" in out.stderr and not spool.exists()
+    toy = ["--circuit", "toy", "service", "--spool", str(spool)]
+    with pytest.raises(SystemExit) as want:
+        ref_cli.main(toy)
+    with pytest.raises(SystemExit) as got:
+        cli.main(toy + ["--device", "cpu"])
+    assert str(got.value) == str(want.value) == "service supports the email circuits (venmo, email_verify)"
+    assert not spool.exists()
+
+
+def test_service_run_on_cuda_builds_every_kernel_before_claiming(monkeypatch, tmp_path):
+    """run() on a CUDA device builds and loads every kernel before its
+    first sweep: a failed build raises out of run() with the spool
+    untouched."""
+    from zkp2p_tpu_torch.pipeline.service import ProvingService
+
+    spool = tmp_path / "spool"
+    spool.mkdir()
+    (spool / "r0.req.json").write_text("{}")
+    svc = ProvingService(None, None, None, None, None, device="cpu")
+    svc.device = torch.device("cuda", 0)
+
+    def failed_build(stems=None):
+        raise RuntimeError("CUDA kernel build failed:\nmont_mul.cu (nvcc exit 1)")
+
+    monkeypatch.setattr(cuda_build, "build_all", failed_build)
+    with pytest.raises(RuntimeError, match="CUDA kernel build failed"):
+        svc.run(str(spool), max_sweeps=1)
+    assert sorted(os.listdir(spool)) == ["r0.req.json"] and not (tmp_path / "spool.metrics.jsonl").exists()
+    loaded = []
+    monkeypatch.setattr(cuda_build, "build_all", lambda stems=None: {s: None for s in cuda_build.SOURCES})
+    monkeypatch.setattr(cuda_build, "library", loaded.append)
+    svc.prover_fn = lambda dpk, wits: []  # nothing proves: the request is bad input
+    svc.witness_fn = lambda payload: (_ for _ in ()).throw(ValueError("bad payload"))
+    assert svc.run(str(spool), max_sweeps=1) == "sweeps"
+    assert loaded == list(cuda_build.SOURCES)
+    assert (spool / "r0.error.json").exists()

@@ -22,14 +22,24 @@ rapidsnark drop-in prover.
            circuit is built), else the inputs of --circuit's type: *.eml
            for venmo and email_verify, *.json ({"message": ...}) for
            sha256 and toy.
+  service  the batched proving service over a spool directory
+           (``pipeline.service.ProvingService``; venmo and email_verify):
+           <name>.req.json in ({"eml_path": ...}, or for venmo the
+           synthetic demo's {"raw_id", "amount", "order_id",
+           "claim_id"}), <name>.proof.json and <name>.public.json or
+           <name>.error.json out, request records in
+           <spool>.metrics.jsonl.  SIGTERM or SIGINT drains it (claims
+           nothing more, finishes what it holds) and it exits 0; exit 2
+           when --max-seconds runs out.
 
     python -m zkp2p_tpu_torch --circuit venmo --max-header 1024 --max-body 6400 setup
     python -m zkp2p_tpu_torch --circuit venmo --max-header 1024 --max-body 6400 prove --eml receipt.eml
     python -m zkp2p_tpu_torch prove --zkey build/circuit_final.zkey --wtns witness.wtns
     python -m zkp2p_tpu_torch verify
     python -m zkp2p_tpu_torch batch --indir inputs/ --outdir proofs/
+    python -m zkp2p_tpu_torch --circuit venmo --max-header 1024 --max-body 6400 service --spool spool/
 
-``setup``, ``prove`` and ``batch`` run on the CUDA card (``--device
+``setup``, ``prove``, ``batch`` and ``service`` run on the CUDA card (``--device
 cuda``, the default) and raise before they build a circuit or read a
 file when there is none; ``--device cpu`` runs the plain versions of the
 kernels.  A .wtns's values are proved as their residues mod r, and
@@ -326,6 +336,48 @@ def cmd_batch(args):
     _log(f"wrote {len(proofs)} proofs to {args.outdir}")
 
 
+def cmd_service(args):
+    """The batched proving service over a spool directory, until drained
+    (SIGTERM / SIGINT), --max-sweeps, --max-seconds or, with
+    --exit-when-terminal, every request ended."""
+    from .fleet import install_drain_handlers
+    from .service import ProvingService
+
+    dev = resolve_device(args.device)
+    if args.circuit not in ("venmo", "email_verify"):
+        raise SystemExit("service supports the email circuits (venmo, email_verify)")
+    cs, meta = _circuit(args)
+    zk = _load_zkey(args)
+    _check_zkey_matches(zk, cs)
+    dpk = _key(args, zk, dev)
+    del zk
+    vk = vkey_from_json(load(os.path.join(args.build_dir, "verification_key.json")))
+    params, lay = meta
+    svc_kw = dict(batch_size=args.batch, prefetch=args.prefetch, stale_claim_s=args.stale_claim_s,
+                  deadline_s=args.deadline_s, spool_cap=args.spool_cap, slo_p95_s=args.slo_p95_s,
+                  ts_sample_s=args.ts_sample_s, device=dev)
+    if args.circuit == "venmo":
+        svc = ProvingService.for_venmo(cs, lay, params, dpk, vk, **svc_kw)
+    else:
+
+        def witness_fn(payload):
+            from ..inputs.email import email_verify_from_eml, generate_email_verify_inputs
+
+            with open(payload["eml_path"], "rb") as f:
+                email, modulus = email_verify_from_eml(f.read())
+            inputs = generate_email_verify_inputs(email, modulus, params, lay)
+            return cs.witness(inputs.public_signals, inputs.seed)
+
+        svc = ProvingService(cs, dpk, vk, witness_fn, lambda w: list(w[1 : cs.num_public + 1]), **svc_kw)
+    os.makedirs(args.spool, exist_ok=True)
+    install_drain_handlers(svc)
+    _log(f"service sweeping {args.spool} (batch={args.batch})")
+    why = svc.run(args.spool, poll_s=args.poll, max_sweeps=args.max_sweeps, max_seconds=args.max_seconds,
+                  exit_when_spool_terminal=args.exit_when_terminal)
+    # 0: drained, every request ended, or the sweeps done; 2: timeout
+    sys.exit(0 if why in ("drained", "terminal", "sweeps") else 2)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser("zkp2p-tpu-torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -381,6 +433,30 @@ def main(argv=None):
     s.add_argument("--chunk", type=int, default=4, help="witnesses a device pass (0: all in one)")
     s.add_argument("--message", help=argparse.SUPPRESS)
     s.set_defaults(fn=cmd_batch)
+
+    s = sub.add_parser("service", help="run the batched proving service over a spool directory")
+    s.add_argument("--spool", required=True)
+    s.add_argument("--batch", type=int, default=4)
+    s.add_argument("--poll", type=float, default=1.0)
+    s.add_argument("--max-sweeps", type=int, default=None)
+    s.add_argument("--zkey", help="zkey path or chunk glob (default: BUILD_DIR/circuit_final.zkey)")
+    s.add_argument("--no-infer-widths", action="store_true",
+                   help="disable the zkey bit-constraint width inference")
+    device_arg(s)
+    s.add_argument("--prefetch", type=int, default=1, help="ready-batch queue depth")
+    s.add_argument("--stale-claim-s", type=float, default=300.0,
+                   help="claim age after which a dead worker's request is taken over")
+    s.add_argument("--deadline-s", type=float, default=0.0,
+                   help="default per-request deadline in s (a payload's deadline_s overrides it; 0 = none)")
+    s.add_argument("--spool-cap", type=int, default=0,
+                   help="pending requests admitted a sweep; the newest beyond it are shed as error-shed "
+                        "(0 = unlimited)")
+    s.add_argument("--slo-p95-s", type=float, default=0.0, help="p95 latency objective in s (0 = none)")
+    s.add_argument("--ts-sample-s", type=float, default=10.0, help="time-series sampler interval in s (0 = off)")
+    s.add_argument("--max-seconds", type=float, default=None, help="exit (rc 2) after this many seconds")
+    s.add_argument("--exit-when-terminal", action="store_true",
+                   help="exit 0 once every spool request has a terminal artifact")
+    s.set_defaults(fn=cmd_service)
 
     args = ap.parse_args(argv)
     try:

@@ -639,16 +639,58 @@ class ConstraintSystem:
         the ZK analog of the reference's `circom --inspect` lint, see
         SURVEY.md §5 race-detection), plus every wire_width tag (a wrong
         width tag would make the classed MSM drop nonzero digit planes —
-        failing only at pairing verification; this localises it)."""
-        for idx, con in enumerate(self.constraints):
+        failing only at pairing verification; this localises it).
+
+        The products and row sums run over numpy object arrays of the
+        matrices (``_check_matrices``, built once a system), exact Python
+        ints at C loop speed; the first unsatisfied row is reported as the
+        row-at-a-time loop reports it."""
+        import numpy as np
+
+        n = len(self.constraints)
+        wv = np.asarray(w, dtype=object)
+        sums = []
+        for rows, wires, coeffs, starts in self._check_matrices():
+            s = np.zeros(n, dtype=object)
+            if len(rows):
+                s[rows[starts]] = np.add.reduceat(coeffs * wv[wires], starts)
+            sums.append(s % R)
+        bad = np.flatnonzero((sums[0] * sums[1] % R != sums[2]).astype(bool))
+        if bad.size:
+            idx = int(bad[0])
+            con = self.constraints[idx]
             a = sum(c * w[i] for i, c in con.a.items()) % R
             b = sum(c * w[i] for i, c in con.b.items()) % R
             c_ = sum(c * w[i] for i, c in con.c.items()) % R
-            if a * b % R != c_:
-                raise AssertionError(
-                    f"constraint {idx} ({con.tag}) unsatisfied: {a}*{b} != {c_}"
-                )
+            raise AssertionError(
+                f"constraint {idx} ({con.tag}) unsatisfied: {a}*{b} != {c_}"
+            )
         self.check_widths(w)
+
+    def _check_matrices(self):
+        """(rows, wires, coefficients as Python ints, each row's first
+        entry) of A, B and C in row order, for check_witness; built once
+        and again when constraints were added since."""
+        import itertools
+
+        import numpy as np
+
+        cached = getattr(self, "_check_coo", None)
+        if cached is not None and cached[0] == len(self.constraints):
+            return cached[1]
+        mats = []
+        for side in ("a", "b", "c"):
+            ds = [getattr(con, side) for con in self.constraints]
+            lens = np.fromiter(map(len, ds), dtype=np.int64, count=len(ds))
+            nnz = int(lens.sum())
+            rows = np.repeat(np.arange(len(ds), dtype=np.int64), lens)
+            wires = np.fromiter(itertools.chain.from_iterable(ds), dtype=np.int64, count=nnz)
+            coeffs = np.empty(nnz, dtype=object)
+            coeffs[:] = list(itertools.chain.from_iterable(d.values() for d in ds))
+            starts = np.flatnonzero(np.r_[True, rows[1:] != rows[:-1]]) if nnz else np.zeros(0, np.int64)
+            mats.append((rows, wires, coeffs, starts))
+        self._check_coo = (len(self.constraints), mats)
+        return mats
 
     def check_widths(self, w: Sequence[int]) -> None:
         """Assert every constraint-backed width bound actually holds for
