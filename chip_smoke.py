@@ -7,21 +7,23 @@ Phases, each of which raises on failure (the script then exits nonzero
 and prints no result line).  They run in the order 1, 8 (its CLI
 subprocesses beside it and phase 9), 9, 2 (no other process on the card),
 3, 6, 7 (phase 4's h_evals check and synthetic key beside its `prove`
-and `batch` subprocesses), 4, 5, the profiles:
+and `batch` subprocesses), 10 (its counted run; its command line runs in
+a thread from the end of phase 6, beside 7 and the counted run, and ends
+before phase 4), 4, 5, the profiles:
 
 1. Build: every kernel source under zkp2p_tpu_torch/csrc/ with nvcc for
    sm_90a, one process per source, all started together, timed as
    set-up; beside it, in a thread, phase 8's circuit (VenmoParams(),
    1024/6400) by the port's builder, timed, with this process's RSS
    before and after.
-2. Kernels against plain: each of the twenty-seven launchers (K1
+2. Kernels against plain: each of the twenty-eight launchers (K1
    mont_mul; K2 add, K3 add_mixed, K4 double for G1 and G2; K5 mont_pow;
    K6/K8 the G1 and G2 window tables, K7/K9 the G1 and G2 window
    accumulates; K10/K11 the G1 and G2 Horner folds; K12 the NTT pass;
    K13 the CSR sparse matvec over Fr; K14 the signed digit recode; K15
    batch_inverse and jac_to_affine; K16 the G1 and G2 affine add and
    affine accumulate; K17 the G1 and G2 fixed-base batch; K18 the G1
-   and G2 lane tree) on
+   and G2 lane tree; K19 the G1 batch scaled by one scalar) on
    random canonical inputs with the special cases (zero, one, p-1; P+P,
    P+(-P), infinity, the (0, 0) affine sentinel; for K7/K9 also acc
    equal to its entry and to its negation, and e = 16 digits) at batches
@@ -270,6 +272,30 @@ and `batch` subprocesses), 4, 5, the profiles:
    every proof verified; requests/s, the witness_batch, check_witness
    and prove seconds of each batch, the card's busy share (prove seconds
    over the sweep's wall clock), peak device memory and host RSS.
+10. The key's life cycle, the phase-2 ceremony (the ceremony line).  In
+   phase 2, K19 at the ceremony's shape (the
+   flagship's C and H queries together, 13,305,359 points made on the
+   card by K17 and K15, 16 (0, 0) holes, G and -G among them) with a
+   seeded full-width scalar: timed with its bound, held bitwise against
+   plain over the first 65,536 points, 10 sampled points against the
+   host g1_mul, and its first 257 points with k = 0, 1, 2, 2^127, r-1
+   and r against the host g1_mul.  The counted run, in this process on phase 6's key as
+   its parsed zkey (no file): contribute_zkey twice (the first binds the
+   circuit hash), beacon_zkey at iter_exp 10, verify_zkeys of the chain
+   against the initial key (it must accept with the reference's lines),
+   each with the launch counts reset just before and read just after,
+   each launching exactly its CEREMONY_KERNELS (K19 and K15 once a
+   contribution).  The command line, from phase 6's files hard-linked
+   under .chip_scratch/ceremony/: `python -m zkp2p_tpu_torch ceremony
+   contribute`, `contribute`, `beacon --iter-exp 10` in turn, then
+   together `ceremony verify` of the final key (ZKEY OK, exit 0), of a
+   copy with one H point moved to G (ZKEY INVALID, exit 1, the H
+   scaling check failing) and `prove --zkey final --wtns`; then `verify`
+   of that proof against the final key's VK (read_zkey_vk; OK, exit 0)
+   and the initial one's (INVALID, exit 1), and `doctor --json --strict`
+   (exit 0: the card, every kernel built, its K1 workload equal to
+   plain): each subprocess's wall clock, peak RSS and its logged stage
+   seconds and launches.
 
 The launch counts are reset just before the first timed proof of each
 path and read just after it (phase 8: just before and after its setup,
@@ -287,13 +313,14 @@ and K1 at most 5 times a proof on each path (printed); a Jacobian proof
 and K2 only for its 3 G1 and 1 G2 joins of the classes; on the batch path,
 besides the per-chunk counts above, nothing of OFF_PATH or the affine
 path; in phase 7 the CLI's in-process prove as the Jacobian path and
-prove_gpu_batch on the key it imported as the batch path.
+prove_gpu_batch on the key it imported as the batch path; in phase 10
+each ceremony op (contribute, contribute_2, beacon, verify) as a path.
 
 Before the last line it prints the card's name and power limit, a
 profile each of one more Jacobian and one more affine proof, run after
 every timed proof (the device's busy share and the ops with the most
 device time, from torch.profiler), one JSON line with the
-twenty-seven kernels (checks, launches on each path, times and bounds),
+twenty-eight kernels (checks, launches on each path, times and bounds),
 one each with the two paths' per-stage times, launches and peak device
 memory, and one each with the same-run comparisons of the witness side
 (witness_same_run), the H ladder (ntt_same_run), the h MSM, the b2 MSM,
@@ -310,8 +337,10 @@ seconds, the gpu/prove span, the classes, the launches of the CLI's
 prove and batch, the batch's seconds and proofs/s beside
 prove_gpu_batch's), and the flagship circuit's (phase 8: counts, build,
 witness, qap_coo, setup, proof and batch seconds, the CLI's wall clock,
-steps, classes and peak RSS, the 256/192 setup), and the service's
-(phase 9).  The last line is {"ok": true, "device": {...}}.
+steps, classes and peak RSS, the 256/192 setup), the service's
+(phase 9) and the ceremony's (phase 10: the counted run's stage
+seconds, wall clock and launches an op; each command's).  The last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -323,6 +352,7 @@ import random
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
@@ -404,6 +434,7 @@ REPLACES = {
                     "tree_reduce)",
     "g2_lane_tree": "zkp2p_tpu/ops/pallas_curve.py:369 (g2_add, a launch a level of zkp2p_tpu/ops/msm.py:56 "
                     "tree_reduce)",
+    "g1_scale": "csrc/zkp2p_native.cpp:6448 (native C++ g1_scale_batch, no Pallas row)",
 }
 WINDOW_KERNELS = ("g1_window_table", "g1_window_accumulate", "g2_window_table", "g2_window_accumulate")
 FOLD_KERNELS = ("g1_horner_fold", "g2_horner_fold")
@@ -419,7 +450,7 @@ SOURCE = {"mont_mul": "mont_mul.cu", "mont_pow": "mont_pow.cu",
           **dict.fromkeys(FOLD_KERNELS, "msm_fold.cu"), "fr_ntt_pass": "ntt.cu",
           "fr_matvec": "matvec.cu", "signed_recode": "recode.cu",
           "g1_fixed_base": "fixed_base.cu", "g2_fixed_base": "fixed_base.cu",
-          **dict.fromkeys(LANE_TREE_KERNELS, "lane_tree.cu")}  # the rest: point_ops.cu
+          **dict.fromkeys(LANE_TREE_KERNELS, "lane_tree.cu"), "g1_scale": "scale.cu"}  # the rest: point_ops.cu
 # the launchers each real-size path must have launched, and must not have
 _POINT_KERNELS = ("g1_add", "g2_add") + FOLD_KERNELS + LANE_TREE_KERNELS
 # the witness side: K13 (Az, Bz) and K14 (the witness's planes, H's)
@@ -448,6 +479,17 @@ PATH_KERNELS["flagship_prove"] = PATH_KERNELS["jacobian"]
 PATH_KERNELS["flagship_batch"] = PATH_KERNELS["batch"]
 # phase 9: the service's sweep on the default prover, two batch chunks
 PATH_KERNELS["service"] = PATH_KERNELS["batch"]
+# phase 10, the ceremony: each op's launchers, exactly (the first
+# contribution's K1 is its circuit hash; the verify's K1 its two circuit
+# hashes and the on-curve tests, K14/K6/K7/K10/K18 its four combinations)
+CEREMONY_KERNELS = {
+    "ceremony_contribute": ("mont_mul", "g1_scale", "jac_to_affine"),
+    "ceremony_contribute_2": ("g1_scale", "jac_to_affine"),
+    "ceremony_beacon": ("g1_scale", "jac_to_affine"),
+    "ceremony_verify": ("mont_mul", "signed_recode", "g1_window_table", "g1_window_accumulate", "g1_horner_fold",
+                        "g1_lane_tree"),
+}
+PATH_KERNELS.update(CEREMONY_KERNELS)
 # K1's launches left on a proof, either path: to_mont of the witness, Cz =
 # Az*Bz, a*b after the ladder, from_mont of the witness and of H
 K1_JACOBIAN_MAX = 5
@@ -567,6 +609,17 @@ SERVICE_EMAILS = (("5678912345678912345", "12", 11), ("6789123456789123456", "99
 SERVICE_CLI_EMAILS = FLAGSHIP_EMAILS[:3]
 SERVICE_CLI_WAIT_S = 300
 SERVICE_DRAIN_S = 60
+# phase 10, the ceremony: K19 at the ceremony's shape, where SCALE_HOLES
+# (0, 0) holes sit among the points and SCALE_SAMPLES are checked against
+# the host, as are the first SCALE_SPECIAL_POINTS with k = 0, 1, 2, 2^127,
+# r - 1, r; the scratch of its command line, the beacon's value and
+# iteration exponent
+SCALE_SPECIAL_POINTS = 257
+SCALE_HOLES = 16
+SCALE_SAMPLES = 10
+CEREMONY_DIR = ".chip_scratch/ceremony"
+CEREMONY_BEACON = bytes.fromhex("5f1e2a6c" * 8)
+CEREMONY_ITER_EXP = 10
 # the launchers whose launches a batch chunk makes as often as one proof:
 # the tables once a chunk of steps, the accumulates once for the chunk's
 # witnesses, the folds and the lane trees once over the chunk's lanes
@@ -2959,7 +3012,8 @@ def write_cli_files(torch, key, vk, witness, pub):
     drop-in path hands the CLI, under CLI_DIR: circuit_final.zkey (the
     port's write_zkey_data), verification_key.json (vkey_to_json), the
     witness as witness.wtns, and in wtns/ the witness and CLI_SEEDED more
-    made as batch_witness makes them (which do not satisfy the R1CS)."""
+    made as batch_witness makes them (which do not satisfy the R1CS); the
+    zkey's parsed form is kept for phase 10."""
     import os
 
     from zkp2p_tpu_torch.formats.circom_bin import write_wtns
@@ -2970,8 +3024,9 @@ def write_cli_files(torch, key, vk, witness, pub):
     os.makedirs(os.path.join(d, "wtns"), exist_ok=True)
     paths = {"zkey": os.path.join(d, "circuit_final.zkey"), "wtns": os.path.join(d, "witness.wtns"),
              "indir": os.path.join(d, "wtns")}
+    zk = zkey_from_key(key, vk)
     t0 = time.perf_counter()
-    write_zkey_data(paths["zkey"], zkey_from_key(key, vk))
+    write_zkey_data(paths["zkey"], zk)
     zkey_s = time.perf_counter() - t0
     dump(vkey_to_json(vk), os.path.join(d, "verification_key.json"))
     t0 = time.perf_counter()
@@ -2983,7 +3038,7 @@ def write_cli_files(torch, key, vk, witness, pub):
     sizes = {k: os.path.getsize(paths[k]) for k in ("zkey", "wtns")}
     log(f"CLI files: zkey {sizes['zkey'] / 2**30:.3f} GiB written in {zkey_s:.1f} s, wtns "
         f"{sizes['wtns'] / 2**20:.1f} MiB in {wtns_s:.2f} s, {len(batch)} batch wtns")
-    return dict(paths=paths, witness=witness, batch=batch, pub=pub, vk=vk,
+    return dict(paths=paths, witness=witness, batch=batch, pub=pub, vk=vk, zk=zk,
                 files={"zkey_bytes": sizes["zkey"], "wtns_bytes": sizes["wtns"], "zkey_write_s": zkey_s,
                        "wtns_write_s": wtns_s})
 
@@ -3141,7 +3196,7 @@ def cli_phase(torch, inp, device, beside):
     returned, w0's to prove_gpu's; the satisfying witness's batch proof
     verifies, a seeded one's does not; both subprocesses' spans read from
     their --trace files.  `beside()` runs in this process while `prove`
-    and `batch` run (phase 4's set-up).  Deletes CLI_DIR.  Returns the
+    and `batch` run (phase 4's set-up, phase 10's counted run).  Deletes CLI_DIR.  Returns the
     cli_real_size line, the launches of the CLI's prove and batch run
     here, what check_cli_launches holds them to once phase 4 has run, and
     what beside() returned."""
@@ -3991,6 +4046,285 @@ def service_phase(torch, fl, device):
         shutil.rmtree(d, ignore_errors=True)
 
 
+# -------------------------------------------------------------- phase 10
+
+
+def scale_bound(n_live: int, n: int, k: int, peak_muls_per_s):
+    """K19's bound on these points: for each point that is not a hole, a
+    doubling (7 products) a NAF digit below the top and a mixed add (11)
+    a nonzero one below it, against the points read once and the
+    Jacobian points written once."""
+    from zkp2p_tpu_torch.ops.cuda_scale import naf_digits
+
+    digits = naf_digits(k)
+    doubles, adds = max(len(digits) - 1, 0), max(sum(1 for d in digits if d) - 1, 0)
+    muls = n_live * (doubles * MONTS["double"] + adds * MONTS["add_mixed"]) * MULS_PER_MONT
+    t_bytes, t_ops = n * (2 + 3) * 64 / HBM_BYTES_PER_S, muls / peak_muls_per_s
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes > t_ops else "operations",
+                naf_doubles=doubles, naf_adds=adds)
+
+
+def check_scale_kernel(torch, peak_muls_per_s, device):
+    """K19 (phase 2): at the ceremony's shape, the
+    flagship's C and H queries together (13,305,359 points made on the
+    card as K17 multiples of the generator, SCALE_HOLES (0, 0) holes, the
+    generator and its negation among them) scaled by a seeded full-width
+    scalar: timed with its bound (the card otherwise quiet), held bitwise
+    against its plain version over the first PLAIN_SLICE points, and
+    SCALE_SAMPLES sampled points (the holes', G's and -G's among them)
+    against the host g1_mul; the first SCALE_SPECIAL_POINTS (a hole, G,
+    -G) with k = 0, 1, 2, 2^127, r - 1, r against the host g1_mul."""
+    from zkp2p_tpu_torch.curve import host
+    from zkp2p_tpu_torch.curve.tcurve import g1_jac_to_host, g1_limbs
+    from zkp2p_tpu_torch.field.bn254 import R
+    from zkp2p_tpu_torch.field.tfield import FQ
+    from zkp2p_tpu_torch.ops import cuda_build
+    from zkp2p_tpu_torch.ops.cuda_fixed_base import fixed_base, fixed_base_table
+    from zkp2p_tpu_torch.ops.cuda_scale import g1_scale, g1_scale_plain
+    from zkp2p_tpu_torch.ops.msm_affine import jac_to_affine_batch
+
+    V = VENMO
+    n_c, n_h = V["n_wires"] - V["n_public"] - 1, 1 << V["log_m"]
+    n = n_c + n_h
+    gen = torch.Generator(device=device).manual_seed(SEED + 190)
+    table = fixed_base_table(False, host.G1_GENERATOR, device)
+    k_pts = rand_canon(torch, gen, (n,), device)
+    x, y = jac_to_affine_batch(FQ, fixed_base(False, table, k_pts))
+    del k_pts
+    holes = torch.linspace(0, n - 1, SCALE_HOLES, device=device).long()
+    x[holes] = 0
+    y[holes] = 0
+    (gx,), (gy,) = (torch.from_numpy(c).to(device) for c in g1_limbs([host.G1_GENERATOR]))
+    x[1], y[1], x[2], y[2] = gx, gy, gx, FQ.neg(gy)
+    rng = random.Random(SEED + 191)
+
+    def host_points(idx):
+        return [None if not (x[i].any() or y[i].any()) else (FQ.from_mont_host(x[i].cpu().numpy()),
+                                                             FQ.from_mont_host(y[i].cpu().numpy())) for i in idx]
+
+    first = host_points(range(SCALE_SPECIAL_POINTS))
+    for k in (0, 1, 2, 1 << 127, R - 1, R):
+        got = g1_scale((x[:SCALE_SPECIAL_POINTS], y[:SCALE_SPECIAL_POINTS]), k)
+        if g1_jac_to_host(got) != [None if p is None else host.g1_mul(p, k) for p in first]:
+            raise AssertionError(f"g1_scale (k={k}) differs from the host g1_mul")
+    k = rng.randrange(1, R)
+    ms, got = cuda_ms(torch, lambda: g1_scale((x, y), k), 3)
+    m = min(n, PLAIN_SLICE)
+    plain_ms, want = cuda_ms(torch, lambda: g1_scale_plain((x[:m], y[:m]), k), 1, warmup=False)
+    if max_abs_err(torch, tuple(c[:m] for c in got), want):
+        raise AssertionError(f"g1_scale at {n} points differs from its plain version over the first {m}")
+    idx = sorted({0, 1, 2, int(holes[SCALE_HOLES // 2]), n - 1, *(rng.randrange(n) for _ in range(SCALE_SAMPLES - 5))})
+    pts = host_points(idx)
+    if g1_jac_to_host(tuple(c[idx] for c in got)) != [None if p is None else host.g1_mul(p, k) for p in pts]:
+        raise AssertionError("g1_scale differs from the host g1_mul at the sampled points")
+    n_live = n - int(((x == 0).all(-1) & (y == 0).all(-1)).sum())
+    ptxas = [line.strip() for line in cuda_build._lib_path("scale").with_suffix(".log").read_text().splitlines()
+             if "registers" in line or "spill" in line]
+    row = dict(max_abs_err=0, shape=[n], shape_of="the flagship's C and H queries together (c 4,916,751 + h "
+                                                   "8,388,608 points)",
+               ms=ms, plain_ms=plain_ms, plain_over=m, holes=SCALE_HOLES, host_samples=len(idx), ptxas=ptxas,
+               **scale_bound(n_live, n, k, peak_muls_per_s),
+               check=(f"bitwise equal to plain at {n} points (holes, G, -G; plain over the first {m}); "
+                      f"{len(idx)} sampled points equal to the host g1_mul; at the first {SCALE_SPECIAL_POINTS} "
+                      f"points with k in {{0, 1, 2, 2^127, r-1, r}} equal to the host g1_mul"),
+               library_ms_reason="no PyTorch call multiplies a curve point")
+    log(f"K19 g1_scale at {n} points: {ms:.1f} ms, bound {row['bound_ms']:.1f} ms ({row['bound_by']}; NAF "
+        f"{row['naf_doubles']} doublings, {row['naf_adds']} adds), plain {plain_ms:.1f} ms over {m}; bitwise equal; "
+        f"{len(idx)} samples equal to the host; ptxas {ptxas}")
+    del x, y, got, want
+    torch.cuda.empty_cache()
+    return {"g1_scale": row}
+
+
+def ceremony_in_process(torch, zk, device):
+    """Phase 10's counted run, on phase 6's key as its parsed zkey (no
+    file): two contributions (the first binds the circuit hash), the
+    beacon at CEREMONY_ITER_EXP, and the verify of the chain against the
+    initial key, each with the launch counts set to 0 just before it and
+    read just after, its stage seconds and wall clock.  The verify must
+    accept with the reference's lines; each op must launch exactly its
+    CEREMONY_KERNELS.  Returns (its part of the ceremony line, launches
+    by op)."""
+    from zkp2p_tpu_torch.ops import cuda_build
+    from zkp2p_tpu_torch.snark import ceremony
+
+    ops = (("contribute", lambda z, st: ceremony.contribute_zkey(z, b"chip smoke, first", name="alice",
+                                                                  device=device, stages=st)),
+           ("contribute_2", lambda z, st: ceremony.contribute_zkey(z, b"chip smoke, second", name="bob",
+                                                                    device=device, stages=st)),
+           ("beacon", lambda z, st: ceremony.beacon_zkey(z, CEREMONY_BEACON, iter_exp=CEREMONY_ITER_EXP,
+                                                          device=device, stages=st)),
+           ("verify", lambda z, st: ceremony.verify_zkeys(zk, z, device=device, stages=st)))
+    line, launches = {}, {}
+    z = zk
+    for name, fn in ops:
+        st = {}
+        cuda_build.reset_launches()
+        wall, out = wall_s(torch, lambda: fn(z, st))
+        launches["ceremony_" + name] = dict(cuda_build.LAUNCHES)
+        line[name] = {"wall_s": wall, "stage_s": {k[2:]: v for k, v in st.items()},
+                      "launches": {k[3:]: v for k, v in cuda_build.LAUNCHES.items() if v}}
+        if name != "verify":
+            z = out
+    ok, lines = out
+    if not ok or sum("PoK + delta link verified" in s for s in lines) != 2 or lines[-1] != (
+            "H query scaling verified (randomized)") or not any(
+            f"beacon re-derived (iter_exp={CEREMONY_ITER_EXP})" in s for s in lines):
+        raise AssertionError(f"the in-process verify of the chain: {ok} {lines}")
+    check_ceremony_launches(launches)
+    log("ceremony in process: " + "; ".join(f"{k} {v['wall_s']:.2f} s (" + ", ".join(
+        f"{s} {t:.2f}" for s, t in v["stage_s"].items()) + ") " + json.dumps(v["launches"]) for k, v in line.items()))
+    return line, launches
+
+
+def check_ceremony_launches(launches) -> None:
+    """Each ceremony op launched exactly its CEREMONY_KERNELS, and each
+    contribution K19 and K15 once."""
+    for name, want in CEREMONY_KERNELS.items():
+        got = {k[3:] for k, v in launches[name].items() if v}
+        if got != set(want):
+            raise AssertionError(f"{name} launched {sorted(got)}, expected {sorted(want)}")
+    for name in ("contribute", "contribute_2", "beacon"):
+        if [launches["ceremony_" + name][k] for k in ("zk_g1_scale", "zk_jac_to_affine")] != [1, 1]:
+            raise AssertionError(f"the {name} launched K19 / K15 other than once each")
+
+
+def ceremony_files(inp):
+    """Phase 6's zkey, witness and VK hard-linked under CEREMONY_DIR (phase
+    7 deletes CLI_DIR while the ceremony still reads them)."""
+    import os
+    import shutil
+
+    d = os.path.abspath(CEREMONY_DIR)
+    shutil.rmtree(d, ignore_errors=True)
+    for sub in ("initial", "final"):
+        os.makedirs(os.path.join(d, sub))
+    paths = {"initial": os.path.join(d, "initial.zkey"), "wtns": os.path.join(d, "witness.wtns"),
+             "initial_dir": os.path.join(d, "initial"), "final_dir": os.path.join(d, "final"), "dir": d}
+    os.link(inp["paths"]["zkey"], paths["initial"])
+    os.link(inp["paths"]["wtns"], paths["wtns"])
+    os.link(os.path.join(os.path.dirname(inp["paths"]["zkey"]), "verification_key.json"),
+            os.path.join(paths["initial_dir"], "verification_key.json"))
+    return paths
+
+
+def ceremony_log(stderr: str, op: str) -> dict:
+    """The stage seconds and launches a ceremony command logs."""
+    import re
+
+    m = re.search(rf"\] {op}: (.*) s; launches (\{{.*\}})", stderr)
+    if not m:
+        raise AssertionError(f"the ceremony {op} logged no stage line")
+    stages = {k: float(v) for k, v in (part.rsplit(" ", 1) for part in m.group(1).split(", "))}
+    return {"stage_s": stages, "launches": json.loads(m.group(2))}
+
+
+def edit_h_point(path: str, index: int) -> None:
+    """Overwrite H query point `index` of a zkey file in place with the
+    generator (a point on the curve, so only the scaling check catches
+    it)."""
+    import struct
+
+    from zkp2p_tpu_torch.curve.host import G1_GENERATOR
+    from zkp2p_tpu_torch.field.bn254 import MONT_R, P
+
+    with open(path, "r+b") as f:
+        (n,) = struct.unpack_from("<I", f.read(12), 8)
+        for _ in range(n):
+            stype, size = struct.unpack("<IQ", f.read(12))
+            if stype == 9:
+                f.seek(64 * index, 1)
+                f.write(b"".join((c * MONT_R % P).to_bytes(32, "little") for c in G1_GENERATOR))
+                return
+            f.seek(size, 1)
+    raise AssertionError(f"{path} has no H section")
+
+
+def ceremony_chain(paths, started, abort):
+    """Phase 10's command line, run in a thread beside phase 7 and phase
+    10's counted run from phase 6's files: `ceremony contribute`,
+    `contribute`, `beacon` (iter_exp CEREMONY_ITER_EXP) in turn; then
+    `ceremony verify` of the final key (ZKEY OK, exit 0), of a copy with
+    one H point moved (ZKEY INVALID, exit 1) and `prove --zkey final
+    --wtns` together; then
+    `verify` of that proof against the final key's VK (OK, exit 0) and the
+    initial one's (INVALID, exit 1); beside them `doctor --json --strict`
+    (exit 0: the card, every kernel library built, the K1 workload equal
+    to plain, no warning).  Each subprocess's wall clock, peak RSS and
+    logged stages and launches.  Deletes CEREMONY_DIR."""
+    import os
+    import shutil
+
+    from zkp2p_tpu_torch.formats.proof_json import dump, vkey_to_json
+    from zkp2p_tpu_torch.formats.zkey import read_zkey_vk
+
+    d = paths["dir"]
+    z = {name: os.path.join(d, f"{name}.zkey") for name in ("c1", "c2", "final", "tampered")}
+    out = {}
+
+    def start(label, args):
+        if abort.is_set():
+            raise RuntimeError("phase 10's command line stopped: an earlier phase failed")
+        handle = cli_start(args, os.path.join(d, label + ".log"))
+        started.append(handle[0])
+        return handle
+
+    def finish(label, handle, code, last, op=None):
+        wall, run, peak = cli_finish(handle)
+        lines = run.stdout.strip().splitlines()
+        if run.returncode != code or (last is not None and (not lines or lines[-1] != last)):
+            raise AssertionError(f"phase 10's {label} exited {run.returncode} printing {lines[-3:]}, expected "
+                                 f"{code} and {last!r}")
+        out[label] = {"wall_s": wall, "peak_rss_gib": peak, "exit": code, "last_line": last,
+                      **(ceremony_log(run.stderr, op) if op else {})}
+        return lines
+
+    try:
+        t0 = time.perf_counter()
+        for label, op, args, last in (
+                ("contribute_1", "contribute", ["contribute", paths["initial"], z["c1"], "--entropy",
+                                                "chip smoke CLI, first", "--name", "alice"],
+                 f"contributed -> {z['c1']}"),
+                ("contribute_2", "contribute", ["contribute", z["c1"], z["c2"], "--entropy", "chip smoke CLI, second",
+                                                "--name", "bob"], f"contributed -> {z['c2']}"),
+                ("beacon", "beacon", ["beacon", z["c2"], z["final"], "--beacon-hash", CEREMONY_BEACON.hex(),
+                                      "--iter-exp", str(CEREMONY_ITER_EXP)], f"beacon applied -> {z['final']}")):
+            finish(label, start(label, ["ceremony", *args]), 0, last, op)
+        shutil.copyfile(z["final"], z["tampered"])
+        edit_h_point(z["tampered"], 1)
+        dump(vkey_to_json(read_zkey_vk(z["final"])), os.path.join(paths["final_dir"], "verification_key.json"))
+        proof = [os.path.join(paths["final_dir"], f) for f in ("proof.json", "public.json")]
+        verify = start("verify", ["ceremony", "verify", paths["initial"], z["final"]])
+        tampered = start("verify_tampered", ["ceremony", "verify", paths["initial"], z["tampered"]])
+        prove = start("prove_final", ["--build-dir", paths["final_dir"], "prove", "--zkey", z["final"], "--wtns",
+                                      paths["wtns"], "--proof", proof[0], "--public", proof[1]])
+        doctor = start("doctor", ["doctor", "--json", "--strict"])
+        rep = json.loads(finish("doctor", doctor, 0, None)[-1])
+        if (rep["backend"] != "cuda" or not all(k["built"] for k in rep["kernels"].values())
+                or rep["workload_s"] is None or rep["warnings"]):
+            raise AssertionError(f"phase 10's doctor reported {rep}")
+        out["doctor"].update(device=rep["device"], workload_s=rep["workload_s"], gates=rep["gates"],
+                             execution_digest=rep["execution_digest"])
+        finish("prove_final", prove, 0, None)
+        checks = {name: start(name, ["--build-dir", paths[f"{which}_dir"], "verify", "--proof", proof[0],
+                                     "--public", proof[1]])
+                  for name, which in (("final_vk_accepts", "final"), ("initial_vk_rejects", "initial"))}
+        finish("final_vk_accepts", checks["final_vk_accepts"], 0, "OK")
+        finish("initial_vk_rejects", checks["initial_vk_rejects"], 1, "INVALID")
+        lines = finish("verify", verify, 0, "ZKEY OK", "verify")
+        if sum("PoK + delta link verified" in s for s in lines) != 2 or not any("beacon re-derived" in s
+                                                                                 for s in lines):
+            raise AssertionError(f"phase 10's verify printed {lines}")
+        lines = finish("verify_tampered", tampered, 1, "ZKEY INVALID", "verify")
+        if lines[-2] != "FAIL: H query not a consistent delta-scaling of the initial key":
+            raise AssertionError(f"phase 10's verify of the edited key printed {lines}")
+        out["chain_s"] = time.perf_counter() - t0
+        out["zkey_bytes"] = os.path.getsize(z["final"])
+        return out
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -4264,6 +4598,7 @@ def kernels_phase(torch, peak_muls, sm_clock_hz, device):
     fb_sizes = {"setup G1 launch (a, b1, c, h)": (False, sum(g1_queries.values())),
                 **{q: (False, n) for q, n in g1_queries.items()}, "setup G2 launch (b2)": (True, g1_queries["b1"])}
     rows.update(check_fixed_base_kernels(torch, fb_sizes, peak_muls, device))
+    rows.update(check_scale_kernel(torch, peak_muls, device))
     free, total = torch.cuda.mem_get_info()
     log(f"kernels against plain: {time.perf_counter() - t0:.1f} s; peak device memory allocated here "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, {free / 2**30:.2f} of "
@@ -4272,9 +4607,10 @@ def kernels_phase(torch, peak_muls, sm_clock_hz, device):
 
 
 def run(torch, device, peak_muls, sm_clock_hz):
-    """Phases 1-9 on `device`, in the order 1, 8 (its subprocesses beside
+    """Phases 1-10 on `device`, in the order 1, 8 (its subprocesses beside
     it and 9), 9, 2, 3, 6, 7 (phase 4's set-up beside its subprocesses),
-    4, 5; returns what main prints."""
+    10 (its command line in a thread from the end of 6, beside 7 and its
+    counted run), 4, 5; returns what main prints."""
     from zkp2p_tpu_torch.ops import cuda_build
     from zkp2p_tpu_torch.ops.ntt import pass_plan
     from zkp2p_tpu_torch.prover.groth16_gpu import key_from_numpy, prove_gpu
@@ -4347,49 +4683,72 @@ def run(torch, device, peak_muls, sm_clock_hz):
     setup_vector = check_setup_vector(torch, device)
 
     # phase 6, then phase 7 on its files, phase 4's set-up beside its
-    # subprocesses
+    # subprocesses; phase 10's command line in a thread from phase 6's files,
+    # beside phase 7 and phase 10's counted run
     cli_files, real_setup, setup_launches = real_size_setup(torch, rows, peak_muls, device)
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-
-    def phase4_setup():  # beside phase 7's `prove` and `batch` subprocesses
+    cer_started, cer_abort = [], threading.Event()
+    cer_pool = ThreadPoolExecutor(1)
+    cer_chain = cer_pool.submit(ceremony_chain, ceremony_files(cli_files), cer_started, cer_abort)
+    try:
         t0 = time.perf_counter()
-        check_h_evals(torch, device)
-        log(f"h_evals at 2^{H_CHECK_LOG_M}: equal to the plain path ({time.perf_counter() - t0:.1f} s)")
+
+        def phase4_setup():  # beside phase 7's `prove` and `batch` subprocesses
+            t0 = time.perf_counter()
+            check_h_evals(torch, device)
+            log(f"h_evals at 2^{H_CHECK_LOG_M}: equal to the plain path ({time.perf_counter() - t0:.1f} s)")
+            t0 = time.perf_counter()
+            made = synthetic_key(torch, device)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            log(f"real-size synthetic key (beside phase 7's subprocesses): {setup_s:.1f} s")
+            return made, setup_s
+
+        cli_line, cli_launches, cli_batch_launches, cli_limits, ((key, witness, ix, tables), setup_s) = cli_phase(
+            torch, cli_files, device, phase4_setup)
+        torch.cuda.empty_cache()
+        log(f"phase 7 (the CLI at full size): {time.perf_counter() - t0:.1f} s")
+
+        # phase 10's counted run, beside its command line's last subprocesses;
+        # then its command line ends before phase 4 (no ceremony process
+        # beside a timed proof or a peak-memory run)
         t0 = time.perf_counter()
-        made = synthetic_key(torch, device)
-        torch.cuda.synchronize()
-        setup_s = time.perf_counter() - t0
-        log(f"real-size synthetic key (beside phase 7's subprocesses): {setup_s:.1f} s")
-        return made, setup_s
+        cer_line, cer_launches = ceremony_in_process(torch, cli_files.pop("zk"), device)
+        del cli_files
+        torch.cuda.empty_cache()
+        log(f"phase 10's counted run: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cer_cli = cer_chain.result()
+        log(f"phase 10's command line: {cer_cli['chain_s']:.1f} s from phase 6's files, waited "
+            f"{time.perf_counter() - t0:.1f} s for after its counted run: "
+            + json.dumps({k: v["wall_s"] for k, v in cer_cli.items() if isinstance(v, dict)}))
 
-    cli_line, cli_launches, cli_batch_launches, cli_limits, ((key, witness, ix, tables), setup_s) = cli_phase(
-        torch, cli_files, device, phase4_setup)
-    del cli_files
-    torch.cuda.empty_cache()
-    log(f"phase 7 (the CLI at full size): {time.perf_counter() - t0:.1f} s")
+        # phase 4, on the key made beside phase 7
+        # phase 6's setup shape of K13 stays beside the key's
+        setup_shapes = rows["fr_matvec"].get("at_shapes", {})
+        rows["fr_matvec"].update(time_matvec_path(torch, key, witness, peak_muls, device))
+        rows["fr_matvec"]["at_shapes"] = {**setup_shapes, **rows["fr_matvec"].get("at_shapes", {})}
+        rs = random.Random(SEED + 5)
+        runs, jac_launches, peak_gib = real_size_proofs(torch, key, witness, ix, tables, rs, device, JACOBIAN_TIMED)
+        witness_same_run = compare_witness_side(torch, key, witness, device)
+        ntt_same_run = compare_ladder(torch, key, witness, device)
+        msm_h_same_run = compare_msm_h(torch, key, device)
+        msm_b2_same_run = compare_msm_b2(torch, key, device)
+        proof_same_run = compare_proofs(torch, key, witness, rs, device)
 
-    # phase 4, on the key made beside phase 7
-    # phase 6's setup shape of K13 stays beside the key's
-    setup_shapes = rows["fr_matvec"].get("at_shapes", {})
-    rows["fr_matvec"].update(time_matvec_path(torch, key, witness, peak_muls, device))
-    rows["fr_matvec"]["at_shapes"] = {**setup_shapes, **rows["fr_matvec"].get("at_shapes", {})}
-    rs = random.Random(SEED + 5)
-    runs, jac_launches, peak_gib = real_size_proofs(torch, key, witness, ix, tables, rs, device, JACOBIAN_TIMED)
-    witness_same_run = compare_witness_side(torch, key, witness, device)
-    ntt_same_run = compare_ladder(torch, key, witness, device)
-    msm_h_same_run = compare_msm_h(torch, key, device)
-    msm_b2_same_run = compare_msm_b2(torch, key, device)
-    proof_same_run = compare_proofs(torch, key, witness, rs, device)
+        # the batch phase
+        real_batch, batch_same_run, batch_launches = batch_phase(torch, key, witness, ix, tables, jac_launches,
+                                                                 device)
+        check_cli_launches(cli_launches, cli_batch_launches, cli_limits, jac_launches, batch_launches)
 
-    # the batch phase
-    real_batch, batch_same_run, batch_launches = batch_phase(torch, key, witness, ix, tables, jac_launches, device)
-    check_cli_launches(cli_launches, cli_batch_launches, cli_limits, jac_launches, batch_launches)
-
-    # phase 5 (the phase-4 key stays resident for the profiles)
-    aff_runs, aff_launches, aff_peak_gib = real_size_proofs(torch, key, witness, ix, tables, rs, device,
-                                                            AFFINE_TIMED, **AFFINE_ARMS)
-    affine_same_run = compare_affine_routes(torch, key, witness, rs, device)
+        # phase 5 (the phase-4 key stays resident for the profiles)
+        aff_runs, aff_launches, aff_peak_gib = real_size_proofs(torch, key, witness, ix, tables, rs, device,
+                                                                AFFINE_TIMED, **AFFINE_ARMS)
+        affine_same_run = compare_affine_routes(torch, key, witness, rs, device)
+    finally:
+        cer_abort.set()
+        stop(list(cer_started))
+        cer_pool.shutdown(wait=True)
     # last, so that no timed proof runs after the profiler
     profile = profile_proof(torch, lambda: prove_gpu(
         key, witness, r=rs.randrange(1, 1 << 250), s=rs.randrange(1, 1 << 250), device=device), "jacobian")
@@ -4398,7 +4757,7 @@ def run(torch, device, peak_muls, sm_clock_hz):
         "affine")
     by_path = {"jacobian": jac_launches, "affine": aff_launches, "batch": batch_launches, "setup": setup_launches,
                "cli_prove": cli_launches, "cli_batch": cli_batch_launches, "flagship_setup": fl_setup,
-               "flagship_prove": fl_prove, "flagship_batch": fl_batch, "service": service_launches}
+               "flagship_prove": fl_prove, "flagship_batch": fl_batch, "service": service_launches, **cer_launches}
     for path, names in PATH_KERNELS.items():
         missing = [k for k in names if by_path[path]["zk_" + k] == 0]
         if missing:
@@ -4468,7 +4827,14 @@ def run(torch, device, peak_muls, sm_clock_hz):
              "msm_b2_same_run": msm_b2_same_run, "proof_same_run": proof_same_run,
              "affine_msm_same_run": affine_msm_same_run, "affine_same_run": affine_same_run,
              "real_size_batch": real_batch, "batch_same_run": batch_same_run, "setup_vector": setup_vector,
-             "real_size_setup": real_setup, "cli_real_size": cli_line, "flagship": flagship, "service": service}
+             "real_size_setup": real_setup, "cli_real_size": cli_line, "flagship": flagship, "service": service,
+             "ceremony": {"shape": f"phase 6's key (venmo 1024/6400 counts): c {V['n_wires'] - V['n_public'] - 1} + "
+                                   f"h {1 << V['log_m']} points, zkey {cer_cli['zkey_bytes']} bytes",
+                          "in_process": cer_line, "cli": cer_cli,
+                          "concurrency": "the command line's subprocesses in turn from phase 6's files, beside "
+                                         "phase 7 and then the counted run in this process (the verify, the "
+                                         "edited key's verify and the final key's prove together); the command "
+                                         "line ends before phase 4"}}
     return lines
 
 

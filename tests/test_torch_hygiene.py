@@ -18,8 +18,8 @@ import torch
 from zkp2p_tpu_torch.curve import tcurve
 from zkp2p_tpu_torch.field.tfield import FQ, FQ2, FR
 from zkp2p_tpu_torch.ops import (cuda_affine, cuda_build, cuda_curve, cuda_fixed_base, cuda_lane_tree, cuda_matvec,
-                                  cuda_mont, cuda_msm_fold, cuda_msm_window, cuda_ntt, cuda_recode, msm, msm_affine,
-                                  ntt)
+                                  cuda_mont, cuda_msm_fold, cuda_msm_window, cuda_ntt, cuda_recode, cuda_scale, msm,
+                                  msm_affine, ntt)
 from zkp2p_tpu_torch.prover.groth16_gpu import key_from_numpy, prove_gpu, prove_gpu_batch
 from zkp2p_tpu_torch.prover.vector import VECTOR_PATH, load_vector
 from zkp2p_tpu_torch.utils.device import resolve_device
@@ -159,6 +159,27 @@ def test_cli_without_cuda_raises_before_reading_a_file(monkeypatch, tmp_path):
     assert out.returncode != 0 and "no CUDA device" in out.stderr and out.stdout == ""
 
 
+def test_ceremony_without_cuda_raises_before_reading_a_file(monkeypatch, tmp_path):
+    """contribute, beacon and verify_chain, and the CLI's ceremony, run on
+    CUDA unless given device="cpu" (--device cpu): without CUDA they raise
+    before they read a zkey."""
+    from zkp2p_tpu_torch.pipeline import cli
+    from zkp2p_tpu_torch.snark import ceremony
+
+    def no_read(*a, **k):
+        raise AssertionError("read a file")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(ceremony, "read_zkey", no_read)
+    a, b = str(tmp_path / "a.zkey"), str(tmp_path / "b.zkey")
+    for call in (lambda: ceremony.contribute(a, b, b"e"), lambda: ceremony.beacon(a, b, b"h"),
+                 lambda: ceremony.verify_chain(a, b), lambda: cli.main(["ceremony", "contribute", a, b]),
+                 lambda: cli.main(["ceremony", "verify", a, b, "--device", "cuda"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not os.path.exists(b)
+
+
 def test_chip_smoke_without_cuda_exits_nonzero_and_prints_nothing():
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True,
                          text=True, timeout=300, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
@@ -259,20 +280,24 @@ def test_wrappers_on_cpu_take_the_plain_path_and_count_nothing():
         got = msm.tree_reduce(C, pts, 5)
         assert all(torch.equal(x, y) for x, y in zip(got, msm.tree_reduce_steps(C, pts, 5)))
         assert all(torch.equal(x, y) for x, y in zip(got, cuda_lane_tree.lane_tree_plain(g2, pts)))
-    assert set(cuda_build.LAUNCHES) == set(cuda_build.LAUNCHERS) and len(cuda_build.LAUNCHERS) == 27
-    assert {"batch_inv", "affine_add", "fixed_base", "lane_tree"} <= set(cuda_build.SOURCES)
+    # K19's dispatcher: the plain digit loop on CPU tensors
+    pts = (_rand((3,), 104), _rand((3,), 105))
+    got = cuda_scale.g1_scale(pts, 12345)
+    assert all(torch.equal(x, y) for x, y in zip(got, cuda_scale.g1_scale_plain(pts, 12345)))
+    assert set(cuda_build.LAUNCHES) == set(cuda_build.LAUNCHERS) and len(cuda_build.LAUNCHERS) == 28
+    assert {"batch_inv", "affine_add", "fixed_base", "lane_tree", "scale"} <= set(cuda_build.SOURCES)
     assert all((cuda_build.CSRC_DIR / f"{stem}.cu").is_file() for stem in cuda_build.SOURCES)
     assert all(v == 0 for v in cuda_build.LAUNCHES.values())
 
 
 def test_kernel_sources_include_their_headers():
     """Each library's name hashes every header, so an edited header
-    rebuilds every kernel; K17 and K18 run mont_cc.cuh's product, K18
+    rebuilds every kernel; K17, K18 and K19 run mont_cc.cuh's product, K18
     point_coop.cuh's cooperative add (K10/K11's)."""
     headers = {p.name for p in cuda_build.CSRC_DIR.glob("*.cuh")}
     assert {"mont.cuh", "mont_cc.cuh", "point.cuh", "point_coop.cuh", "affine.cuh"} <= headers
     assert '#include "point_coop.cuh"' in (cuda_build.CSRC_DIR / "lane_tree.cu").read_text()
-    for stem in ("fixed_base", "lane_tree"):
+    for stem in ("fixed_base", "lane_tree", "scale"):
         src = (cuda_build.CSRC_DIR / f"{stem}.cu").read_text()
         assert '#include "mont_cc.cuh"' in src and "<MulCC>" in src, stem
     before = cuda_build._lib_path("lane_tree")

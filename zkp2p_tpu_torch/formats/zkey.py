@@ -1,6 +1,6 @@
 """Reading and writing snarkjs ``.zkey`` proving keys, whole or in chunks
-(the reference's ``formats/zkey.py`` without its writer from host points
-and its ceremony records).
+(the reference's ``formats/zkey.py`` without its writer from host
+points).
 
 Format (iden3 binfile, magic "zkey", version 1; snarkjs
 src/zkey_utils.js): sections [type u32][size u64][payload]:
@@ -16,9 +16,11 @@ src/zkey_utils.js): sections [type u32][size u64][payload]:
                     included
   5..8 A/B1/B2/C  : one query point a wire (C omits wires 0..nPublic)
   9 H             : domainSize G1 points, the coset-Lagrange basis
-  10 contributions: the ceremony's transcript (not read here; written
-                  as a key with no contributions: a zero 64-byte
-                  circuit hash and a count of 0)
+  10 contributions: the phase-2 ceremony's transcript (``MpcParams``:
+                  a 64-byte circuit hash, a u32 count, then each
+                  ``Contribution``); a key with none has a zero hash and
+                  a count of 0.  A section in another layout (stock
+                  snarkjs's records) reads as None.
 
 Every field element is little-endian Montgomery form (R = 2^256), which
 is the port's limb layout: a point section becomes (n, 16) int32 limb
@@ -27,7 +29,8 @@ zero bytes, the key's (0, 0).  A coordinate or coefficient stored at or
 above its modulus is reduced.
 
 The chunked form splits the byte stream into equal slices with suffixes
-b..k; ``read_zkey`` takes one path, the list of chunk paths, or bytes.
+b..k (``split_zkey``); ``read_zkey`` takes one path, the list of chunk
+paths, or bytes.
 """
 
 from __future__ import annotations
@@ -122,6 +125,88 @@ def _g2_points(arrs: AffArrays) -> List[G2Point]:
     return out
 
 
+@dataclass
+class Contribution:
+    """One phase-2 contribution record of section 10: the delta after it,
+    a BGM17 proof of knowledge of the delta' it applied (s*G1, s*delta'*G1,
+    delta'*SP), the running transcript hash; kind 0 = interactive, 1 =
+    beacon, whose hash and iteration exponent let a verifier re-derive
+    delta'."""
+
+    delta_after: G1Point
+    pok_g1_s: G1Point
+    pok_g1_sx: G1Point
+    pok_g2_spx: G2Point
+    transcript: bytes  # 64
+    kind: int = 0
+    name: str = ""
+    beacon_hash: bytes = b""
+    beacon_iter_exp: int = 0
+
+
+@dataclass
+class MpcParams:
+    cs_hash: bytes  # 64-byte circuit digest
+    contributions: List[Contribution]
+
+
+def _mpc_to_bytes(mpc: MpcParams) -> bytes:
+    out = bytearray()
+    out += mpc.cs_hash.ljust(64, b"\x00")[:64]
+    out += struct.pack("<I", len(mpc.contributions))
+    for c in mpc.contributions:
+        out += _g1_bytes(c.delta_after) + _g1_bytes(c.pok_g1_s) + _g1_bytes(c.pok_g1_sx)
+        out += _g2_bytes(c.pok_g2_spx)
+        out += c.transcript.ljust(64, b"\x00")[:64]
+        name_b = c.name.encode()
+        out += struct.pack("<II", c.kind, len(name_b)) + name_b
+        if c.kind == 1:
+            out += c.beacon_hash.ljust(64, b"\x00")[:64] + struct.pack("<I", c.beacon_iter_exp)
+    return bytes(out)
+
+
+def _mpc_from_bytes(buf: bytes) -> Optional[MpcParams]:
+    """Parse section 10 in the layout of ``_mpc_to_bytes``.  A section in
+    another layout (stock snarkjs's records), with more than 10,000
+    contributions, or with bytes left over parses to None, so that the key
+    still imports."""
+    try:
+        if len(buf) < 68:
+            return MpcParams(cs_hash=buf.ljust(64, b"\x00")[:64], contributions=[])
+        cs_hash = buf[:64]
+        (n,) = struct.unpack_from("<I", buf, 64)
+        if n > 10_000:  # no real ceremony has this many rounds
+            return None
+        o = 68
+        contribs = []
+        for _ in range(n):
+            if o + 384 + 8 > len(buf):
+                return None
+            delta_after = _g1_parse(buf[o : o + 64]); o += 64
+            g1_s = _g1_parse(buf[o : o + 64]); o += 64
+            g1_sx = _g1_parse(buf[o : o + 64]); o += 64
+            g2_spx = _g2_parse(buf[o : o + 128]); o += 128
+            transcript = buf[o : o + 64]; o += 64
+            kind, name_len = struct.unpack_from("<II", buf, o); o += 8
+            if kind not in (0, 1) or o + name_len > len(buf):
+                return None
+            name = buf[o : o + name_len].decode(); o += name_len
+            beacon_hash, beacon_iter = b"", 0
+            if kind == 1:
+                if o + 68 > len(buf):
+                    return None
+                beacon_hash = buf[o : o + 64]; o += 64
+                (beacon_iter,) = struct.unpack_from("<I", buf, o); o += 4
+            contribs.append(
+                Contribution(delta_after, g1_s, g1_sx, g2_spx, transcript, kind, name, beacon_hash, beacon_iter)
+            )
+        if o != len(buf):
+            return None  # trailing bytes: not this layout
+        return MpcParams(cs_hash=cs_hash, contributions=contribs)
+    except Exception:  # noqa: BLE001 — a foreign or corrupt section imports as None
+        return None
+
+
 _COEFF = np.dtype([("m", "<u4"), ("row", "<u4"), ("wire", "<u4"), ("v", "<u2", (NUM_LIMBS,))])
 
 
@@ -149,6 +234,7 @@ class ZkeyData:
     b2_query: AffArrays  # (n_vars, 2, 16) x, y
     c_query: AffArrays  # wires n_public+1 .. n_vars-1
     h_query: AffArrays  # (domain_size, 16)
+    mpc: Optional[MpcParams] = None  # section 10; None when absent or foreign
 
     def coeff_entries(self, mat: int):
         """(row, wire, Montgomery value) of matrix `mat` (0 = A, 1 = B), in file order."""
@@ -222,22 +308,9 @@ def _read_bytes(path_or_chunks) -> bytes:
     return b"".join(parts)
 
 
-def read_zkey(path_or_chunks) -> ZkeyData:
-    """Parse a zkey from one path, an ordered list of chunk paths, or raw
-    bytes."""
-    data = _read_bytes(path_or_chunks)
-    if data[:4] != ZKEY_MAGIC:
-        raise ValueError(f"not a zkey: magic {data[:4]!r}")
-    _version, n_sections = struct.unpack_from("<II", data, 4)
-    off = 12
-    sections: Dict[int, memoryview] = {}
-    view = memoryview(data)
-    for _ in range(n_sections):
-        stype, size = struct.unpack_from("<IQ", data, off)
-        off += 12
-        sections[stype] = view[off : off + size]
-        off += size
-
+def _header(sections) -> Dict:
+    """The header (sections 1 and 2) and the IC points (section 3):
+    ZkeyData's fields n_vars .. ic."""
     (protocol,) = struct.unpack_from("<I", sections[1], 0)
     if protocol != 1:
         raise ValueError(f"not a groth16 zkey (protocol {protocol})")
@@ -258,22 +331,64 @@ def read_zkey(path_or_chunks) -> ZkeyData:
                         (64, _g1_parse), (128, _g2_parse)):
         pts.append(parse(hdr[o : o + size]))
         o += size
-    alpha_1, beta_1, beta_2, gamma_2, delta_1, delta_2 = pts
     ic3 = bytes(sections[3])
     ic = [_g1_parse(ic3[i * 64 : (i + 1) * 64]) for i in range(n_public + 1)]
+    return dict(zip(("alpha_1", "beta_1", "beta_2", "gamma_2", "delta_1", "delta_2"), pts), n_vars=n_vars,
+                n_public=n_public, domain_size=domain_size, ic=ic)
+
+
+def read_zkey_vk(path: str) -> VerifyingKey:
+    """The verifying key of a zkey file from its header and IC sections
+    alone: the other sections (gigabytes at the flagship's size) are
+    skipped, not read."""
+    sections: Dict[int, bytes] = {}
+    with open(path, "rb") as f:
+        head = f.read(12)
+        if head[:4] != ZKEY_MAGIC:
+            raise ValueError(f"not a zkey: magic {head[:4]!r}")
+        (n_sections,) = struct.unpack_from("<I", head, 8)
+        for _ in range(n_sections):
+            stype, size = struct.unpack("<IQ", f.read(12))
+            if stype in (1, 2, 3):
+                sections[stype] = f.read(size)
+            else:
+                f.seek(size, 1)
+    h = _header(sections)
+    return VerifyingKey(n_public=h["n_public"], alpha_1=h["alpha_1"], beta_2=h["beta_2"], gamma_2=h["gamma_2"],
+                        delta_2=h["delta_2"], ic=h["ic"])
+
+
+def read_zkey(path_or_chunks) -> ZkeyData:
+    """Parse a zkey from one path, an ordered list of chunk paths, or raw
+    bytes."""
+    data = _read_bytes(path_or_chunks)
+    if data[:4] != ZKEY_MAGIC:
+        raise ValueError(f"not a zkey: magic {data[:4]!r}")
+    _version, n_sections = struct.unpack_from("<II", data, 4)
+    off = 12
+    sections: Dict[int, memoryview] = {}
+    view = memoryview(data)
+    for _ in range(n_sections):
+        stype, size = struct.unpack_from("<IQ", data, off)
+        off += 12
+        sections[stype] = view[off : off + size]
+        off += size
+
+    h = _header(sections)
+    n_vars, n_public, domain_size = h["n_vars"], h["n_public"], h["domain_size"]
 
     cbuf = sections[4]
     (n_coeffs,) = struct.unpack_from("<I", cbuf, 0)
     rec = np.frombuffer(cbuf, dtype=_COEFF, count=n_coeffs, offset=4)
     return ZkeyData(
-        n_vars=n_vars, n_public=n_public, domain_size=domain_size, alpha_1=alpha_1, beta_1=beta_1,
-        beta_2=beta_2, gamma_2=gamma_2, delta_1=delta_1, delta_2=delta_2, ic=ic,
+        **h,
         coeff_matrix=rec["m"].astype(np.int64), coeff_row=rec["row"].astype(np.int64),
         coeff_wire=rec["wire"].astype(np.int64), coeff_value=_canonical(rec["v"], R),
         a_query=_g1_section(sections[5], n_vars), b1_query=_g1_section(sections[6], n_vars),
         b2_query=_g2_section(sections[7], n_vars),
         c_query=_g1_section(sections[8], n_vars - n_public - 1),
         h_query=_g1_section(sections[9], domain_size),
+        mpc=_mpc_from_bytes(bytes(sections[10])) if 10 in sections else None,
     )
 
 
@@ -334,9 +449,10 @@ def zkey_from_key(key, vk: VerifyingKey) -> ZkeyData:
 def write_zkey_data(path: str, z: ZkeyData) -> None:
     """Write `z` as a .zkey (the inverse of ``read_zkey``): the header and
     IC points, the coefficient records in their order, the query
-    sections from the limb arrays, and section 10 of a key with no
-    contributions.  A file written by the reference's ``write_zkey``,
-    read and written again, comes back byte for byte."""
+    sections from the limb arrays, and section 10 from ``z.mpc`` (a key
+    with no contributions when it is None).  A file written by the
+    reference's ``write_zkey`` or its ceremony, read and written again,
+    comes back byte for byte."""
     hdr = struct.pack("<I", N8) + P.to_bytes(N8, "little") + struct.pack("<I", N8) + R.to_bytes(N8, "little")
     hdr += struct.pack("<III", z.n_vars, z.n_public, z.domain_size)
     hdr += _g1_bytes(z.alpha_1) + _g1_bytes(z.beta_1) + _g2_bytes(z.beta_2)
@@ -354,7 +470,7 @@ def write_zkey_data(path: str, z: ZkeyData) -> None:
         (7, [_points_payload(z.b2_query)]),
         (8, [_points_payload(z.c_query)]),
         (9, [_points_payload(z.h_query)]),
-        (10, [b"\x00" * 64 + struct.pack("<I", 0)]),
+        (10, [_mpc_to_bytes(z.mpc or MpcParams(cs_hash=b"\x00" * 64, contributions=[]))]),
     ]
     with open(path, "wb") as f:
         f.write(ZKEY_MAGIC)
@@ -363,3 +479,20 @@ def write_zkey_data(path: str, z: ZkeyData) -> None:
             f.write(struct.pack("<IQ", stype, sum(memoryview(p).nbytes for p in parts)))
             for p in parts:
                 f.write(p)
+
+
+def split_zkey(path: str, n_chunks: int = 10) -> List[str]:
+    """A whole zkey -> `path` + the suffixes b.. as `n_chunks` equal
+    slices of its bytes (the last shorter); returns the chunk paths."""
+    if not 1 <= n_chunks <= len(CHUNK_SUFFIXES):
+        raise ValueError(f"n_chunks must be 1..{len(CHUNK_SUFFIXES)} (suffixes {CHUNK_SUFFIXES})")
+    with open(path, "rb") as f:
+        data = f.read()
+    per = (len(data) + n_chunks - 1) // n_chunks
+    out = []
+    for i in range(n_chunks):
+        p = path + CHUNK_SUFFIXES[i]
+        with open(p, "wb") as f:
+            f.write(data[i * per : (i + 1) * per])
+        out.append(p)
+    return out

@@ -115,6 +115,10 @@ SOURCES = {
         "zk_g1_lane_tree": (_VP,) * 10 + (_I32,) * 6 + (_VP, _VP),
         "zk_g2_lane_tree": (_VP,) * 10 + (_I32,) * 6 + (_VP, _VP),
     },
+    "scale": {
+        # points x/y, out x/y/z, n, digits (host), field consts (host), stream
+        "zk_g1_scale": (_VP,) * 5 + (_I64, _VP, _VP, _VP),
+    },
 }
 
 LAUNCHERS = tuple(name for fns in SOURCES.values() for name in fns)

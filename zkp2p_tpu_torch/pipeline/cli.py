@@ -7,12 +7,15 @@ rapidsnark drop-in prover.
            admission gate; --skip-audit bypasses it), run the development
            setup on the card (``setup_device``) and write
            <build-dir>/circuit_final.zkey, verification_key.json and
-           verifier.sol
+           verifier.sol; --chunks N also splits the zkey into N chunks
+           (suffixes b..) beside it, --publish DIR uploads it to an
+           artifact store as gzip chunks and a manifest
   prove    proof.json and public.json, through ``prove_gpu``: with
            --wtns, a .zkey and a circom .wtns in (no circuit is built);
            without, the circuit's witness from --eml (venmo,
            email_verify; the synthetic signed email when none is given)
-           or --message (sha256, toy)
+           or --message (sha256, toy); --zkey-store DIR pulls the zkey
+           from an artifact store through <build-dir>/zkey_cache
   verify   proof.json and public.json against
            <build-dir>/verification_key.json; prints OK (exit 0) or
            INVALID (exit 1).  Runs on the host, as snarkjs's does.
@@ -31,6 +34,15 @@ rapidsnark drop-in prover.
            <spool>.metrics.jsonl.  SIGTERM or SIGINT drains it (claims
            nothing more, finishes what it holds) and it exits 0; exit 2
            when --max-seconds runs out.
+  ceremony the phase-2 MPC over zkeys: contribute ZKEY_IN ZKEY_OUT
+           [--entropy] [--name], beacon ZKEY_IN ZKEY_OUT --beacon-hash HEX
+           [--iter-exp 10], verify ZKEY_INITIAL ZKEY_FINAL (prints the
+           checks, then ZKEY OK, exit 0, or ZKEY INVALID, exit 1)
+  doctor   the preflight report: backend, card, kernel libraries, every
+           gate's arm and the execution digest, one K1 launch against its
+           plain version (--no-workload skips it); --json for one JSON
+           object; --strict exits 1 on a warning (no CUDA device among
+           them)
 
     python -m zkp2p_tpu_torch --circuit venmo --max-header 1024 --max-body 6400 setup
     python -m zkp2p_tpu_torch --circuit venmo --max-header 1024 --max-body 6400 prove --eml receipt.eml
@@ -38,11 +50,13 @@ rapidsnark drop-in prover.
     python -m zkp2p_tpu_torch verify
     python -m zkp2p_tpu_torch batch --indir inputs/ --outdir proofs/
     python -m zkp2p_tpu_torch --circuit venmo --max-header 1024 --max-body 6400 service --spool spool/
+    python -m zkp2p_tpu_torch ceremony contribute build/circuit_0.zkey build/circuit_1.zkey --entropy "..."
+    python -m zkp2p_tpu_torch doctor --json
 
-``setup``, ``prove``, ``batch`` and ``service`` run on the CUDA card (``--device
-cuda``, the default) and raise before they build a circuit or read a
-file when there is none; ``--device cpu`` runs the plain versions of the
-kernels.  A .wtns's values are proved as their residues mod r, and
+``setup``, ``prove``, ``batch``, ``service`` and ``ceremony`` run on the
+CUDA card (``--device cuda``, the default) and raise before they build a
+circuit or read a file when there is none; ``--device cpu`` runs the
+plain versions of the kernels.  A .wtns's values are proved as their residues mod r, and
 public.json carries them as the file holds them, as the reference does.
 ``--trace FILE`` appends the run's spans and its manifest (device,
 versions, gate arms and their digest) to FILE, so that a caller reads
@@ -64,10 +78,11 @@ from ..formats.circom_bin import read_wtns, reduce_rows, row_ints
 from ..formats.proof_json import (dump, load, proof_from_json, proof_to_json, public_to_json, vkey_from_json,
                                   vkey_to_json)
 from ..formats.solidity import export_verifier
-from ..formats.zkey import read_zkey, write_zkey_data, zkey_from_key
+from ..formats.zkey import read_zkey, split_zkey, write_zkey_data, zkey_from_key
 from ..prover.groth16_gpu import device_pk_from_zkey, prove_gpu, prove_gpu_batch
 from ..prover.setup_device import setup_device
 from ..snark.groth16 import domain_size_for, verify
+from ..ops import cuda_build
 from ..utils.device import resolve_device
 from ..utils.trace import dump_trace
 
@@ -166,7 +181,19 @@ def cmd_setup(args):
     t1 = time.perf_counter()
     key, vk = setup_device(cs, seed=args.seed, device=dev)
     _log(f"setup on {dev} in {time.perf_counter() - t1:.2f}s")
-    write_zkey_data(os.path.join(args.build_dir, "circuit_final.zkey"), zkey_from_key(key, vk))
+    zkey_path = os.path.join(args.build_dir, "circuit_final.zkey")
+    write_zkey_data(zkey_path, zkey_from_key(key, vk))
+    if args.chunks:
+        split_zkey(zkey_path, args.chunks)
+        _log(f"wrote {args.chunks} zkey chunks (b..) beside {zkey_path}")
+    if args.publish:
+        # gzip chunks, a manifest and the whole's hash into the artifact store
+        from ..formats.artifact_store import DirBackend, upload_chunked
+
+        with open(zkey_path, "rb") as f:
+            blob = f.read()
+        man = upload_chunked(DirBackend(args.publish), "circuit.zkey", blob)
+        _log(f"published {len(man.chunks)} gzip chunks -> {args.publish} (sha256 {man.sha256[:16]}…)")
     dump(vkey_to_json(vk), os.path.join(args.build_dir, "verification_key.json"))
     with open(os.path.join(args.build_dir, "verifier.sol"), "w") as f:
         f.write(export_verifier(vk))
@@ -174,8 +201,16 @@ def cmd_setup(args):
 
 
 def _load_zkey(args):
-    """--zkey: one path, or a glob of the chunks b..k taken in sorted
-    order; the build dir's circuit_final.zkey by default."""
+    """--zkey-store: the chunks pulled from that artifact store, each kept
+    in <build-dir>/zkey_cache; --zkey: one path, or a glob of the chunks
+    b..k taken in sorted order; the build dir's circuit_final.zkey by
+    default."""
+    if getattr(args, "zkey_store", None):
+        from ..formats.artifact_store import DirBackend, download_chunked
+
+        blob = download_chunked(DirBackend(args.zkey_store), "circuit.zkey",
+                                cache_dir=os.path.join(args.build_dir, "zkey_cache"))
+        return read_zkey(blob)
     if args.zkey:
         if any(c in args.zkey for c in "*?["):
             paths = sorted(glob.glob(args.zkey))
@@ -378,6 +413,75 @@ def cmd_service(args):
     sys.exit(0 if why in ("drained", "terminal", "sweeps") else 2)
 
 
+def _log_stages(what: str, stages: dict) -> None:
+    _log(f"{what}: " + ", ".join(f"{k[2:]} {v:.2f}" for k, v in stages.items()) + " s; launches "
+         + json.dumps({k[3:]: v for k, v in cuda_build.LAUNCHES.items() if v}))
+
+
+def cmd_ceremony(args):
+    """The phase-2 MPC over zkeys (snarkjs's zkey contribute / beacon /
+    verify)."""
+    from ..snark import ceremony
+
+    if args.op == "beacon" and not args.beacon_hash:
+        print("beacon requires --beacon-hash", file=sys.stderr)
+        sys.exit(2)
+    dev = resolve_device(args.device)
+    stages = {}
+    if args.op == "contribute":
+        ceremony.contribute(args.zkey_in, args.zkey_out, args.entropy.encode(), name=args.name, device=dev,
+                            stages=stages)
+        _log_stages("contribute", stages)
+        print(f"contributed -> {args.zkey_out}")
+    elif args.op == "beacon":
+        ceremony.beacon(args.zkey_in, args.zkey_out, bytes.fromhex(args.beacon_hash), iter_exp=args.iter_exp,
+                        name=args.name or "final beacon", device=dev, stages=stages)
+        _log_stages("beacon", stages)
+        print(f"beacon applied -> {args.zkey_out}")
+    else:
+        ok, log = ceremony.verify_chain(args.zkey_in, args.zkey_out, device=dev, stages=stages)
+        _log_stages("verify", stages)
+        for line in log:
+            print(line)
+        print("ZKEY OK" if ok else "ZKEY INVALID")
+        sys.exit(0 if ok else 1)
+
+
+def cmd_doctor(args):
+    """The preflight report (utils.audit.preflight): text on stderr, or
+    with --json one JSON object on stdout; --strict exits 1 on any
+    warning."""
+    from ..utils.audit import WORKLOAD_ELEMENTS, preflight
+
+    rep = preflight(workload=not args.no_workload)
+    if args.json:
+        print(json.dumps(rep))
+    else:
+        dev = rep["device"]
+        _log(f"backend: {rep['backend']}" + (f"   device: {dev['name']} (compute capability "
+                                                f"{dev['capability']}, {dev['count']} card(s))" if dev else ""))
+        _log("kernels:")
+        for stem, k in rep["kernels"].items():
+            _log(f"  {stem:<12} {'built' if k['built'] else 'not built':<10} {', '.join(k['launchers'])}")
+        _log("gates:")
+        for gate, arm in sorted(rep["gates"].items()):
+            _log(f"  {gate:<22} = {arm}")
+        if rep.get("workload_s") is not None:
+            _log(f"workload: K1 over {WORKLOAD_ELEMENTS} elements, checked against its plain version, in "
+                 f"{rep['workload_s']}s")
+        mem = rep.get("device_memory")
+        if mem:
+            _log(f"device memory: {mem['bytes_in_use'] / 2**30:.2f} GiB in use, peak "
+                 f"{mem['peak_bytes_in_use'] / 2**30:.2f} GiB of {mem['bytes_limit'] / 2**30:.2f} GiB")
+        _log(f"execution digest: {rep['execution_digest']}")
+        for w in rep["warnings"]:
+            _log(f"WARNING: {w}")
+        if not rep["warnings"]:
+            _log("no warnings")
+    if args.strict and rep["warnings"]:
+        sys.exit(1)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser("zkp2p-tpu-torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -408,11 +512,14 @@ def main(argv=None):
     s.add_argument("--skip-audit", action="store_true",
                    help="bypass the circuit soundness audit (admission gate)")
     s.add_argument("--seed", default="zkp2p-tpu-dev")
+    s.add_argument("--chunks", type=int, default=0, help="also split the zkey into N chunks (b..)")
+    s.add_argument("--publish", help="artifact-store dir: upload gzip zkey chunks + manifest")
     device_arg(s)
     s.set_defaults(fn=cmd_setup)
 
     s = sub.add_parser("prove", help="prove one input (a .wtns, or the circuit's input) against a .zkey")
     zkey_args(s)
+    s.add_argument("--zkey-store", help="artifact-store dir to pull the chunked zkey from")
     s.add_argument("--wtns", help="circom witness file (no circuit is built)")
     s.add_argument("--eml", help="email file (venmo / email_verify circuits)")
     s.add_argument("--demo", action="store_true", help="use the synthetic signed email")
@@ -457,6 +564,23 @@ def main(argv=None):
     s.add_argument("--exit-when-terminal", action="store_true",
                    help="exit 0 once every spool request has a terminal artifact")
     s.set_defaults(fn=cmd_service)
+
+    s = sub.add_parser("ceremony", help="phase-2 zkey MPC: contribute / beacon / verify")
+    s.add_argument("op", choices=["contribute", "beacon", "verify"])
+    s.add_argument("zkey_in", help="input zkey (for verify: the trusted initial zkey)")
+    s.add_argument("zkey_out", help="output zkey (for verify: the final zkey to check)")
+    s.add_argument("--entropy", default="", help="contributor entropy string (contribute)")
+    s.add_argument("--name", default="", help="contributor name recorded in the transcript")
+    s.add_argument("--beacon-hash", default="", help="public beacon value, hex (beacon)")
+    s.add_argument("--iter-exp", type=int, default=10, help="beacon hash iterations = 2^n (beacon)")
+    device_arg(s)
+    s.set_defaults(fn=cmd_ceremony)
+
+    s = sub.add_parser("doctor", help="preflight: backend, card, kernels, every gate's arm and the digest")
+    s.add_argument("--json", action="store_true", help="machine-readable report on stdout")
+    s.add_argument("--no-workload", action="store_true", help="skip the K1 launch")
+    s.add_argument("--strict", action="store_true", help="exit 1 when the report has a warning")
+    s.set_defaults(fn=cmd_doctor)
 
     args = ap.parse_args(argv)
     try:

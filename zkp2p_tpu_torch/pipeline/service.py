@@ -43,6 +43,7 @@ import json
 import os
 import queue
 import re
+import sys
 import threading
 import time
 import traceback
@@ -52,7 +53,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 from ..formats.proof_json import dump, proof_to_json, public_to_json
 from ..prover.groth16_gpu import prove_gpu_batch
 from ..snark.groth16 import verify
-from ..utils.audit import execution_digest, sample_device_memory
+from ..utils.audit import execution_digest, preflight, sample_device_memory
 from ..utils.device import resolve_device
 from ..utils.faults import FaultInjected, fault_point, faults_arm
 from ..utils.metrics import REGISTRY, JsonlSink, run_id
@@ -1045,6 +1046,15 @@ class ProvingService:
         faults_arm()
         slo_arm(self.slo_p95_s)
         timeseries_arm(self.ts_sample_s)
+        # the preflight: every gate's arm and the digest, logged before the
+        # first claim (its warnings too)
+        try:
+            rep = preflight(workload=False,
+                            log=lambda m: print(f"[service] {m}", file=sys.stderr, flush=True))
+            print(f"[service] preflight: backend={rep['backend']} execution_digest={rep['execution_digest']}",
+                  flush=True)
+        except Exception:  # noqa: BLE001 — observation never stops the service
+            pass
         default_tracker(self.slo_p95_s)
         self._sampler = TimeseriesSampler(self.ts_sample_s, self.stale_claim_s)
 

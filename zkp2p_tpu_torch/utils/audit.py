@@ -1,5 +1,6 @@
-"""Which code paths ran, and how much device memory they held (port of
-the reference's ``utils/audit.py`` without its preflight).
+"""Which code paths ran, how much device memory they held, and the
+preflight report of ``doctor`` (port of the reference's
+``utils/audit.py``).
 
 ``record_arm(gate, arm)`` reports, where a prover resolves one of its
 gates, the arm it took: into the ``zkp2p_path_taken_total{gate,arm}``
@@ -10,14 +11,24 @@ the sorted map: two runs with the same digest ran the same arms.
 (``torch.cuda.memory_stats``) into the ``zkp2p_hbm_*`` gauges, keeping a
 per-stage peak.  It never resets the allocator's peak: a caller that
 measures peaks owns those resets.
+
+``preflight`` reports the backend, the card, which kernel libraries are
+built, every gate's arm and the digest, and runs one K1 launch against
+its plain version (``python -m zkp2p_tpu_torch doctor``; the service logs
+it before its first claim).  It has no TPU probe, and no knobs or their
+provenance: the port reads none, its arms are the keyword arguments of
+its entry points, and a gate this process has not taken yet reports the
+entry point's default.
 """
 
 from __future__ import annotations
 
 import hashlib
+import inspect
 import json
 import threading
-from typing import Any, Dict, Optional
+import time
+from typing import Any, Callable, Dict, List, Optional
 
 from .metrics import REGISTRY
 
@@ -102,3 +113,103 @@ def sample_device_memory(stage: str = "") -> Optional[Dict]:
         with _peak_lock:  # a read-then-set by two samplers could lower the peak
             g.set(max(g.value, best["peak_bytes_in_use"]))
     return best
+
+
+# the K1 launch preflight holds against K1's plain version
+WORKLOAD_ELEMENTS = 4096
+
+
+def _default(fn, name: str):
+    return inspect.signature(fn).parameters[name].default
+
+
+def _arm_gates() -> None:
+    """Record every gate the port has: the fault plan armed in this
+    process (or "off"), and each other gate this process has not taken
+    yet at its entry point's default (prove_gpu's msm_affine and msm_h,
+    prove_gpu_batch's chunk, the service's SLO objective and time-series
+    interval)."""
+    from ..pipeline.service import ProvingService
+    from ..prover.groth16_gpu import prove_gpu, prove_gpu_batch
+    from .faults import faults_arm
+    from .slo import slo_arm, timeseries_arm
+
+    faults_arm()
+    defaults = {"msm_affine": lambda: record_arm("msm_affine", _default(prove_gpu, "msm_affine")),
+                "msm_h": lambda: record_arm("msm_h", _default(prove_gpu, "msm_h")),
+                "batch_chunk": lambda: record_arm("batch_chunk", _default(prove_gpu_batch, "chunk")),
+                "service_slo": lambda: slo_arm(_default(ProvingService.__init__, "slo_p95_s")),
+                "service_timeseries": lambda: timeseries_arm(_default(ProvingService.__init__, "ts_sample_s"))}
+    for gate, arm in defaults.items():
+        if gate not in _arms:
+            arm()
+
+
+def _workload(device) -> Optional[str]:
+    """One K1 launch over WORKLOAD_ELEMENTS random canonical Fr elements,
+    held bitwise against K1's plain version; None, or what went wrong."""
+    import numpy as np
+    import torch
+
+    from ..field.tfield import FR
+    from ..ops.cuda_mont import mont_mul, mont_mul_plain
+
+    g = np.random.default_rng(0)
+    x = g.integers(0, 1 << 16, size=(2, WORKLOAD_ELEMENTS, 16), dtype=np.int64)
+    x[..., 15] %= 0x3064  # below r
+    a, b = torch.from_numpy(x.astype(np.int32)).unbind(0)
+    got = mont_mul(FR, a.to(device), b.to(device)).cpu()
+    if not torch.equal(got, mont_mul_plain(FR, a, b)):
+        return f"K1 (mont_mul) over {WORKLOAD_ELEMENTS} elements differs from its plain version"
+    return None
+
+
+def preflight(workload: bool = True, log: Optional[Callable[[str], None]] = None) -> Dict:
+    """The doctor's report: {type "doctor", ts, run_id, backend ("cuda" or
+    "unavailable"), device (name, compute capability, count; None without
+    CUDA), kernels (each source of ``cuda_build.SOURCES``: its launchers
+    and whether its library is built), workload_s (one K1 launch held
+    against its plain version; left out when `workload` is False, None
+    without CUDA), gates (every gate's arm: the one this process took, or
+    its entry point's default), warnings, device_memory, execution_digest}.
+    A warning is a CUDA device missing, a kernel whose workload fails or
+    differs; `log` gets each."""
+    import torch
+
+    from ..ops import cuda_build
+    from .metrics import run_id
+
+    report: Dict[str, Any] = {"type": "doctor", "ts": round(time.time(), 3), "run_id": run_id()}
+    warnings: List[str] = []
+    cuda = torch.cuda.is_available()
+    report["backend"] = "cuda" if cuda else "unavailable"
+    if cuda:
+        report["device"] = {"name": torch.cuda.get_device_name(0),
+                            "capability": ".".join(map(str, torch.cuda.get_device_capability(0))),
+                            "count": torch.cuda.device_count()}
+    else:
+        report["device"] = None
+        warnings.append("no CUDA device: the port's entry points run only with device='cpu' (the kernels' "
+                        "plain versions)")
+    report["kernels"] = {stem: {"launchers": list(fns), "built": cuda_build._lib_path(stem).exists()}
+                         for stem, fns in cuda_build.SOURCES.items()}
+    _arm_gates()
+    if workload:
+        report["workload_s"] = None
+        if cuda:
+            t0 = time.perf_counter()
+            try:
+                bad = _workload(torch.device("cuda", torch.cuda.current_device()))
+            except Exception as e:  # noqa: BLE001 — a kernel that cannot build or launch is a finding
+                bad = f"K1 (mont_mul) workload failed: {e}"
+            report["workload_s"] = round(time.perf_counter() - t0, 3)
+            if bad:
+                warnings.append(bad)
+    report["gates"] = gate_arms()
+    report["warnings"] = warnings
+    report["device_memory"] = sample_device_memory("preflight")
+    report["execution_digest"] = execution_digest()
+    if log is not None:
+        for msg in warnings:
+            log(f"PREFLIGHT WARNING: {msg}")
+    return report
