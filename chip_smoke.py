@@ -5,11 +5,14 @@
 
 Phases, each of which raises on failure (the script then exits nonzero
 and prints no result line).  They run in the order 1, 8 (its CLI
-subprocesses beside it and phase 9), 9, 2 (no other process on the card),
-3, 6, 7 (phase 4's h_evals check and synthetic key beside its `prove`
-and `batch` subprocesses), 10 (its counted run; its command line runs in
-a thread from the end of phase 6, beside 7 and the counted run, and ends
-before phase 4), 4, 5, the profiles:
+subprocesses beside it and phase 9), 9, 2 (no other process's kernels on
+the card: phase 11's workers build their circuits and import their keys
+beside it), 11 (phase 2's K15/K16 bitwise checks and phase 3 beside its
+proofs), 6, 7 (phase 4's h_evals check
+and synthetic key beside its `prove` and `batch` subprocesses), 10 (its
+counted run; its command line runs in a thread from the end of phase 6,
+beside 7 and the counted run, and ends before phase 4), 4, 5, the
+profiles:
 
 1. Build: every kernel source under zkp2p_tpu_torch/csrc/ with nvcc for
    sm_90a, one process per source, all started together, timed as
@@ -87,7 +90,8 @@ before phase 4), 4, 5, the profiles:
    at 1, 257 and 2^16 with the special lanes (a first add from infinity,
    an addend at infinity, P + P, P + (-P), the same x with another y, a
    doubling with y = 0, zero digits, a (0, 0) base) and on strided and
-   broadcast operands, held bitwise against their plain versions.  Then
+   broadcast operands, held bitwise against their plain versions (these
+   checks run beside phase 11's proofs, where no kernel is timed).  Then
    K15 at batch 1 against K5 in turns (K5, K15, K15, K5), timed with its
    chain floor; batch_inverse and jac_to_affine at each table chunk of
    the affine path (narrow 42 x 8 x 16,384, a wide 17 x 8 x 2,048, b1
@@ -247,25 +251,20 @@ before phase 4), 4, 5, the profiles:
    proves the same bytes again, timed warm), prove_gpu_batch of the four
    at chunk 4 (every proof verifies, the first equals prove_gpu's), the
    first again on the key with the zkey's inferred classes (the same
-   bytes; first and warm timed).  Then the CLI setup's three files
-   byte-equal to this process's (its wall clock, logged steps and sampled
-   peak RSS recorded), and phase 9's `service` subprocess starts on them.
-   After phase 9: the CLI prove's proof.json and public.json equal to
+   bytes; first and warm timed; its launches counted, which phase 11's
+   workers make a chunk).  Then the CLI setup's three files byte-equal to
+   this process's (its wall clock, logged steps and sampled peak RSS
+   recorded).  After phase 9: the CLI prove's proof.json and public.json equal to
    prove_gpu's and its key's classes to the inferred ones; `verify` (OK)
    as a subprocess beside phase 2.
 9. The proving service (the service line), on phase 8's resident key:
-   `python -m zkp2p_tpu_torch --circuit venmo service --batch 2`, started
-   by phase 8 as a subprocess over three demo requests, on the 256/192
-   key phase 8's `setup` wrote.  ProvingService.for_venmo at batch 4 sweeps
+   ProvingService.for_venmo at batch 4 sweeps
    FLAGSHIP_EMAILS as demo payloads beside a payload with no raw_id, a
    torn request and one past its deadline, proving with prove_gpu_batch
    at phase 8's (r, s): 4 done, 2 error-bad-input, 1
    error-deadline-exceeded, each .proof.json and .public.json equal to
    phase 8's batch proof's, the done records carrying batch_index,
-   batch_n and hbm_peak_bytes.  Once the subprocess has its three proofs
-   it gets SIGTERM and must exit 0 having drained, within 60 s, leaving
-   no claim; its proofs verify under its vk and its sink holds three done
-   records and a time-series line.  Then the default prover (random r,
+   batch_n and hbm_peak_bytes.  Then the default prover (random r,
    s) over eight new demo emails at batch 4 and prefetch 1 (phase 8's
    `prove --circuit venmo` may still run beside it): its launches counted over the sweep (two chunks, each K12 6,
    K13 and K14 2, K18 7 + 2, K2 3 + 1; nothing of NOT_ON_JACOBIAN),
@@ -287,7 +286,7 @@ before phase 4), 4, 5, the profiles:
    each launching exactly its CEREMONY_KERNELS (K19 and K15 once a
    contribution).  The command line, from phase 6's files hard-linked
    under .chip_scratch/ceremony/: `python -m zkp2p_tpu_torch ceremony
-   contribute`, `contribute`, `beacon --iter-exp 10` in turn, then
+   contribute` and `beacon --iter-exp 10` in turn, then
    together `ceremony verify` of the final key (ZKEY OK, exit 0), of a
    copy with one H point moved to G (ZKEY INVALID, exit 1, the H
    scaling check failing) and `prove --zkey final --wtns`; then `verify`
@@ -296,6 +295,29 @@ before phase 4), 4, 5, the profiles:
    (exit 0: the card, every kernel built, its K1 workload equal to
    plain): each subprocess's wall clock, peak RSS and its logged stage
    seconds and launches.
+11. The fleet (the fleet line; its `service` workers are the command
+   phase 9's `service` subprocess ran before, at full width):
+   `python -m zkp2p_tpu_torch --build-dir <phase 8's files> --circuit
+   venmo --max-header 1024 --max-body 6400 fleet --workers 2 --batch 2`
+   starts just before phase 2, in a session of its own; each worker
+   builds the circuit, reads the zkey and imports the key (beside phase
+   2), then serves its endpoint on a port the OS chooses.  Once both
+   heartbeats say `up` with their ports (status.json listing both), the
+   eight SERVICE_EMAILS are spooled and phase 2's K15/K16 bitwise checks
+   and phase 3 run here while the workers prove them.  Every request ends `done` exactly once, both
+   workers among the done records, every record and time-series line
+   naming its worker and the fleet, every proof verifying under phase
+   8's vkey; with the fleet still running each worker's /healthz (200),
+   /metrics (200, its zkp2p_service_requests_total), /status (200, its
+   worker, the fleet and the execution digest it logged) and /snapshot
+   (armed, metrics the port's Registry.merge takes) answer; then SIGTERM
+   to the supervisor: exit 0 within 60 s plus the drain timeout, no
+   escalation, no claim left, each worker drained with its logged
+   launches exactly its chunks' (phase 8's proof under the zkey's classes
+   a chunk, K1 4 + B) and its domain tables' (K1 68 at 2^23, once).  Recorded: requests/s, each worker's ready seconds
+   from the spawn, done count, chunks, witness_batch, prove and sample
+   verify seconds, busy share, idle and peak device memory, the card's
+   peak memory.used (sampled each second), the drain's seconds.
 
 The launch counts are reset just before the first timed proof of each
 path and read just after it (phase 8: just before and after its setup,
@@ -338,7 +360,7 @@ prove and batch, the batch's seconds and proofs/s beside
 prove_gpu_batch's), and the flagship circuit's (phase 8: counts, build,
 witness, qap_coo, setup, proof and batch seconds, the CLI's wall clock,
 steps, classes and peak RSS, the 256/192 setup), the service's
-(phase 9) and the ceremony's (phase 10: the counted run's stage
+(phase 9), the fleet's (phase 11) and the ceremony's (phase 10: the counted run's stage
 seconds, wall clock and launches an op; each command's).  The last line
 is {"ok": true, "device": {...}}.
 """
@@ -596,9 +618,8 @@ FLAGSHIP_DIR = ".chip_scratch/flagship"
 SMALL_VENMO = (256, 192)
 SETUP_FILES = ("circuit_final.zkey", "verification_key.json", "verifier.sol")
 # phase 9: the service's scratch, its batch and prefetch on the default
-# path, that path's eight new demo emails (two batches), the three of the
-# CLI's `service` at 256/192, how long the CLI may take for its proofs
-# and how long it may take to drain after SIGTERM
+# path, that path's eight new demo emails (two batches; phase 11's too),
+# and how long a service may take to drain after SIGTERM
 SERVICE_DIR = ".chip_scratch/service"
 SERVICE_BATCH = 4
 SERVICE_PREFETCH = 1
@@ -606,9 +627,17 @@ SERVICE_EMAILS = (("5678912345678912345", "12", 11), ("6789123456789123456", "99
                   ("7891234567891234567", "250", 13), ("8912345678912345678", "3", 14),
                   ("9123456789123456789", "40", 15), ("1357913579135791357", "75", 16),
                   ("2468024680246802468", "1000", 17), ("9876543219876543210", "60", 18))
-SERVICE_CLI_EMAILS = FLAGSHIP_EMAILS[:3]
-SERVICE_CLI_WAIT_S = 300
 SERVICE_DRAIN_S = 60
+# phase 11, the fleet: its scratch, FLEET_WORKERS flagship workers at batch
+# FLEET_BATCH, how long they may take to be ready (each builds the circuit,
+# reads the zkey and imports the key) and to prove SERVICE_EMAILS, and the
+# supervisor's drain timeout (its default)
+FLEET_DIR = ".chip_scratch/fleet"
+FLEET_WORKERS = 2
+FLEET_BATCH = 2
+FLEET_READY_S = 600
+FLEET_PROVE_S = 600
+FLEET_DRAIN_TIMEOUT_S = 30
 # phase 10, the ceremony: K19 at the ceremony's shape, where SCALE_HOLES
 # (0, 0) holes sit among the points and SCALE_SAMPLES are checked against
 # the host, as are the first SCALE_SPECIAL_POINTS with k = 0, 1, 2, 2^127,
@@ -1112,26 +1141,22 @@ def affine_table_case(torch, gen, g2, steps, lanes, n_digits, device):
     return (ax, ay, ainf), tuple(table), mags, negs, s0
 
 
-def check_affine_kernels(torch, shapes, peak_muls_per_s, sm_clock_hz, device):
+def check_affine_bitwise(torch, device):
     """K15 (batch inversion, Jacobian -> affine) and K16 (the affine add
     and accumulate, G1 and G2) against their plain versions, bitwise:
     K15 against the grid-wide plain route (nonzero lanes; zero gives 0)
     and the kernels' grouping (every lane), at AFFINE_BATCHES over Fq, Fr
     and Fq2 with the special values, its nonzero lanes against K5 and a
     sample against Python pow; K16 at AFFINE_BATCHES with the special
-    lanes, also on strided and broadcast operands.  Then each at the
-    shapes the path gives it (`shapes`), timed with its bound and plain
-    version (on the first PLAIN_SLICE elements, or the accumulate's first
-    AFFINE_PLAIN_STEPS steps, above them), and K15 at batch 1 against K5
-    in turns."""
+    lanes, also on strided and broadcast operands.  Nothing is timed: the
+    script runs these beside phase 11's proofs."""
     from zkp2p_tpu_torch.curve.tcurve import G1C, G2C
     from zkp2p_tpu_torch.field.bn254 import MONT_R, P, R
     from zkp2p_tpu_torch.field.tfield import FQ, FQ2, FR, limbs_to_int
-    from zkp2p_tpu_torch.ops import cuda_affine, cuda_mont
+    from zkp2p_tpu_torch.ops import cuda_mont
     from zkp2p_tpu_torch.ops import msm_affine as MA
 
     gen = torch.Generator(device=device).manual_seed(SEED + 30)
-    pyr = random.Random(SEED + 31)
     fields = {"fq": (FQ, P, 1), "fr": (FR, R, 1), "fq2": (FQ2, P, 2)}
 
     def inv_check(F, mod, deg, x):
@@ -1191,6 +1216,25 @@ def check_affine_kernels(torch, shapes, peak_muls_per_s, sm_clock_hz, device):
                                      "from its plain version")
     log(f"K15 jac_to_affine, K16 affine add and accumulate (G1, G2): bitwise equal to plain at {AFFINE_BATCHES}, "
         "special lanes, strided and broadcast operands included")
+
+
+def check_affine_kernels(torch, shapes, peak_muls_per_s, sm_clock_hz, device):
+    """K15 (batch inversion, Jacobian -> affine) and K16 (the affine add
+    and accumulate, G1 and G2) at the shapes the path gives them
+    (`shapes`), timed with their bounds and plain versions (on the first
+    PLAIN_SLICE elements, or the accumulate's first AFFINE_PLAIN_STEPS
+    steps, above them) and held bitwise against them there, and K15 at
+    batch 1 against K5 in turns (check_affine_bitwise holds them at
+    AFFINE_BATCHES)."""
+    from zkp2p_tpu_torch.curve.tcurve import G1C, G2C
+    from zkp2p_tpu_torch.field.bn254 import P
+    from zkp2p_tpu_torch.field.tfield import FQ, FQ2, limbs_to_int
+    from zkp2p_tpu_torch.ops import cuda_affine, cuda_mont
+    from zkp2p_tpu_torch.ops import msm_affine as MA
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 33)
+    pyr = random.Random(SEED + 31)
+    curves = {False: G1C, True: G2C}
 
     # the dependent chain of one inversion (csrc/affine.cuh: fe_inv): its
     # rounds on this card's inputs, as inv_model counts them
@@ -3578,13 +3622,14 @@ def flagship_phase(torch, built, st, device):
     against the R1CS (cs.check_witness, which builds the check's matrices
     once: phase 9's service checks every witness); prove_gpu under the
     tagged classes and, once flagship_start's thread has inferred them,
-    under the zkey's, and prove_gpu_batch, each verified; then, the
-    256/192 `setup` having ended, its files held against this process's
-    and phase 9's `service` subprocess started on them
-    (service_cli_start).  Returns (the flagship line, the launches of the
-    setup, of the proof and of the batch, and phase 9's context: the key,
-    the circuit, the batch's proofs); flagship_finish and flagship_verified
-    complete the line with the CLI's prove and verify."""
+    under the zkey's (its launches, which phase 11's workers make a batch
+    chunk, in st["inferred_launches"]), and prove_gpu_batch, each
+    verified; then, the 256/192 `setup` having ended, its files held
+    against this process's.  Returns (the flagship line, the launches of
+    the setup, of the proof and of the batch, and phase 9's context: the
+    key, the circuit, the batch's proofs); flagship_finish and
+    flagship_verified complete the line with the CLI's prove and
+    verify."""
     import dataclasses
     import os
     import shutil
@@ -3666,8 +3711,7 @@ def flagship_phase(torch, built, st, device):
         log(f"flagship prove_gpu_batch of {n_wits} (chunk {BATCH_CHUNK}): {batch_s:.3f} s "
             f"({n_wits / batch_s:.3f} proofs/s); every proof verifies")
 
-        # the 256/192 `setup` has ended by now: its files, then phase 9's
-        # `service` subprocess on them, whose build runs beside what follows
+        # the 256/192 `setup` has ended by now: its files
         flagship_join(st)
         small_wall, sout, small_rss = cli_finish(st["cli_setup"])
         if sout.returncode:
@@ -3679,8 +3723,6 @@ def flagship_phase(torch, built, st, device):
         log(f"flagship at {SMALL_VENMO}: built {small_s:.1f} s, set up here {small_setup_s:.2f} s; `setup` "
             f"(audit on, beside this phase) {small_wall:.1f} s wall, peak RSS {small_rss} GiB ({small_steps}), its "
             "three files equal to this process's")
-        svc_cli = service_cli_start(os.path.join(d, "small_cli"))
-        st["procs"].append(svc_cli["handle"][0])
 
         # the classes the CLI's prove infers from the zkey, on this key:
         # the same proof bytes under them, its stages timed
@@ -3693,8 +3735,12 @@ def flagship_phase(torch, built, st, device):
         inferred_classes = {q: [getattr(ikey, q + "_nsel").numel(), getattr(ikey, q + "_wsel").numel()]
                             for q in "abc"}
         ist, iwarm = {}, {}
+        cuda_build.reset_launches()
         ifirst_s, iproof = wall_s(torch, lambda: prove_gpu(ikey, wits[0], r=rs[0][0], s=rs[0][1], device=device,
                                                           stages=ist))
+        # a proof's launches under the classes the CLI's key has: phase 11's
+        # workers launch these a batch chunk (K1 4 + B)
+        st["inferred_launches"] = dict(cuda_build.LAUNCHES)
         iwarm_s, _ = wall_s(torch, lambda: prove_gpu(ikey, wits[0], r=rs[0][0], s=rs[0][1], device=device,
                                                     stages=iwarm))
         if proof_bytes(iproof) != proof_bytes(proof):
@@ -3736,14 +3782,12 @@ def flagship_phase(torch, built, st, device):
                          "batch": {k[3:]: v for k, v in batch_launches.items() if v}},
         }
         # phase 9's: the resident key, the circuit, the batch's proofs
-        # with their (r, s) and public signals, the 256/192 CLI build
-        # directory and its `service` subprocess
+        # with their (r, s) and public signals
         ctx = dict(key=key, vk=vk, cs=cs, lay=lay, params=params, rs=rs, pubs=pubs, proofs=proofs,
-                   small_cli=os.path.join(d, "small_cli"), service_cli=svc_cli, flagship_cli=st["cli_prove"][0])
+                   flagship_cli=st["cli_prove"][0])
         return line, st["setup_launches"], prove_launches, batch_launches, ctx
     except BaseException:
         stop(st["procs"])
-        shutil.rmtree(os.path.abspath(SERVICE_DIR), ignore_errors=True)
         raise
 
 
@@ -3824,41 +3868,14 @@ def verify_spool(vk, spool, names):
     return time.perf_counter() - t0
 
 
-def service_cli_start(small_cli):
-    """Phase 9's `python -m zkp2p_tpu_torch --circuit venmo service
-    --batch 2` on the 256/192 key in `small_cli`, over SERVICE_CLI_EMAILS
-    spooled under SERVICE_DIR/cli, started in the background (phase 8
-    starts it once its `setup` has written the key, so that its circuit
-    build and its three proofs are done when phase 9 sends it SIGTERM).
-    Returns its handle, spool and request names."""
-    import os
-    import shutil
-
-    d = os.path.abspath(SERVICE_DIR)
-    shutil.rmtree(d, ignore_errors=True)
-    os.makedirs(d)
-    spool = os.path.join(d, "cli")
-    names = [f"c{i}" for i in range(len(SERVICE_CLI_EMAILS))]
-    write_requests(spool, {n: demo_payload(*e) for n, e in zip(names, SERVICE_CLI_EMAILS)})
-    handle = cli_start(["--build-dir", small_cli, "--circuit", "venmo", "service", "--spool", spool, "--batch", "2"],
-                       os.path.join(d, "service.log"))
-    return dict(handle=handle, spool=spool, names=names)
-
-
 def service_phase(torch, fl, device):
     """Phase 9: the proving service on the card, on phase 8's resident
-    flagship key (`fl`).  The CLI's `service` over SERVICE_CLI_EMAILS runs
-    as a subprocess on the 256/192 key phase 8's `setup` wrote, started
-    by phase 8 (service_cli_start).  ProvingService.for_venmo
-    at batch SERVICE_BATCH sweeps (1) FLAGSHIP_EMAILS as demo payloads, a
-    payload with no raw_id, a torn request past the grace and one past its
-    deadline, proving with prove_gpu_batch at phase 8's pinned (r, s): 4
-    done, 2 error-bad-input, 1 error-deadline-exceeded, the files equal to
-    phase 8's batch proofs byte for byte; once the subprocess has written
-    its three proofs it gets SIGTERM and must drain and exit 0 within
-    SERVICE_DRAIN_S, no claim left, its proofs verifying under its vk, its
-    sink holding three done records and a time-series line; then (2) the
-    default prover (random r, s) over SERVICE_EMAILS at prefetch
+    flagship key (`fl`).  ProvingService.for_venmo at batch SERVICE_BATCH
+    sweeps (1) FLAGSHIP_EMAILS as demo payloads, a payload with no raw_id,
+    a torn request past the grace and one past its deadline, proving with
+    prove_gpu_batch at phase 8's pinned (r, s): 4 done, 2 error-bad-input,
+    1 error-deadline-exceeded, the files equal to phase 8's batch proofs
+    byte for byte; then (2) the default prover (random r, s) over SERVICE_EMAILS at prefetch
     SERVICE_PREFETCH (phase 8's `prove --circuit venmo` may run beside
     it; the line says whether it did): two batches, the second's witnesses
     made while the first proves; launches counted over the sweep (the batch
@@ -3866,19 +3883,18 @@ def service_phase(torch, fl, device):
     sweep's launches)."""
     import os
     import shutil
-    import signal
     import threading
 
-    from zkp2p_tpu_torch.formats.proof_json import dump, load, proof_to_json, public_to_json, vkey_from_json
+    from zkp2p_tpu_torch.formats.proof_json import dump, proof_to_json, public_to_json
     from zkp2p_tpu_torch.ops import cuda_build
     from zkp2p_tpu_torch.pipeline.service import ProvingService
     from zkp2p_tpu_torch.prover.groth16_gpu import prove_gpu_batch
     from zkp2p_tpu_torch.utils import trace as tr
 
     d = os.path.abspath(SERVICE_DIR)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
     cs, n_pub = fl["cs"], fl["cs"].num_public
-    cli, cli_spool, cli_names = fl["service_cli"]["handle"], fl["service_cli"]["spool"], fl["service_cli"]["names"]
-    started = [cli[0]]
     try:
         # (1) the bytes: phase 8's emails at its pinned (r, s)
         spool = os.path.join(d, "pinned")
@@ -3921,43 +3937,6 @@ def service_phase(torch, fl, device):
             raise AssertionError(f"done records without their batch slot or device memory: {bad}")
         log(f"service, pinned sweep: {pinned_stats} in {pinned_s:.2f} s; the four proofs and publics equal phase 8's "
             "prove_gpu_batch files; records carry batch_index, batch_n, hbm_peak_bytes")
-
-        # (3) the command: its three proofs, then SIGTERM
-        t0 = time.perf_counter()
-        while len([f for f in os.listdir(cli_spool) if f.endswith(".proof.json")]) < len(cli_names):
-            if cli[0].poll() is not None:
-                break
-            if time.perf_counter() - t0 > SERVICE_CLI_WAIT_S:
-                raise AssertionError(f"`service` wrote no three proofs in {SERVICE_CLI_WAIT_S} s")
-            time.sleep(0.2)
-        waited_s = time.perf_counter() - t0
-        if cli[0].poll() is not None:
-            cli_finish(cli)
-            raise AssertionError(f"`service` exited {cli[0].returncode} before SIGTERM")
-        cli[0].send_signal(signal.SIGTERM)
-        t0 = time.perf_counter()
-        try:
-            cli[0].wait(timeout=SERVICE_DRAIN_S)
-        except subprocess.TimeoutExpired:
-            raise AssertionError(f"`service` did not exit within {SERVICE_DRAIN_S} s of SIGTERM") from None
-        drain_s = time.perf_counter() - t0
-        cli_wall, out, cli_rss = cli_finish(cli)
-        for line in out.stdout.splitlines():
-            log(f"  | {line}")
-        if out.returncode or "exiting (drained)" not in out.stdout:
-            raise AssertionError(f"`service` exited {out.returncode} after SIGTERM, not drained")
-        left = [f for f in os.listdir(cli_spool) if f.endswith(".claim")]
-        if left:
-            raise AssertionError(f"`service` left claims {left}")
-        small_vk = vkey_from_json(load(os.path.join(fl["small_cli"], "verification_key.json")))
-        cli_verify_s = verify_spool(small_vk, cli_spool, cli_names)
-        cli_done = sorted(r["request_id"] for r in sink_records(cli_spool, "request") if r["state"] == "done")
-        cli_ts = sink_records(cli_spool, "timeseries")
-        if cli_done != cli_names or not cli_ts:
-            raise AssertionError(f"`service`'s sink: done {cli_done}, {len(cli_ts)} time-series lines")
-        log(f"service CLI (256/192, batch 2): three proofs {waited_s:.1f} s after the pinned sweep, drained "
-            f"{drain_s:.2f} s after SIGTERM, exit 0, {cli_wall:.1f} s wall, peak RSS {cli_rss} GiB; no claim left, "
-            f"the proofs verify ({cli_verify_s:.2f} s), {len(cli_ts)} time-series lines")
 
         # (2) the default prover (phase 8's CLI prove may still run)
         spool = os.path.join(d, "default")
@@ -4027,10 +4006,6 @@ def service_phase(torch, fl, device):
                         "queue_wait_s": [r.get("queue_wait_s") for r in recs],
                         "flagship_cli_running_at_start_end": beside,
                         "launches": {k[3:]: v for k, v in launches.items() if v}},
-            "cli": {"shape": "venmo 256/192, phase 8's `setup` files", "requests": len(cli_names), "batch": 2,
-                    "proofs_after_pinned_s": waited_s, "drain_s": drain_s, "wall_s": cli_wall, "exit": 0,
-                    "peak_rss_gib_sampled": cli_rss, "claims_left": 0, "timeseries_lines": len(cli_ts),
-                    "all_verify": True},
         }
         log(f"service, default prover: {len(names)} requests in {wall:.2f} s ({len(names) / wall:.3f} requests/s); "
             f"witness_batch {[round(x, 2) for x in witness_s]} s, check_witness {[round(x, 2) for x in check_s]} s, "
@@ -4039,11 +4014,294 @@ def service_phase(torch, fl, device):
             f"`prove --circuit venmo` running at the sweep's start and end: {beside}")
         return line, launches
     finally:
-        for proc in started:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
         shutil.rmtree(d, ignore_errors=True)
+
+
+# -------------------------------------------------------------- phase 11
+
+
+def read_json(path):
+    """The JSON object in `path`, or None while it is missing or torn."""
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def fleet_start(build_dir):
+    """Phase 11's start: `python -m zkp2p_tpu_torch --build-dir <build_dir>
+    --circuit venmo --max-header 1024 --max-body 6400 fleet` of
+    FLEET_WORKERS workers at batch FLEET_BATCH on an empty spool under
+    FLEET_DIR, in a session of its own (so that a failure kills its
+    workers with it), its output in FLEET_DIR/fleet.log and fleet.out.
+    A thread notes when each worker's heartbeat first says `up` with a
+    bound port, and samples the card's memory.used every second, until
+    fleet_stop."""
+    import os
+    import shutil
+    import threading
+
+    d = os.path.abspath(FLEET_DIR)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    spool, state = os.path.join(d, "spool"), os.path.join(d, "state")
+    cmd = [sys.executable, "-m", "zkp2p_tpu_torch", "--build-dir", build_dir, "--circuit", "venmo", "--max-header",
+           "1024", "--max-body", "6400", "fleet", "--spool", spool, "--workers", str(FLEET_WORKERS), "--batch",
+           str(FLEET_BATCH), "--fleet-dir", state, "--drain-timeout-s", str(FLEET_DRAIN_TIMEOUT_S)]
+    files = (open(os.path.join(d, "fleet.log"), "w"), open(os.path.join(d, "fleet.out"), "w"))
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), stdout=files[1], stderr=files[0],
+                            text=True, start_new_session=True)
+    fh = dict(dir=d, spool=spool, state=state, proc=proc, files=files, t0=time.time(), ready={}, smi=[],
+              stop=threading.Event())
+
+    def watch():
+        while not fh["stop"].wait(0.5):
+            now = time.time()
+            for i in range(FLEET_WORKERS):
+                wid = f"w{i}"
+                hb = read_json(os.path.join(state, wid + ".hb"))
+                if wid not in fh["ready"] and hb and hb.get("state") == "up" and hb.get("port"):
+                    fh["ready"][wid] = now
+            if not fh["smi"] or now - fh["smi"][-1][0] >= 1.0:
+                with contextlib.suppress(subprocess.SubprocessError, OSError, ValueError, IndexError):
+                    fh["smi"].append((now, int(smi("memory.used").split()[0])))
+
+    fh["watch"] = threading.Thread(target=watch, daemon=True)
+    fh["watch"].start()
+    log(f"phase 11: the fleet started ({' '.join(cmd[3:])})")
+    return fh
+
+
+def fleet_stop(fh):
+    """Kill what is left of the fleet (its whole session) and end the
+    watch thread."""
+    import os
+    import signal
+
+    if fh["proc"].poll() is None:
+        with contextlib.suppress(OSError):
+            os.killpg(fh["proc"].pid, signal.SIGKILL)
+        fh["proc"].wait()
+    fh["stop"].set()
+    fh["watch"].join()
+    for f in fh["files"]:
+        f.close()
+
+
+def scrape(port, route):
+    """(status, body) of GET 127.0.0.1:<port><route>."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}", timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def fleet_phase(torch, fh, vk, proof_launches, beside):
+    """Phase 11 (the fleet line), on fleet_start's fleet `fh`: once both
+    heartbeats say `up` with a bound port (status.json listing both up
+    with their ports), each worker's device memory in use (its /snapshot)
+    is read and SERVICE_EMAILS are spooled as demo requests; `beside()`
+    (phase 2's untimed checks, phase 3) runs here while the workers prove
+    them, and each proof is verified under phase 8's `vk` as it lands.
+    Every request must end `done`; with the fleet still running, each
+    worker's /healthz answers 200, /metrics 200 with its
+    zkp2p_service_requests_total, /status 200 with its worker, fleet and
+    the execution digest it logged, /snapshot armed with metrics the
+    port's Registry.merge takes.  Then SIGTERM to the supervisor and
+    fleet_drained's checks (`proof_launches`: phase 8's proof under the
+    zkey's classes).  Returns (the fleet line, what `beside` returned)."""
+    import os
+    import re
+    import signal
+
+    from zkp2p_tpu_torch.formats.proof_json import load, proof_from_json
+    from zkp2p_tpu_torch.snark.groth16 import verify
+    from zkp2p_tpu_torch.utils.metrics import Registry
+
+    wids = [f"w{i}" for i in range(FLEET_WORKERS)]
+    proc, spool = fh["proc"], fh["spool"]
+    t0 = time.time()
+    while len(fh["ready"]) < FLEET_WORKERS:
+        if proc.poll() is not None:
+            raise AssertionError(f"the fleet exited {proc.returncode} before its workers were ready")
+        if time.time() - fh["t0"] > FLEET_READY_S:
+            raise AssertionError(f"the fleet's workers were not ready {FLEET_READY_S} s after the spawn: {fh['ready']}")
+        time.sleep(0.5)
+    waited_s = time.time() - t0
+    status = read_json(os.path.join(fh["state"], "status.json"))
+    ports = {w: status["workers"][w]["port"] for w in wids}
+    if any(status["workers"][w]["state"] != "up" or not ports[w] for w in wids):
+        raise AssertionError(f"status.json before the requests: {status['workers']}")
+    fleet_id = status["fleet_id"]
+
+    idle = {}
+    for w in wids:
+        snap = json.loads(scrape(ports[w], "/snapshot")[1])
+        idle[w] = max(m["value"] for m in snap["metrics"] if m["name"] == "zkp2p_hbm_bytes_in_use")
+    torch.cuda.empty_cache()
+    names = [f"f{i}" for i in range(len(SERVICE_EMAILS))]
+    t_req = time.time()
+    write_requests(spool, {n: demo_payload(*e) for n, e in zip(names, SERVICE_EMAILS)})
+    beside_s, beside_out = wall_s(torch, beside)
+    verify_s, verified = 0.0, set()
+    while len(verified) < len(names):
+        for n in names:
+            base = os.path.join(spool, n)
+            if os.path.exists(base + ".error.json"):
+                raise AssertionError(f"the fleet ended {n} in an error")
+            if n not in verified and os.path.exists(base + ".proof.json"):
+                t1 = time.perf_counter()
+                if not verify(vk, proof_from_json(load(base + ".proof.json")),
+                              [int(v) for v in load(base + ".public.json")]):
+                    raise AssertionError(f"{base}.proof.json does not verify")
+                verify_s += time.perf_counter() - t1
+                verified.add(n)
+        if proc.poll() is not None:
+            raise AssertionError(f"the fleet exited {proc.returncode} with requests open")
+        if time.time() - t_req > FLEET_PROVE_S:
+            raise AssertionError(f"the fleet did not end {len(names)} requests in {FLEET_PROVE_S} s")
+        time.sleep(0.2)
+
+    # the four endpoints of each worker, the fleet still running
+    with open(os.path.join(fh["dir"], "fleet.out")) as f:
+        digests = dict(re.findall(r"\[service (w\d+)\] preflight: backend=cuda execution_digest=(\w+)", f.read()))
+    for w in wids:
+        code, body = scrape(ports[w], "/healthz")
+        if code != 200 or json.loads(body) != {"ok": True}:
+            raise AssertionError(f"{w} /healthz: {code} {body}")
+        code, body = scrape(ports[w], "/metrics")
+        if code != 200 or 'zkp2p_service_requests_total{state="done"}' not in body:
+            raise AssertionError(f"{w} /metrics: {code}, no done requests in {len(body)} bytes")
+        code, body = scrape(ports[w], "/status")
+        st = json.loads(body)
+        if code != 200 or not st["ok"] or (st.get("worker"), st.get("fleet")) != (w, fleet_id) \
+                or st["execution_digest"] != digests.get(w):
+            raise AssertionError(f"{w} /status: {code} {body[:300]} (logged digest {digests.get(w)})")
+        code, body = scrape(ports[w], "/snapshot")
+        snap = json.loads(body)
+        if code != 200 or not snap["armed"] or snap.get("worker") != w:
+            raise AssertionError(f"{w} /snapshot: {code} {body[:300]}")
+        Registry().merge(snap["metrics"])
+    status = read_json(os.path.join(fh["state"], "status.json"))
+    if any(status["workers"][w]["state"] != "up" or status["workers"][w]["port"] != ports[w] for w in wids):
+        raise AssertionError(f"status.json with the fleet running: {status['workers']}")
+
+    fh["t_term"] = time.time()
+    os.kill(proc.pid, signal.SIGTERM)
+    with contextlib.suppress(subprocess.TimeoutExpired):
+        proc.wait(timeout=SERVICE_DRAIN_S + FLEET_DRAIN_TIMEOUT_S)
+    fh["t_exit"] = time.time()
+    line = {
+        "shape": "venmo 1024/6400, phase 8's zkey and vkey; synthetic signed emails as demo payloads",
+        "command": " ".join(proc.args[3:]), "workers": FLEET_WORKERS, "batch": FLEET_BATCH,
+        "requests": len(names), "names": names, "fleet_id": fleet_id, "t_req": t_req, "all_verify": True,
+        "verify_s": verify_s, "waited_for_ready_after_phase_2_s": waited_s,
+        "beside": "phase 2's K15/K16 bitwise checks, phase 3",
+        "beside_s": beside_s, "ports": ports, "idle": idle, "digests": digests,
+    }
+    return fleet_drained(fh, line, proof_launches), beside_out
+
+
+def domain_table_launches(log_m: int) -> int:
+    """K1's launches for the tables a process builds at its first proof on
+    a 2^log_m domain, once (ops/ntt.py: `domain`'s twiddles and inverse
+    twiddles, 2^(log_m - 1) powers each by log_m - 1 doublings, and
+    `_coset_factor`'s 2^log_m powers by log_m doublings and a product by
+    1/m)."""
+    return 2 * (log_m - 1) + log_m + 1
+
+
+def fleet_drained(fh, line, proof_launches):
+    """Phase 11's drain, checked once the supervisor has exited or the
+    wait for it has timed out: exit 0 within SERVICE_DRAIN_S plus the drain
+    timeout of the SIGTERM, no escalation, no claim left, both workers
+    done; every request `done` exactly once in the records, both workers
+    among them, each record and time-series line naming its worker and
+    the fleet; each worker drained with its logged launches exactly its
+    chunks' (`proof_launches`, phase 8's proof under the zkey's classes,
+    a chunk: K1 4 + B) and its domain tables' (domain_table_launches).
+    Completes and returns the fleet line: requests/s, each worker's ready
+    seconds, done count, chunks, witness_batch, prove and sample verify
+    seconds, busy share, idle and peak device memory, the card's peak
+    memory.used."""
+    import os
+    import re
+
+    wids = [f"w{i}" for i in range(FLEET_WORKERS)]
+    proc, spool, names, fleet_id = fh["proc"], fh["spool"], line.pop("names"), line.pop("fleet_id")
+    rc = proc.poll()
+    if rc is None:
+        raise AssertionError(f"the fleet did not exit within {SERVICE_DRAIN_S + FLEET_DRAIN_TIMEOUT_S} s of SIGTERM")
+    drain_s = fh["t_exit"] - fh["t_term"]
+    fh["stop"].set()
+    fh["watch"].join()
+    with open(os.path.join(fh["dir"], "fleet.log")) as f:
+        stderr = f.read()
+    for text in stderr.splitlines():
+        if "fleet:" in text or "exiting" in text or "key on" in text or "constraints=" in text:
+            log(f"  | {text}")
+    status = read_json(os.path.join(fh["state"], "status.json"))
+    left = [f for f in os.listdir(spool) if f.endswith(".claim")]
+    if rc != 0 or status["escalations"] or left or any(status["workers"][w]["state"] != "done" for w in wids):
+        raise AssertionError(f"the fleet's drain: exit {rc}, escalations {status['escalations']}, claims left {left}, "
+                             f"workers {status['workers']}")
+
+    recs = sink_records(spool, "request")
+    done = sorted(r["request_id"] for r in recs if r["state"] == "done")
+    if done != names or any(r.get("fleet") != fleet_id or r.get("worker") not in wids for r in recs):
+        raise AssertionError(f"the fleet's records: done {done}")
+    by = {w: [r for r in recs if r["worker"] == w] for w in wids}
+    if not all(by.values()):
+        raise AssertionError(f"a worker ended no request: {({w: len(v) for w, v in by.items()})}")
+    ts = sink_records(spool, "timeseries")
+    if {r.get("worker") for r in ts} != set(wids) or any(r.get("fleet") != fleet_id for r in ts):
+        raise AssertionError(f"time-series lines of {sorted({str(r.get('worker')) for r in ts})}")
+    logged = {w: (why, json.loads(launches)) for w, why, launches in
+              re.findall(r"service (w\d+) exiting \((\w+)\): launches (\{.*\})", stderr)}
+    chunks = {w: sum(r.get("batch_index") == 0 for r in by[w]) for w in wids}
+    for w in wids:
+        want = {k[3:]: v * chunks[w] for k, v in proof_launches.items() if v}
+        want["mont_mul"] = 4 * chunks[w] + len(by[w]) + domain_table_launches(VENMO["log_m"])
+        if logged.get(w) != ("drained", want):
+            raise AssertionError(f"{w} logged {logged.get(w)}; drained with {chunks[w]} chunks' {want} expected")
+    stages = sink_records(spool, "stage")
+    pid_of = {r["pid"]: r["worker"] for r in recs}
+    t_req = line.pop("t_req")
+    wall = max(r["ts"] for r in recs) - t_req
+
+    def spans(w, stage):
+        return [r["ms"] / 1e3 for r in stages if r["stage"] == stage and pid_of.get(r["pid"]) == w]
+
+    workers = {}
+    for w in wids:
+        peaks = [r["hbm_peak_bytes"] for r in by[w] + [r for r in ts if r["worker"] == w] if r.get("hbm_peak_bytes")]
+        workers[w] = {"ready_s": fh["ready"][w] - fh["t0"], "port": line["ports"][w], "done": len(by[w]),
+                      "chunks": chunks[w], "witness_batch_s": spans(w, "service/witness_batch"),
+                      "prove_s": spans(w, "service/prove"), "sample_verify_s": spans(w, "service/verify"),
+                      "busy_share": sum(spans(w, "service/prove")) / wall,
+                      "idle_device_gib": line["idle"][w] / 2**30, "peak_device_gib": max(peaks) / 2**30,
+                      "execution_digest": line["digests"][w], "launches": logged[w][1]}
+    for k in ("ports", "idle", "digests"):
+        line.pop(k)
+    smi_all = [m for _, m in fh["smi"]]
+    smi_run = [m for t, m in fh["smi"] if t_req <= t <= fh["t_exit"]]
+    line.update({"wall_s": wall, "requests_per_s": len(names) / wall, "drain_s": drain_s, "exit": rc,
+                 "escalations": status["escalations"], "claims_left": 0, "timeseries_lines": len(ts),
+                 "card_memory_used_mib_peak": {"proving": max(smi_run, default=None),
+                                               "from_spawn": max(smi_all, default=None)},
+                 "per_worker": workers})
+    log(f"fleet: {len(names)} requests in {wall:.2f} s ({len(names) / wall:.3f} requests/s) by "
+        + ", ".join(f"{w} {v['done']} ({v['chunks']} chunks, busy {v['busy_share']:.3f}, peak "
+                    f"{v['peak_device_gib']:.2f} GiB, idle {v['idle_device_gib']:.2f}, ready {v['ready_s']:.1f} s)"
+                    for w, v in workers.items())
+        + f"; card memory.used peak {line['card_memory_used_mib_peak']} MiB; drained {drain_s:.2f} s after SIGTERM, "
+        f"exit 0, no escalation; endpoints answered; every proof verifies ({line['verify_s']:.2f} s)")
+    return line
 
 
 # -------------------------------------------------------------- phase 10
@@ -4242,8 +4500,9 @@ def edit_h_point(path: str, index: int) -> None:
 
 def ceremony_chain(paths, started, abort):
     """Phase 10's command line, run in a thread beside phase 7 and phase
-    10's counted run from phase 6's files: `ceremony contribute`,
-    `contribute`, `beacon` (iter_exp CEREMONY_ITER_EXP) in turn; then
+    10's counted run from phase 6's files: `ceremony contribute` and
+    `beacon` (iter_exp CEREMONY_ITER_EXP) in turn (one contribution: the
+    counted run makes two, and a second here would outlast it); then
     `ceremony verify` of the final key (ZKEY OK, exit 0), of a copy with
     one H point moved (ZKEY INVALID, exit 1) and `prove --zkey final
     --wtns` together; then
@@ -4259,7 +4518,7 @@ def ceremony_chain(paths, started, abort):
     from zkp2p_tpu_torch.formats.zkey import read_zkey_vk
 
     d = paths["dir"]
-    z = {name: os.path.join(d, f"{name}.zkey") for name in ("c1", "c2", "final", "tampered")}
+    z = {name: os.path.join(d, f"{name}.zkey") for name in ("c1", "final", "tampered")}
     out = {}
 
     def start(label, args):
@@ -4285,9 +4544,7 @@ def ceremony_chain(paths, started, abort):
                 ("contribute_1", "contribute", ["contribute", paths["initial"], z["c1"], "--entropy",
                                                 "chip smoke CLI, first", "--name", "alice"],
                  f"contributed -> {z['c1']}"),
-                ("contribute_2", "contribute", ["contribute", z["c1"], z["c2"], "--entropy", "chip smoke CLI, second",
-                                                "--name", "bob"], f"contributed -> {z['c2']}"),
-                ("beacon", "beacon", ["beacon", z["c2"], z["final"], "--beacon-hash", CEREMONY_BEACON.hex(),
+                ("beacon", "beacon", ["beacon", z["c1"], z["final"], "--beacon-hash", CEREMONY_BEACON.hex(),
                                       "--iter-exp", str(CEREMONY_ITER_EXP)], f"beacon applied -> {z['final']}")):
             finish(label, start(label, ["ceremony", *args]), 0, last, op)
         shutil.copyfile(z["final"], z["tampered"])
@@ -4312,7 +4569,7 @@ def ceremony_chain(paths, started, abort):
         finish("final_vk_accepts", checks["final_vk_accepts"], 0, "OK")
         finish("initial_vk_rejects", checks["initial_vk_rejects"], 1, "INVALID")
         lines = finish("verify", verify, 0, "ZKEY OK", "verify")
-        if sum("PoK + delta link verified" in s for s in lines) != 2 or not any("beacon re-derived" in s
+        if sum("PoK + delta link verified" in s for s in lines) != 1 or not any("beacon re-derived" in s
                                                                                  for s in lines):
             raise AssertionError(f"phase 10's verify printed {lines}")
         lines = finish("verify_tampered", tampered, 1, "ZKEY INVALID", "verify")
@@ -4606,16 +4863,38 @@ def kernels_phase(torch, peak_muls, sm_clock_hz, device):
     return rows, affine_msm_same_run
 
 
-def run(torch, device, peak_muls, sm_clock_hz):
-    """Phases 1-10 on `device`, in the order 1, 8 (its subprocesses beside
-    it and 9), 9, 2, 3, 6, 7 (phase 4's set-up beside its subprocesses),
-    10 (its command line in a thread from the end of 6, beside 7 and its
-    counted run), 4, 5; returns what main prints."""
-    from zkp2p_tpu_torch.ops import cuda_build
-    from zkp2p_tpu_torch.ops.ntt import pass_plan
+def vector_phase(torch, device):
+    """Phase 3: the test vector's proof under both arms, then its setup
+    (check_setup_vector, whose line it returns)."""
     from zkp2p_tpu_torch.prover.groth16_gpu import key_from_numpy, prove_gpu
     from zkp2p_tpu_torch.prover.vector import load_vector
     from zkp2p_tpu_torch.snark.groth16 import proof_bytes
+
+    t0 = time.perf_counter()
+    arrays, meta, witness, r, s, expected = load_vector()
+    vkey = key_from_numpy(arrays, meta, device=device)
+    for arms in ({}, AFFINE_ARMS):
+        got = prove_gpu(vkey, witness, r=r, s=s, device=device, **arms)
+        if proof_bytes(got) != proof_bytes(expected):
+            raise AssertionError(f"the test vector's proof {arms} differs from the committed one")
+        log(f"test vector {arms}: proof equal to the committed one ({time.perf_counter() - t0:.1f} s)")
+    return check_setup_vector(torch, device)
+
+
+def run(torch, device, peak_muls, sm_clock_hz):
+    """Phases 1-11 on `device`, in the order 1, 8 (its subprocesses beside
+    it and 9), 9, 2 (phase 11's workers building their circuits and
+    importing their keys beside it), 11 (2's K15/K16 bitwise checks and 3
+    beside its proofs), 6, 7
+    (phase 4's set-up beside its subprocesses), 10 (its command line in a
+    thread from the end of 6, beside 7 and its counted run), 4, 5; returns
+    what main prints."""
+    import os
+    import shutil
+
+    from zkp2p_tpu_torch.ops import cuda_build
+    from zkp2p_tpu_torch.ops.ntt import pass_plan
+    from zkp2p_tpu_torch.prover.groth16_gpu import prove_gpu
 
     # phase 1, and phase 8's circuit built beside it
     t0 = time.perf_counter()
@@ -4638,9 +4917,10 @@ def run(torch, device, peak_muls, sm_clock_hz):
     # phase 8's start: the flagship set up on the card; its files written
     # and its two CLI subprocesses started in a thread, which run beside
     # phase 8 in this process and phase 9 (phase 2's kernel times run with
-    # no other process on the card)
+    # no other process's kernels on the card)
     t0 = time.perf_counter()
     fl_start = flagship_start(torch, built, device)
+    fleet = None
     log(f"phase 8's start (setup_device, the zkey's data; its files, subprocesses and inference follow in a "
         f"thread): {time.perf_counter() - t0:.1f} s")
     try:
@@ -4658,29 +4938,34 @@ def run(torch, device, peak_muls, sm_clock_hz):
         t0 = time.perf_counter()
         flagship_finish(fl_start, flagship)
         log(f"phase 8's CLI after phase 9: {time.perf_counter() - t0:.1f} s")
+        # phase 11's fleet on phase 8's files: its workers build their
+        # circuits on the host and import their keys beside phase 2
+        fleet = fleet_start(os.path.join(fl_start["dir"], "full"))
         # phase 2
         rows, affine_msm_same_run = kernels_phase(torch, peak_muls, sm_clock_hz, device)
         flagship_verified(fl_start, flagship)
-    finally:
-        import shutil
+        # phase 11's requests; phase 2's untimed K15/K16 checks and phase 3
+        # beside their proofs
+        t0 = time.perf_counter()
 
+        def beside_fleet():
+            check_affine_bitwise(torch, device)
+            return vector_phase(torch, device)
+
+        fleet_line, setup_vector = fleet_phase(torch, fleet, fl_start["vk"], fl_start["inferred_launches"],
+                                               beside_fleet)
+        log(f"phase 11 (the fleet) after phase 2, K15/K16's bitwise checks and phase 3 beside it: "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        if fleet is not None:
+            fleet_stop(fleet)
+            shutil.rmtree(fleet["dir"], ignore_errors=True)
         with contextlib.suppress(BaseException):
             flagship_join(fl_start)  # its thread may still start the subprocesses
         stop(fl_start["procs"])
         shutil.rmtree(fl_start["dir"], ignore_errors=True)
     del fl_start
     torch.cuda.empty_cache()
-
-    # phase 3
-    t0 = time.perf_counter()
-    arrays, meta, witness, r, s, expected = load_vector()
-    vkey = key_from_numpy(arrays, meta, device=device)
-    for arms in ({}, AFFINE_ARMS):
-        got = prove_gpu(vkey, witness, r=r, s=s, device=device, **arms)
-        if proof_bytes(got) != proof_bytes(expected):
-            raise AssertionError(f"the test vector's proof {arms} differs from the committed one")
-        log(f"test vector {arms}: proof equal to the committed one ({time.perf_counter() - t0:.1f} s)")
-    setup_vector = check_setup_vector(torch, device)
 
     # phase 6, then phase 7 on its files, phase 4's set-up beside its
     # subprocesses; phase 10's command line in a thread from phase 6's files,
@@ -4828,6 +5113,7 @@ def run(torch, device, peak_muls, sm_clock_hz):
              "affine_msm_same_run": affine_msm_same_run, "affine_same_run": affine_same_run,
              "real_size_batch": real_batch, "batch_same_run": batch_same_run, "setup_vector": setup_vector,
              "real_size_setup": real_setup, "cli_real_size": cli_line, "flagship": flagship, "service": service,
+             "fleet": fleet_line,
              "ceremony": {"shape": f"phase 6's key (venmo 1024/6400 counts): c {V['n_wires'] - V['n_public'] - 1} + "
                                    f"h {1 << V['log_m']} points, zkey {cer_cli['zkey_bytes']} bytes",
                           "in_process": cer_line, "cli": cer_cli,

@@ -5,6 +5,7 @@ plain version only for CPU tensors and then counts no launch; a kernel
 build that fails raises."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -517,3 +518,45 @@ def test_service_run_on_cuda_builds_every_kernel_before_claiming(monkeypatch, tm
     assert svc.run(str(spool), max_sweeps=1) == "sweeps"
     assert loaded == list(cuda_build.SOURCES)
     assert (spool / "r0.error.json").exists()
+
+
+def test_fleet_without_cuda_raises_before_spawning_or_writing(monkeypatch, tmp_path):
+    """The fleet command's default workers run on CUDA unless --device cpu:
+    without CUDA it raises before it spawns a worker or makes the spool
+    (each worker would raise before reading a file, as `service` does)."""
+    from zkp2p_tpu_torch.pipeline import cli
+    from zkp2p_tpu_torch.pipeline import fleet
+
+    def no_spawn(*a, **k):
+        raise AssertionError("spawned a worker")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(fleet.FleetSupervisor, "_spawn", no_spawn)
+    spool = tmp_path / "spool"
+    for argv in (["fleet", "--spool", str(spool)], ["fleet", "--spool", str(spool), "--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["--build-dir", str(tmp_path / "build"), "--circuit", "venmo"] + argv)
+    assert not spool.exists()
+    out = subprocess.run([sys.executable, "-m", "zkp2p_tpu_torch", "--circuit", "venmo", "fleet", "--spool",
+                          str(spool)], cwd=ROOT, capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0 and "no CUDA device" in out.stderr and not spool.exists()
+
+
+def test_the_supervisor_never_initialises_cuda(monkeypatch, tmp_path):
+    """A supervisor only spawns processes: the fleet command (its device
+    check included) and a toy fleet run without a call that would
+    initialise CUDA in this process."""
+    from zkp2p_tpu_torch.pipeline import cli
+    from zkp2p_tpu_torch.utils.device import check_device
+
+    def no_init(*a, **k):
+        raise AssertionError("initialised CUDA")
+
+    monkeypatch.setattr(torch.cuda, "_lazy_init", no_init)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert check_device() == torch.device("cuda")
+    with pytest.raises(SystemExit) as rc:
+        cli.main(["fleet", "--spool", str(tmp_path / "spool"), "--workers", "2", "--worker-cmd",
+                  json.dumps([sys.executable, "-c", "pass"])])
+    assert rc.value.code == 0 and not torch.cuda.is_initialized()

@@ -156,6 +156,26 @@ def test_timeseries_line_has_the_reference_schema(side, tmp_path):
     assert {"service/witness", "service/prove", "service/verify", "service/emit"} <= stages
 
 
+def test_fleet_identity_on_records_and_the_timeseries_line(side, tmp_path, monkeypatch):
+    """A worker's identity (the supervisor's flags) on its request
+    records and time-series lines, as the reference's sampler stamps it
+    from its environment."""
+    spool = str(tmp_path / "spool")
+    os.makedirs(spool)
+    write_reqs(spool, [(3, 5), (2, 7)])
+    svc = side.service(worker_id="w7", fleet_id="fleet42")
+    assert svc.run(spool, poll_s=0.01, max_sweeps=1) == "sweeps"
+    (line,) = sink_lines(spool, "timeseries")
+    assert (line["worker"], line["fleet"]) == ("w7", "fleet42")
+    reqs = sink_lines(spool, "request")
+    assert len(reqs) == 2 and all((r["worker"], r["fleet"]) == ("w7", "fleet42") for r in reqs)
+    monkeypatch.setenv("ZKP2P_WORKER_ID", "w7")
+    monkeypatch.setenv("ZKP2P_FLEET_ID", "fleet42")
+    ref_line = RefSampler(10.0, 300.0).maybe_sample(spool, RefSink(str(tmp_path / "ref.jsonl")), force=True)
+    assert set(line) == set(ref_line) - {"native_delta"}
+    assert (ref_line["worker"], ref_line["fleet"]) == ("w7", "fleet42")
+
+
 def test_slo_tracker_snapshots_equal_the_reference():
     from zkp2p_tpu.utils.slo import SloTracker as RefTracker
 

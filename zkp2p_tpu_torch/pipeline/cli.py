@@ -33,7 +33,21 @@ rapidsnark drop-in prover.
            <name>.error.json out, request records in
            <spool>.metrics.jsonl.  SIGTERM or SIGINT drains it (claims
            nothing more, finishes what it holds) and it exits 0; exit 2
-           when --max-seconds runs out.
+           when --max-seconds runs out.  --metrics-port N (or auto, a
+           port the OS chooses) serves /metrics (Prometheus text),
+           /status (JSON; 503 until the preflight has run), /healthz and
+           /snapshot (the registry and SLO window as JSON) on
+           --metrics-addr (default 127.0.0.1).  It logs its kernels'
+           launch counts at exit.
+  fleet    N `service` workers on one spool under a supervisor
+           (``pipeline.fleet``): restarts with backoff and a crash-loop
+           breaker, SIGTERM drains every worker (SIGKILL past
+           --drain-timeout-s), a watchdog on the workers' heartbeats, an
+           RSS governor (--rss-soft-mb, --rss-hard-mb), and
+           <fleet-dir>/status.json with each worker's state and metrics
+           port.  Exit 0 clean, 3 a drain escalated, 4 every worker
+           parked.  --worker-cmd JSON replaces the worker's argv ({wid}
+           and {spool} substituted).
   ceremony the phase-2 MPC over zkeys: contribute ZKEY_IN ZKEY_OUT
            [--entropy] [--name], beacon ZKEY_IN ZKEY_OUT --beacon-hash HEX
            [--iter-exp 10], verify ZKEY_INITIAL ZKEY_FINAL (prints the
@@ -50,14 +64,16 @@ rapidsnark drop-in prover.
     python -m zkp2p_tpu_torch verify
     python -m zkp2p_tpu_torch batch --indir inputs/ --outdir proofs/
     python -m zkp2p_tpu_torch --circuit venmo --max-header 1024 --max-body 6400 service --spool spool/
+    python -m zkp2p_tpu_torch --circuit venmo --max-header 1024 --max-body 6400 fleet --spool spool/ --batch 2
     python -m zkp2p_tpu_torch ceremony contribute build/circuit_0.zkey build/circuit_1.zkey --entropy "..."
     python -m zkp2p_tpu_torch doctor --json
 
-``setup``, ``prove``, ``batch``, ``service`` and ``ceremony`` run on the
-CUDA card (``--device cuda``, the default) and raise before they build a
-circuit or read a file when there is none; ``--device cpu`` runs the
-plain versions of the kernels.  A .wtns's values are proved as their residues mod r, and
-public.json carries them as the file holds them, as the reference does.
+``setup``, ``prove``, ``batch``, ``service``, ``fleet`` (its workers) and
+``ceremony`` run on the CUDA card (``--device cuda``, the default) and
+raise before they build a circuit or read a file when there is none;
+``--device cpu`` runs the plain versions of the kernels.  A .wtns's
+values are proved as their residues mod r, and public.json carries them
+as the file holds them, as the reference does.
 ``--trace FILE`` appends the run's spans and its manifest (device,
 versions, gate arms and their digest) to FILE, so that a caller reads
 them from outside the process.
@@ -83,7 +99,7 @@ from ..prover.groth16_gpu import device_pk_from_zkey, prove_gpu, prove_gpu_batch
 from ..prover.setup_device import setup_device
 from ..snark.groth16 import domain_size_for, verify
 from ..ops import cuda_build
-from ..utils.device import resolve_device
+from ..utils.device import check_device, resolve_device
 from ..utils.trace import dump_trace
 
 
@@ -390,7 +406,9 @@ def cmd_service(args):
     params, lay = meta
     svc_kw = dict(batch_size=args.batch, prefetch=args.prefetch, stale_claim_s=args.stale_claim_s,
                   deadline_s=args.deadline_s, spool_cap=args.spool_cap, slo_p95_s=args.slo_p95_s,
-                  ts_sample_s=args.ts_sample_s, device=dev)
+                  ts_sample_s=args.ts_sample_s, device=dev, metrics_port=args.metrics_port,
+                  metrics_addr=args.metrics_addr, worker_id=args.worker_id, fleet_id=args.fleet_id,
+                  fleet_dir=args.fleet_dir)
     if args.circuit == "venmo":
         svc = ProvingService.for_venmo(cs, lay, params, dpk, vk, **svc_kw)
     else:
@@ -409,13 +427,74 @@ def cmd_service(args):
     _log(f"service sweeping {args.spool} (batch={args.batch})")
     why = svc.run(args.spool, poll_s=args.poll, max_sweeps=args.max_sweeps, max_seconds=args.max_seconds,
                   exit_when_spool_terminal=args.exit_when_terminal)
+    # which kernels this worker ran, in its log
+    _log(f"service {args.worker_id or 'solo'} exiting ({why}): launches {_launches()}")
     # 0: drained, every request ended, or the sweeps done; 2: timeout
     sys.exit(0 if why in ("drained", "terminal", "sweeps") else 2)
 
 
+def cmd_fleet(args):
+    """N `service` workers on one spool under ``FleetSupervisor`` until a
+    signal drains them, every worker ends, or --max-seconds."""
+    from .fleet import FleetSupervisor
+
+    if args.worker_cmd:
+        template = json.loads(args.worker_cmd)
+        if not isinstance(template, list) or not template:
+            raise SystemExit("--worker-cmd must be a non-empty JSON argv list")
+
+        def worker_cmd(wid):
+            return [str(t).replace("{wid}", wid).replace("{spool}", args.spool) for t in template]
+    else:
+        # the workers would each raise without CUDA: say so once, before
+        # anything is spawned or written (without initialising CUDA here)
+        check_device(args.device)
+        base = [sys.executable, "-m", "zkp2p_tpu_torch", "--build-dir", args.build_dir, "--circuit", args.circuit,
+                "--max-header", str(args.max_header), "--max-body", str(args.max_body), "service",
+                "--spool", args.spool, "--batch", str(args.batch), "--poll", str(args.poll),
+                "--prefetch", str(args.prefetch), "--stale-claim-s", str(args.stale_claim_s),
+                "--deadline-s", str(args.deadline_s), "--spool-cap", str(args.spool_cap),
+                "--slo-p95-s", str(args.slo_p95_s), "--ts-sample-s", str(args.ts_sample_s),
+                "--device", args.device]
+        if args.zkey:
+            base += ["--zkey", args.zkey]
+        if args.no_infer_widths:
+            base += ["--no-infer-widths"]
+
+        def worker_cmd(_wid):
+            return list(base)
+
+    os.makedirs(args.spool, exist_ok=True)
+    sup = FleetSupervisor(args.spool, worker_cmd, workers=args.workers, fleet_dir=args.fleet_dir,
+                          drain_timeout_s=args.drain_timeout_s, breaker_k=args.breaker_k,
+                          breaker_window_s=args.breaker_window_s, restart_backoff_s=args.restart_backoff_s,
+                          rss_soft_mb=args.rss_soft_mb, rss_hard_mb=args.rss_hard_mb, liveness_s=args.liveness_s,
+                          log=lambda m: _log(f"fleet: {m}"))
+    _log(f"fleet {sup.fleet_id}: {sup.n} worker(s) on {args.spool} (fleet dir {sup.fleet_dir}, drain timeout "
+         f"{sup.drain_timeout_s:g}s)")
+    sys.exit(sup.run(max_seconds=args.max_seconds))
+
+
+def _metrics_port(v: str) -> int:
+    """--metrics-port: "auto" (or 0) for a port the OS chooses, else N."""
+    if v == "auto":
+        return 0
+    try:
+        port = int(v)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"want a port, 'auto' or 0, not {v!r}") from None
+    if not 0 <= port < 65536:
+        raise argparse.ArgumentTypeError(f"port {port} out of range")
+    return port
+
+
+def _launches() -> str:
+    """This process's kernel launches so far, as JSON."""
+    return json.dumps({k[3:]: v for k, v in cuda_build.LAUNCHES.items() if v})
+
+
 def _log_stages(what: str, stages: dict) -> None:
-    _log(f"{what}: " + ", ".join(f"{k[2:]} {v:.2f}" for k, v in stages.items()) + " s; launches "
-         + json.dumps({k[3:]: v for k, v in cuda_build.LAUNCHES.items() if v}))
+    _log(f"{what}: " + ", ".join(f"{k[2:]} {v:.2f}" for k, v in stages.items()) + f" s; launches {_launches()}")
 
 
 def cmd_ceremony(args):
@@ -563,7 +642,49 @@ def main(argv=None):
     s.add_argument("--max-seconds", type=float, default=None, help="exit (rc 2) after this many seconds")
     s.add_argument("--exit-when-terminal", action="store_true",
                    help="exit 0 once every spool request has a terminal artifact")
+    s.add_argument("--metrics-port", type=_metrics_port, default=None,
+                   help="serve /metrics, /status, /healthz and /snapshot on this port ('auto' or 0: one the OS "
+                        "chooses, logged and in the heartbeat; default: off)")
+    s.add_argument("--metrics-addr", default="127.0.0.1", help="the endpoint's address (default 127.0.0.1)")
+    s.add_argument("--worker-id", default="", help="this worker's id in a fleet (the supervisor sets it)")
+    s.add_argument("--fleet-id", default="", help="the fleet's id (the supervisor sets it)")
+    s.add_argument("--fleet-dir", default="",
+                   help="the fleet's heartbeat / control directory (the supervisor sets it; default: solo)")
     s.set_defaults(fn=cmd_service)
+
+    s = sub.add_parser("fleet", help="supervise N service workers on one spool (restarts, breaker, drain, "
+                                     "RSS governor)")
+    s.add_argument("--spool", required=True)
+    s.add_argument("--workers", type=int, default=2)
+    s.add_argument("--batch", type=int, default=4)
+    s.add_argument("--poll", type=float, default=1.0)
+    s.add_argument("--zkey", help="zkey path or chunk glob (default: BUILD_DIR/circuit_final.zkey)")
+    s.add_argument("--no-infer-widths", action="store_true",
+                   help="disable the zkey bit-constraint width inference")
+    s.add_argument("--prefetch", type=int, default=1)
+    s.add_argument("--stale-claim-s", type=float, default=300.0)
+    s.add_argument("--deadline-s", type=float, default=0.0)
+    s.add_argument("--spool-cap", type=int, default=0)
+    s.add_argument("--slo-p95-s", type=float, default=0.0)
+    s.add_argument("--ts-sample-s", type=float, default=10.0)
+    s.add_argument("--fleet-dir", default=None, help="heartbeat / ctl / status directory (default: SPOOL/.fleet)")
+    s.add_argument("--drain-timeout-s", type=float, default=30.0,
+                   help="the wait between a drain's SIGTERM and its SIGKILL")
+    s.add_argument("--liveness-s", type=float, default=60.0,
+                   help="heartbeat age past which a live worker counts as hung")
+    s.add_argument("--rss-soft-mb", type=int, default=0,
+                   help="a worker's RSS over this gets the soft degrade (0: off)")
+    s.add_argument("--rss-hard-mb", type=int, default=0,
+                   help="a worker's RSS over this is drained and restarted (0: off)")
+    s.add_argument("--breaker-k", type=int, default=5, help="failures inside the window that park a worker")
+    s.add_argument("--breaker-window-s", type=float, default=60.0)
+    s.add_argument("--restart-backoff-s", type=float, default=0.5, help="the exponential restart backoff's base")
+    s.add_argument("--max-seconds", type=float, default=None, help="drain and exit after this long")
+    s.add_argument("--worker-cmd", default=None,
+                   help="each worker's argv as a JSON list ('{wid}' and '{spool}' substituted; the identity "
+                        "flags appended); default: this CLI's service")
+    device_arg(s)
+    s.set_defaults(fn=cmd_fleet)
 
     s = sub.add_parser("ceremony", help="phase-2 zkey MPC: contribute / beacon / verify")
     s.add_argument("op", choices=["contribute", "beacon", "verify"])

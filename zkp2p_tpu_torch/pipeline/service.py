@@ -28,11 +28,13 @@ on demand through the injection sites of ``utils.faults``.
 The reference reads its policy from its environment; here each setting
 is a keyword of ``ProvingService`` with the reference's default, and
 nothing reads the environment.  The default prover is
-``prove_gpu_batch`` on the card.  Not ported yet (the reference's
-defaults stand in their place): the adaptive scheduler (its "off" arm,
-the static path below, is the reference's default), the perf-ledger
-sentry and flame sampler, the fleet heartbeat and governor, the
-Prometheus endpoint and ``preflight``.
+``prove_gpu_batch`` on the card.  ``run`` serves the Prometheus endpoint
+when given a port (``utils.metrics``), logs the preflight, and, as a
+fleet worker (``pipeline.fleet``), writes its heartbeat and applies the
+supervisor's soft degrade.  Not ported yet (the reference's defaults
+stand in their place): the adaptive scheduler (its "off" arm, the static
+path below, is the reference's default), the perf-ledger sentry and the
+flame sampler.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ from ..snark.groth16 import verify
 from ..utils.audit import execution_digest, preflight, sample_device_memory
 from ..utils.device import resolve_device
 from ..utils.faults import FaultInjected, fault_point, faults_arm
-from ..utils.metrics import REGISTRY, JsonlSink, run_id
+from ..utils.metrics import REGISTRY, JsonlSink, maybe_start_metrics_server, run_id
 from ..utils.slo import default_tracker, publish_slo, slo_arm, timeseries_arm
 from ..utils.trace import drain as drain_trace, set_context, trace
 
@@ -227,12 +229,13 @@ class TimeseriesSampler:
     arrival_rate_hz, backlog / claimable / in_flight (``scan_spool``),
     batch_fill_last and batch_size_target (the newest batch's live size
     and the size intended for it), counters (the service's cumulative
-    counters), slo (the tracker's snapshot) and hbm_* (device memory; on
-    the card only)."""
+    counters), slo (the tracker's snapshot), hbm_* (device memory; on the
+    card only) and `identity`'s worker and fleet where set."""
 
-    def __init__(self, interval_s: float, stale_claim_s: float = 300.0):
+    def __init__(self, interval_s: float, stale_claim_s: float = 300.0, identity: Optional[Dict[str, str]] = None):
         self.interval_s = interval_s
         self.stale_claim_s = stale_claim_s
+        self.identity = {k: v for k, v in (identity or {}).items() if v}
         self.batch_fill_last = 0
         self.batch_target_last = 0
         self._last_ts: Optional[float] = None
@@ -260,6 +263,7 @@ class TimeseriesSampler:
                 "batch_fill_last": self.batch_fill_last,
                 "batch_size_target": self.batch_target_last,
                 **scan,
+                **self.identity,
             }
             counters: Dict[str, float] = {}
             for m in REGISTRY.snapshot():
@@ -307,6 +311,11 @@ class ProvingService:
         slo_p95_s: float = 0.0,
         ts_sample_s: float = 10.0,
         device=None,
+        metrics_port: Optional[int] = None,
+        metrics_addr: str = "127.0.0.1",
+        worker_id: str = "",
+        fleet_id: str = "",
+        fleet_dir: str = "",
     ):
         """witness_fn: payload -> witness (raises on bad input);
         public_fn: witness -> public signals.
@@ -331,6 +340,13 @@ class ProvingService:
         none); ts_sample_s: run()'s time-series interval (0 = off).
         device: where the default prover runs: CUDA unless "cpu"; raises
         here when CUDA is asked for and absent.
+        metrics_port / metrics_addr: run()'s Prometheus endpoint (None =
+        off; 0 = a port the OS chooses).
+        worker_id / fleet_id / fleet_dir: fleet membership, given by the
+        supervisor (the reference's ZKP2P_WORKER_ID, _FLEET_ID, _FLEET_DIR):
+        records, time-series lines and the endpoint carry the ids, and
+        with a fleet_dir run() writes heartbeats there and reads the
+        supervisor's control file.
         The defaults are the reference's."""
         self.cs = cs
         self.dpk = dpk
@@ -350,6 +366,13 @@ class ProvingService:
         self.slo_p95_s = slo_p95_s
         self.ts_sample_s = ts_sample_s
         self.device = resolve_device(device)
+        self.metrics_port = metrics_port
+        self.metrics_addr = metrics_addr
+        self._worker_id = worker_id
+        self._fleet_id = fleet_id
+        self.fleet_dir = fleet_dir
+        # set by the governor's soft degrade (pipeline.fleet.apply_soft_degrade)
+        self._fleet_degraded = False
         # the policy, stamped on every request record
         self.knobs = {
             "batch_size": batch_size, "prefetch": self.prefetch, "stale_claim_s": stale_claim_s,
@@ -376,6 +399,11 @@ class ProvingService:
     @property
     def draining(self) -> bool:
         return self._drain.is_set()
+
+    def identity(self) -> Dict[str, str]:
+        """{"worker", "fleet"}: this process's place in a fleet ("" when
+        solo)."""
+        return {"worker": self._worker_id, "fleet": self._fleet_id}
 
     # -------------------------------------------------------- observability
     #
@@ -408,6 +436,9 @@ class ProvingService:
                 # comparable only when their digests match
                 "execution_digest": execution_digest(),
             }
+            # which worker of which fleet: pids recycle across restarts,
+            # worker ids do not
+            rec.update((k, v) for k, v in self.identity().items() if v)
             # the slot of the batch this request rode: one service/prove
             # span covers a batch's records
             if batch_index is not None:
@@ -1041,22 +1072,40 @@ class ProvingService:
         "drained" (request_drain or SIGTERM: the work in flight finished,
         every claim released, the sink flushed), "terminal"
         (exit_when_spool_terminal and every request has a terminal
-        artifact), "sweeps" (max_sweeps) or "timeout" (max_seconds)."""
+        artifact), "sweeps" (max_sweeps) or "timeout" (max_seconds).
+
+        The endpoint starts before the preflight (its /status answers 503
+        until then).  Every gate is recorded before the preflight, the
+        fleet's among them, so the digest it logs is the one /status
+        reports.  A fleet worker writes its first heartbeat before the
+        first sweep, beats from a thread between sweeps (a sweep may take
+        minutes), ticks after every sweep and, at exit, with the reason."""
+        from .fleet import fleet_member_arm, start_heartbeat_thread, worker_tick
+
         self._build_kernels()
+        maybe_start_metrics_server(self.metrics_port, self.metrics_addr, identity=self.identity())
         faults_arm()
         slo_arm(self.slo_p95_s)
         timeseries_arm(self.ts_sample_s)
+        fleet_member_arm(self._worker_id)
+        tag = f"[service {self._worker_id}]" if self._worker_id else "[service]"
         # the preflight: every gate's arm and the digest, logged before the
         # first claim (its warnings too)
         try:
-            rep = preflight(workload=False,
-                            log=lambda m: print(f"[service] {m}", file=sys.stderr, flush=True))
-            print(f"[service] preflight: backend={rep['backend']} execution_digest={rep['execution_digest']}",
-                  flush=True)
+            rep = preflight(workload=False, log=lambda m: print(f"{tag} {m}", file=sys.stderr, flush=True))
+            print(f"{tag} preflight: backend={rep['backend']} execution_digest={rep['execution_digest']}", flush=True)
         except Exception:  # noqa: BLE001 — observation never stops the service
             pass
         default_tracker(self.slo_p95_s)
-        self._sampler = TimeseriesSampler(self.ts_sample_s, self.stale_claim_s)
+        self._sampler = TimeseriesSampler(self.ts_sample_s, self.stale_claim_s, self.identity())
+
+        def _tick(state: Optional[str] = None) -> None:
+            if not self.fleet_dir:
+                return
+            try:
+                worker_tick(self, self.fleet_dir, state=state)
+            except Exception:  # noqa: BLE001 — fleet plumbing never stops a sweep
+                pass
 
         def _flush():
             rid, pid = run_id(), os.getpid()
@@ -1066,6 +1115,8 @@ class ProvingService:
             except Exception:  # noqa: BLE001 — observation only
                 pass
 
+        _tick()
+        hb_stop = start_heartbeat_thread(self, self.fleet_dir) if self.fleet_dir else None
         deadline = (time.time() + max_seconds) if max_seconds else None
         sweeps = 0
         why = "sweeps"
@@ -1075,12 +1126,14 @@ class ProvingService:
                 break
             stats = self.process_dir(spool)
             if any(stats.values()):
-                print(f"[service] {stats}", flush=True)
+                print(f"{tag} {stats}", flush=True)
                 # the sweep's stage spans go to the sink, which also keeps
                 # the trace ring from growing
                 _flush()
             # idle sweeps sample too: a quiet queue is a recorded fact
             self._sampler.maybe_sample(spool, self._sink(spool))
+            # the heartbeat out, the supervisor's control file in
+            _tick()
             if self._drain.is_set():
                 why = "drained"
                 break
@@ -1093,5 +1146,9 @@ class ProvingService:
                 why = "drained"
                 break
         _flush()
-        print(f"[service] exiting ({why})", flush=True)
+        if hb_stop is not None:
+            hb_stop.set()
+        # the last heartbeat says why: a deliberate exit, not a hang
+        _tick(why)
+        print(f"{tag} exiting ({why})", flush=True)
         return why

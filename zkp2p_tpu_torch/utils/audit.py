@@ -15,7 +15,8 @@ measures peaks owns those resets.
 ``preflight`` reports the backend, the card, which kernel libraries are
 built, every gate's arm and the digest, and runs one K1 launch against
 its plain version (``python -m zkp2p_tpu_torch doctor``; the service logs
-it before its first claim).  It has no TPU probe, and no knobs or their
+it before its first claim); ``last_preflight`` is the summary of the
+latest one, which ``/status`` waits for.  It has no TPU probe, and no knobs or their
 provenance: the port reads none, its arms are the keyword arguments of
 its entry points, and a gate this process has not taken yet reports the
 entry point's default.
@@ -81,6 +82,16 @@ def reset() -> None:
     _arms.clear()
 
 
+# the summary of this process's latest preflight (None until one ran)
+_preflight_report: Optional[Dict] = None
+
+
+def last_preflight() -> Optional[Dict]:
+    """{ts, backend, warnings (their count), execution_digest} of the
+    latest preflight in this process, or None."""
+    return _preflight_report
+
+
 def sample_device_memory(stage: str = "") -> Optional[Dict]:
     """Sample the device memory of each CUDA device this process has
     allocated on (and the current one) into gauges; return the device
@@ -127,19 +138,23 @@ def _arm_gates() -> None:
     """Record every gate the port has: the fault plan armed in this
     process (or "off"), and each other gate this process has not taken
     yet at its entry point's default (prove_gpu's msm_affine and msm_h,
-    prove_gpu_batch's chunk, the service's SLO objective and time-series
-    interval)."""
+    prove_gpu_batch's chunk, the service's SLO objective, time-series
+    interval and fleet membership, the supervisor's governor budgets)."""
+    from ..pipeline.fleet import FleetSupervisor, fleet_member_arm, governor_arm
     from ..pipeline.service import ProvingService
     from ..prover.groth16_gpu import prove_gpu, prove_gpu_batch
     from .faults import faults_arm
     from .slo import slo_arm, timeseries_arm
 
     faults_arm()
+    svc, sup = ProvingService.__init__, FleetSupervisor.__init__
     defaults = {"msm_affine": lambda: record_arm("msm_affine", _default(prove_gpu, "msm_affine")),
                 "msm_h": lambda: record_arm("msm_h", _default(prove_gpu, "msm_h")),
                 "batch_chunk": lambda: record_arm("batch_chunk", _default(prove_gpu_batch, "chunk")),
-                "service_slo": lambda: slo_arm(_default(ProvingService.__init__, "slo_p95_s")),
-                "service_timeseries": lambda: timeseries_arm(_default(ProvingService.__init__, "ts_sample_s"))}
+                "service_slo": lambda: slo_arm(_default(svc, "slo_p95_s")),
+                "service_timeseries": lambda: timeseries_arm(_default(svc, "ts_sample_s")),
+                "service_fleet": lambda: fleet_member_arm(_default(svc, "worker_id")),
+                "fleet_governor": lambda: governor_arm(_default(sup, "rss_soft_mb"), _default(sup, "rss_hard_mb"))}
     for gate, arm in defaults.items():
         if gate not in _arms:
             arm()
@@ -209,6 +224,9 @@ def preflight(workload: bool = True, log: Optional[Callable[[str], None]] = None
     report["warnings"] = warnings
     report["device_memory"] = sample_device_memory("preflight")
     report["execution_digest"] = execution_digest()
+    global _preflight_report
+    _preflight_report = {"ts": report["ts"], "backend": report["backend"], "warnings": len(warnings),
+                         "execution_digest": report["execution_digest"]}
     if log is not None:
         for msg in warnings:
             log(f"PREFLIGHT WARNING: {msg}")

@@ -1,7 +1,9 @@
 """Service-level objective for the proving service (port of the
-reference's ``utils/slo.py`` without its fleet merge and ``/status``
-payload): a rolling-window latency tracker with an explicit objective,
-attainment and burn rate, and the ``zkp2p_slo_*`` gauges.
+reference's ``utils/slo.py``): a rolling-window latency tracker with an
+explicit objective, attainment and burn rate, the ``zkp2p_slo_*`` gauges,
+the window serialised for another process (``window_state``) and the
+``/status`` payload.  The fleet plane's merge of N windows
+(``merge_window_states``, ``publish_fleet_slo``) is not ported yet.
 
   objective   latency bound in seconds over a request's whole life, from
               its arrival in the spool (the request file's mtime) to its
@@ -106,6 +108,28 @@ class SloTracker:
             "capped": capped,
         }
 
+    def window_state(self, max_samples: int = 4096, now: Optional[float] = None) -> Dict:
+        """The window for another process (a heartbeat, ``/snapshot``):
+        samples as [age_s, latency_s, good] triples, newest last (ages,
+        because two processes' monotonic clocks share no epoch).  Past
+        `max_samples` the oldest are left out and counted in `dropped`;
+        `n` stays the window's true size."""
+        t = self._clock() if now is None else now
+        with self._lock:
+            self._prune(t)
+            samples = list(self._samples)
+            capped = self._capped
+        dropped = max(0, len(samples) - max_samples)
+        return {
+            "objective_s": self.objective_s,
+            "target": self.target,
+            "window_s": self.window_s,
+            "n": len(samples),
+            "samples": [[round(max(0.0, t - s[0]), 3), round(s[1], 6), 1 if s[2] else 0] for s in samples[dropped:]],
+            "dropped": dropped,
+            "capped": capped,
+        }
+
 
 # The process-wide tracker: the service observes into it and the
 # time-series sampler reads it, so the two cannot disagree.
@@ -152,3 +176,65 @@ def timeseries_arm(interval_s: float) -> str:
     from .audit import record_arm
 
     return record_arm("service_timeseries", "off" if interval_s <= 0 else f"{interval_s:g}s")
+
+
+# The /status payload fails closed (503) until a preflight has run: a
+# scrape must not call a process healthy whose gates nobody armed.
+
+_t_start = time.time()
+
+# the registry's service counters /status reports, under its names
+_STATUS_COUNTERS = {
+    "zkp2p_service_retries_total": "retries",
+    "zkp2p_service_bisections_total": "bisections",
+    "zkp2p_service_deadline_total": "deadline",
+    "zkp2p_service_shed_total": "shed",
+    "zkp2p_service_emit_failures_total": "emit_failures",
+    "zkp2p_service_deferred_total": "deferred",
+}
+
+
+def status_payload(identity: Optional[Dict[str, str]] = None) -> Dict:
+    """The ``/status`` JSON: ok (a preflight has run in this process), ts,
+    run_id, pid, uptime_s, execution_digest, `identity`'s worker and fleet
+    where set, the preflight's summary (or the reason for ok False), the
+    SLO snapshot, the terminal states' counts and the rescue counters.
+    The endpoint answers 503 for ok False."""
+    import os
+
+    from .audit import execution_digest, last_preflight
+    from .metrics import REGISTRY, run_id
+
+    pf = last_preflight()
+    body: Dict = {
+        "ok": pf is not None,
+        "ts": round(time.time(), 3),
+        "run_id": run_id(),
+        "pid": os.getpid(),
+        "uptime_s": round(time.time() - _t_start, 3),
+        "execution_digest": execution_digest(),
+        **{k: v for k, v in (identity or {}).items() if v},
+    }
+    if pf is None:
+        body["reason"] = "preflight has not run (gates unarmed; see python -m zkp2p_tpu_torch doctor)"
+    else:
+        body["preflight"] = pf
+    body["slo"] = default_tracker().snapshot()
+    # read out of a snapshot: a get-or-create read would make zero-valued
+    # instruments
+    states: Dict[str, float] = {}
+    counters: Dict[str, float] = {}
+    for rec in REGISTRY.snapshot():
+        name = rec["name"]
+        if name == "zkp2p_service_requests_total":
+            states[rec["labels"].get("state", "?")] = rec["value"]
+        elif name in _STATUS_COUNTERS:
+            counters[_STATUS_COUNTERS[name]] = counters.get(_STATUS_COUNTERS[name], 0) + rec["value"]
+        elif name == "zkp2p_service_degraded_total":
+            counters["degraded"] = counters.get("degraded", 0) + rec["value"]
+        elif name == "zkp2p_service_takeovers_total":
+            key = "takeovers_" + rec["labels"].get("result", "?")
+            counters[key] = counters.get(key, 0) + rec["value"]
+    body["requests"] = states
+    body["counters"] = counters
+    return body
