@@ -4,7 +4,9 @@
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
 Phases, each of which raises on failure (the script then exits nonzero
-and prints no result line).  They run in the order 1, 8 (its CLI
+and prints no result line).  They run in the order 1 (phase 12, chaos,
+starting once its kernels are built, beside the rest of phase 1 and
+phase 8, and ending before phase 9), 8 (its CLI
 subprocesses beside it and phase 9), 9, 2 (no other process's kernels on
 the card: phase 11's workers build their circuits and import their keys
 beside it), 11 (phase 2's K15/K16 bitwise checks and phase 3 beside its
@@ -298,8 +300,9 @@ profiles:
 11. The fleet (the fleet line; its `service` workers are the command
    phase 9's `service` subprocess ran before, at full width):
    `python -m zkp2p_tpu_torch --build-dir <phase 8's files> --circuit
-   venmo --max-header 1024 --max-body 6400 fleet --workers 2 --batch 2`
-   starts just before phase 2, in a session of its own; each worker
+   venmo --max-header 1024 --max-body 6400 fleet --workers 2 --batch 2
+   --fleet-metrics-port auto` starts just before phase 2, in a session of
+   its own, with the fleet plane on a port the OS chooses; each worker
    builds the circuit, reads the zkey and imports the key (beside phase
    2), then serves its endpoint on a port the OS chooses.  Once both
    heartbeats say `up` with their ports (status.json listing both), the
@@ -310,14 +313,43 @@ profiles:
    8's vkey; with the fleet still running each worker's /healthz (200),
    /metrics (200, its zkp2p_service_requests_total), /status (200, its
    worker, the fleet and the execution digest it logged) and /snapshot
-   (armed, metrics the port's Registry.merge takes) answer; then SIGTERM
+   (armed, metrics the port's Registry.merge takes) answer.  The plane
+   (polled every 0.5 s from the spawn) answered /status 503 with its
+   reason until both workers were armed, then 200; FLEET_QUIET_CYCLES
+   scrape cycles after the last request, its /metrics holds every counter
+   of the workers' /snapshot summed label for label (the request counters
+   among them), every histogram's count summed, every gauge labelled by
+   worker, no merge refused, and its /status the merged window's n (the
+   workers' sum), no alert and status.json its port; `python -m
+   zkp2p_tpu_torch top --fleet-dir <state> --once` exits 0 with both
+   workers up in its frame.  Then SIGTERM
    to the supervisor: exit 0 within 60 s plus the drain timeout, no
    escalation, no claim left, each worker drained with its logged
    launches exactly its chunks' (phase 8's proof under the zkey's classes
    a chunk, K1 4 + B) and its domain tables' (K1 68 at 2^23, once).  Recorded: requests/s, each worker's ready seconds
    from the spawn, done count, chunks, witness_batch, prove and sample
    verify seconds, busy share, idle and peak device memory, the card's
-   peak memory.used (sampled each second), the drain's seconds.
+   peak memory.used (sampled each second), the drain's seconds; the
+   plane's 503 reasons, the seconds from the second worker ready to its
+   first 200, its scrape cycles (and those that failed, and the workers'
+   scrapes that failed) and a cycle's median and maximum ms (its /status's
+   last_ms at each cycle), its counters' parity, `top`'s seconds and frame.
+12. Chaos (the chaos line): `python -m zkp2p_tpu_torch.tools.chaos
+   --fleet 2 --requests 12 --batch 2 --prove-s 0.6 --stale-claim-s 3
+   --device cuda` on the toy circuit set up on the card, with the
+   reference's default fault plan (witness hang, prove raise, emit
+   ENOSPC, claim raise) and its plane checks, in a session of its own
+   from the end of phase 1's kernel build, beside phase 8's circuit
+   build and phase 8 (memory room on the card, no kernel timed); it must
+   exit 0 within CHAOS_TIMEOUT_S with no violation: every request
+   terminal exactly once and each proof verifying, a SIGKILL landed on a
+   worker holding a claim, a claim holder drained with its claims done,
+   the supervisor SIGKILLed and its replacement clean, the plane's
+   request counters equal to the live workers' sum under the faults, and
+   a crash-looping worker parked (exit 4) with restart_storm fired.
+   Recorded: requests, states, the workers' restarts under each
+   supervisor, the parity, seconds, the card's peak memory.used, each
+   worker's logged launches.
 
 The launch counts are reset just before the first timed proof of each
 path and read just after it (phase 8: just before and after its setup,
@@ -360,7 +392,7 @@ prove and batch, the batch's seconds and proofs/s beside
 prove_gpu_batch's), and the flagship circuit's (phase 8: counts, build,
 witness, qap_coo, setup, proof and batch seconds, the CLI's wall clock,
 steps, classes and peak RSS, the 256/192 setup), the service's
-(phase 9), the fleet's (phase 11) and the ceremony's (phase 10: the counted run's stage
+(phase 9), the fleet's (phase 11), chaos (phase 12) and the ceremony's (phase 10: the counted run's stage
 seconds, wall clock and launches an op; each command's).  The last line
 is {"ok": true, "device": {...}}.
 """
@@ -638,6 +670,16 @@ FLEET_BATCH = 2
 FLEET_READY_S = 600
 FLEET_PROVE_S = 600
 FLEET_DRAIN_TIMEOUT_S = 30
+# the fleet plane: how many of its scrape cycles phase 11 waits for once the
+# requests have ended, before it holds the plane's counters to the workers'
+FLEET_QUIET_CYCLES = 2
+# phase 12, chaos: the harness's run on the toy world (the reference's
+# fleet acceptance shape with two workers: a kill window of 0.6 s a
+# request), its scratch and its time limit
+CHAOS_DIR = ".chip_scratch/chaos"
+CHAOS_ARGS = ("--fleet", "2", "--requests", "12", "--batch", "2", "--prove-s", "0.6", "--stale-claim-s", "3",
+              "--device", "cuda")
+CHAOS_TIMEOUT_S = 420
 # phase 10, the ceremony: K19 at the ceremony's shape, where SCALE_HOLES
 # (0, 0) holes sit among the points and SCALE_SAMPLES are checked against
 # the host, as are the first SCALE_SPECIAL_POINTS with k = 0, 1, 2, 2^127,
@@ -4046,16 +4088,21 @@ def fleet_start(build_dir):
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
     spool, state = os.path.join(d, "spool"), os.path.join(d, "state")
+    from zkp2p_tpu_torch.pipeline.fleet_obs import discover_fleet_port, http_status_json
+
     cmd = [sys.executable, "-m", "zkp2p_tpu_torch", "--build-dir", build_dir, "--circuit", "venmo", "--max-header",
            "1024", "--max-body", "6400", "fleet", "--spool", spool, "--workers", str(FLEET_WORKERS), "--batch",
-           str(FLEET_BATCH), "--fleet-dir", state, "--drain-timeout-s", str(FLEET_DRAIN_TIMEOUT_S)]
+           str(FLEET_BATCH), "--fleet-dir", state, "--drain-timeout-s", str(FLEET_DRAIN_TIMEOUT_S),
+           "--fleet-metrics-port", "auto"]
     files = (open(os.path.join(d, "fleet.log"), "w"), open(os.path.join(d, "fleet.out"), "w"))
     proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), stdout=files[1], stderr=files[0],
                             text=True, start_new_session=True)
     fh = dict(dir=d, spool=spool, state=state, proc=proc, files=files, t0=time.time(), ready={}, smi=[],
-              stop=threading.Event())
+              stop=threading.Event(), plane=dict(port=None, polls=0, reasons={}, first_200=None, cycle_ms={},
+                                                 unreachable=0))
 
     def watch():
+        plane = fh["plane"]
         while not fh["stop"].wait(0.5):
             now = time.time()
             for i in range(FLEET_WORKERS):
@@ -4063,6 +4110,21 @@ def fleet_start(build_dir):
                 hb = read_json(os.path.join(state, wid + ".hb"))
                 if wid not in fh["ready"] and hb and hb.get("state") == "up" and hb.get("port"):
                     fh["ready"][wid] = now
+            # the plane's /status: each 503's reason, its first 200, each
+            # cycle's milliseconds
+            plane["port"] = plane["port"] or discover_fleet_port(state)
+            body = http_status_json(f"http://127.0.0.1:{plane['port']}/status", timeout=2) if plane["port"] else None
+            if plane["port"]:
+                plane["polls"] += 1
+            if body is None:
+                plane["unreachable"] += bool(plane["port"])
+            elif not body.get("ok"):
+                reason = body.get("reason", "?")
+                plane["reasons"][reason] = plane["reasons"].get(reason, 0) + 1
+            elif plane["first_200"] is None:
+                plane["first_200"] = now
+            if body and body.get("scrape", {}).get("last_ms") is not None:
+                plane["cycle_ms"][body["scrape"]["cycles"]] = body["scrape"]["last_ms"]
             if not fh["smi"] or now - fh["smi"][-1][0] >= 1.0:
                 with contextlib.suppress(subprocess.SubprocessError, OSError, ValueError, IndexError):
                     fh["smi"].append((now, int(smi("memory.used").split()[0])))
@@ -4116,15 +4178,9 @@ def fleet_phase(torch, fh, vk, proof_launches, beside):
     fleet_drained's checks (`proof_launches`: phase 8's proof under the
     zkey's classes).  Returns (the fleet line, what `beside` returned)."""
     import os
-    import re
-    import signal
-
-    from zkp2p_tpu_torch.formats.proof_json import load, proof_from_json
-    from zkp2p_tpu_torch.snark.groth16 import verify
-    from zkp2p_tpu_torch.utils.metrics import Registry
 
     wids = [f"w{i}" for i in range(FLEET_WORKERS)]
-    proc, spool = fh["proc"], fh["spool"]
+    proc = fh["proc"]
     t0 = time.time()
     while len(fh["ready"]) < FLEET_WORKERS:
         if proc.poll() is not None:
@@ -4139,6 +4195,35 @@ def fleet_phase(torch, fh, vk, proof_launches, beside):
         raise AssertionError(f"status.json before the requests: {status['workers']}")
     fleet_id = status["fleet_id"]
 
+    # `top --once` once the plane answers 200, beside the requests
+    t_top = time.time()
+    while fh["plane"]["first_200"] is None and time.time() - t_top < 30:
+        time.sleep(0.2)
+    t_top = time.time()
+    top = subprocess.Popen([sys.executable, "-m", "zkp2p_tpu_torch", "top", "--fleet-dir", fh["state"], "--once"],
+                           cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True)
+    top_end = []  # its frame is a few hundred bytes: waiting does not block on the pipe
+    threading.Thread(target=lambda: (top.wait(), top_end.append(time.time())), daemon=True).start()
+    try:
+        return fleet_serve(torch, fh, vk, proof_launches, beside, ports, fleet_id, waited_s, top, t_top, top_end)
+    finally:
+        stop([top])
+
+
+def fleet_serve(torch, fh, vk, proof_launches, beside, ports, fleet_id, waited_s, top, t_top, top_end):
+    """fleet_phase once both workers are ready and `top` has started: the
+    requests, the endpoints, the plane, `top`'s frame, the drain."""
+    import os
+    import re
+    import signal
+
+    from zkp2p_tpu_torch.formats.proof_json import load, proof_from_json
+    from zkp2p_tpu_torch.snark.groth16 import verify
+    from zkp2p_tpu_torch.utils.metrics import Registry
+
+    wids = [f"w{i}" for i in range(FLEET_WORKERS)]
+    proc, spool = fh["proc"], fh["spool"]
     idle = {}
     for w in wids:
         snap = json.loads(scrape(ports[w], "/snapshot")[1])
@@ -4167,9 +4252,19 @@ def fleet_phase(torch, fh, vk, proof_launches, beside):
             raise AssertionError(f"the fleet did not end {len(names)} requests in {FLEET_PROVE_S} s")
         time.sleep(0.2)
 
+    # the plane: FLEET_QUIET_CYCLES more scrape cycles once every request
+    # has ended
+    plane = fh["plane"]
+    cycles0, t_quiet = max(plane["cycle_ms"], default=0), time.time()
+    while max(plane["cycle_ms"], default=0) < cycles0 + FLEET_QUIET_CYCLES:
+        if time.time() - t_quiet > 30:
+            raise AssertionError(f"the fleet plane's scrape cycles stopped at {max(plane['cycle_ms'], default=0)}")
+        time.sleep(0.2)
+
     # the four endpoints of each worker, the fleet still running
     with open(os.path.join(fh["dir"], "fleet.out")) as f:
         digests = dict(re.findall(r"\[service (w\d+)\] preflight: backend=cuda execution_digest=(\w+)", f.read()))
+    snaps = {}
     for w in wids:
         code, body = scrape(ports[w], "/healthz")
         if code != 200 or json.loads(body) != {"ok": True}:
@@ -4183,13 +4278,20 @@ def fleet_phase(torch, fh, vk, proof_launches, beside):
                 or st["execution_digest"] != digests.get(w):
             raise AssertionError(f"{w} /status: {code} {body[:300]} (logged digest {digests.get(w)})")
         code, body = scrape(ports[w], "/snapshot")
-        snap = json.loads(body)
+        snap = snaps[w] = json.loads(body)
         if code != 200 or not snap["armed"] or snap.get("worker") != w:
             raise AssertionError(f"{w} /snapshot: {code} {body[:300]}")
         Registry().merge(snap["metrics"])
     status = read_json(os.path.join(fh["state"], "status.json"))
     if any(status["workers"][w]["state"] != "up" or status["workers"][w]["port"] != ports[w] for w in wids):
         raise AssertionError(f"status.json with the fleet running: {status['workers']}")
+    plane_line = plane_checks(fh, snaps, status)
+    out, err = top.communicate(timeout=60)
+    top_s = top_end[0] - t_top if top_end else None
+    up = {w for w in wids if re.search(rf"^{w} +up ", out, re.M)}
+    if top.returncode != 0 or f"fleet {fleet_id}  READY" not in out or up != set(wids):
+        raise AssertionError(f"top --once: exit {top.returncode}, workers up {sorted(up)}:\n{out}\n{err[-2000:]}")
+    plane_line.update(top_s=top_s, top_frame=out.splitlines())
 
     fh["t_term"] = time.time()
     os.kill(proc.pid, signal.SIGTERM)
@@ -4202,9 +4304,93 @@ def fleet_phase(torch, fh, vk, proof_launches, beside):
         "requests": len(names), "names": names, "fleet_id": fleet_id, "t_req": t_req, "all_verify": True,
         "verify_s": verify_s, "waited_for_ready_after_phase_2_s": waited_s,
         "beside": "phase 2's K15/K16 bitwise checks, phase 3",
-        "beside_s": beside_s, "ports": ports, "idle": idle, "digests": digests,
+        "beside_s": beside_s, "ports": ports, "idle": idle, "digests": digests, "plane": plane_line,
     }
     return fleet_drained(fh, line, proof_launches), beside_out
+
+
+def prom_samples(text):
+    """({family: kind}, {(sample name, label string): value}) of
+    Prometheus text."""
+    import re
+
+    kinds, samples = {}, {}
+    for ln in text.splitlines():
+        m = re.match(r"# TYPE (\S+) (\S+)$", ln)
+        if m:
+            kinds[m.group(1)] = m.group(2)
+            continue
+        m = re.match(r"([a-zA-Z_:][\w:]*)(?:\{(.*)\})? (\S+)$", ln)
+        if m:
+            samples[(m.group(1), m.group(2) or "")] = float(m.group(3))
+    return kinds, samples
+
+
+def label_string(labels: dict) -> str:
+    """A label set as the exposition writes it (keys sorted)."""
+    return ",".join('%s="%s"' % (k, str(v).replace("\\", r"\\").replace('"', r"\"").replace("\n", r"\n"))
+                    for k, v in sorted(labels.items()))
+
+
+def plane_checks(fh, snaps, status):
+    """Phase 11's fleet plane, the requests ended and FLEET_QUIET_CYCLES
+    cycles since: its /metrics holds every counter of the workers'
+    /snapshot (`snaps`) summed, label for label (the request counters
+    among them), every histogram's count summed, every gauge labelled by
+    worker, no merge refused; its /status answers 200 with the merged
+    window's n the workers' sum and no alert; status.json names its port.
+    Returns the plane's figures: its /status before the workers were armed
+    (503s and their reasons), the seconds from the second worker ready to
+    its first 200, its scrape cycles (ok, and the workers' scrapes that
+    failed) and a cycle's median and maximum ms."""
+    from zkp2p_tpu_torch.pipeline.fleet_obs import http_status_json
+
+    plane = fh["plane"]
+    port = plane["port"]
+    code, text = scrape(port, "/metrics")
+    body = http_status_json(f"http://127.0.0.1:{port}/status")
+    if code != 200 or not body or not body.get("ok"):
+        raise AssertionError(f"the fleet plane: /metrics {code}, /status {body}")
+    kinds, samples = prom_samples(text)
+    want_counters, want_counts = {}, {}
+    for snap in snaps.values():
+        for m in snap["metrics"]:
+            key = (m["name"], label_string(m["labels"]))
+            if m["kind"] == "counter":
+                want_counters[key] = want_counters.get(key, 0.0) + m["value"]
+            elif m["kind"] == "histogram":
+                key = (m["name"] + "_count", key[1])
+                want_counts[key] = want_counts.get(key, 0) + m["count"]
+    fleet_fam = [f for f in kinds if f.startswith("zkp2p_fleet_")]
+    counters = {k: v for k, v in samples.items() if kinds.get(k[0]) == "counter" and k[0] not in fleet_fam}
+    counts = {k: v for k, v in samples.items() if k[0].endswith("_count") and kinds.get(k[0][:-6]) == "histogram"
+              and k[0][:-6] not in fleet_fam}
+    requests = {k[1]: v for k, v in counters.items() if k[0] == "zkp2p_service_requests_total"}
+    if counters != want_counters or counts != want_counts or not requests:
+        raise AssertionError(f"the plane's counters {counters} / histogram counts {counts} against the workers' sums "
+                             f"{want_counters} / {want_counts}")
+    gauges = [k for k in samples if kinds.get(k[0]) == "gauge" and k[0] not in fleet_fam]
+    labelled = {w for w in snaps if any(f'worker="{w}"' in k[1] for k in gauges)}
+    if labelled != set(snaps) or any("worker=" not in k[1] for k in gauges):
+        raise AssertionError(f"the plane's gauges: {gauges}")
+    refusals = sum(v for k, v in samples.items() if k[0] == "zkp2p_fleet_merge_refusals_total")
+    slo_n = sum(snap["slo_window"]["n"] for snap in snaps.values())
+    if refusals or body["slo"]["n"] != slo_n or body["alerts"] or status.get("metrics_port") != port:
+        raise AssertionError(f"the plane: {refusals} refusals, merged n {body['slo']['n']} against {slo_n}, alerts "
+                             f"{body['alerts']}, status.json port {status.get('metrics_port')} against {port}")
+    second_ready = max(fh["ready"].values())
+    if not plane["reasons"] or plane["first_200"] is None or plane["first_200"] < second_ready - 1.0:
+        raise AssertionError(f"the plane's /status: 503 reasons {plane['reasons']}, first 200 at "
+                             f"{plane['first_200']}, the second worker ready at {second_ready}")
+    ms = list(plane["cycle_ms"].values())
+    return {"port": port, "scrape_s": body["scrape"]["interval_s"], "cycles": body["scrape"]["cycles"],
+            "worker_scrape_failures": sum(v for k, v in samples.items()
+                                          if k[0] == "zkp2p_fleet_scrape_failures_total"),
+            "cycle_ms_median": statistics.median(ms), "cycle_ms_max": max(ms), "cycles_timed": len(ms),
+            "status_503_reasons": plane["reasons"], "status_unreachable_polls": plane["unreachable"],
+            "first_200_after_second_ready_s": plane["first_200"] - second_ready,
+            "counters_match": True, "requests_total": requests, "merged_slo_n": slo_n, "merge_refusals": 0,
+            "alerts": body["alerts"], "histograms": len(counts), "counters": len(counters)}
 
 
 def domain_table_launches(log_m: int) -> int:
@@ -4250,6 +4436,12 @@ def fleet_drained(fh, line, proof_launches):
     if rc != 0 or status["escalations"] or left or any(status["workers"][w]["state"] != "done" for w in wids):
         raise AssertionError(f"the fleet's drain: exit {rc}, escalations {status['escalations']}, claims left {left}, "
                              f"workers {status['workers']}")
+    # the plane's last view in status.json: its port, no alert ever fired
+    fired = {k: v["fired_count"] for k, v in status.get("alerts_state", {}).items() if v["fired_count"]}
+    if status.get("metrics_port") != line["plane"]["port"] or "alerts_state" not in status or fired:
+        raise AssertionError(f"the plane's last status.json: port {status.get('metrics_port')}, alerts fired {fired}")
+    line["plane"].update(cycles_final=status["scrape"]["cycles"],
+                         cycles_failed=stderr.count("fleet scrape cycle failed"))
 
     recs = sink_records(spool, "request")
     done = sorted(r["request_id"] for r in recs if r["state"] == "done")
@@ -4262,7 +4454,7 @@ def fleet_drained(fh, line, proof_launches):
     if {r.get("worker") for r in ts} != set(wids) or any(r.get("fleet") != fleet_id for r in ts):
         raise AssertionError(f"time-series lines of {sorted({str(r.get('worker')) for r in ts})}")
     logged = {w: (why, json.loads(launches)) for w, why, launches in
-              re.findall(r"service (w\d+) exiting \((\w+)\): launches (\{.*\})", stderr)}
+              re.findall(r"service (w\d+) exiting \((\w+)\): launches (\{[^{}]*\})", stderr)}
     chunks = {w: sum(r.get("batch_index") == 0 for r in by[w]) for w in wids}
     for w in wids:
         want = {k[3:]: v * chunks[w] for k, v in proof_launches.items() if v}
@@ -4301,6 +4493,122 @@ def fleet_drained(fh, line, proof_launches):
                     for w, v in workers.items())
         + f"; card memory.used peak {line['card_memory_used_mib_peak']} MiB; drained {drain_s:.2f} s after SIGTERM, "
         f"exit 0, no escalation; endpoints answered; every proof verifies ({line['verify_s']:.2f} s)")
+    pl = line["plane"]
+    log(f"fleet plane on :{pl['port']}: 503 {sum(pl['status_503_reasons'].values())} polls "
+        f"({', '.join(pl['status_503_reasons'])}), 200 {pl['first_200_after_second_ready_s']:.2f} s after the second "
+        f"worker was ready; {pl['cycles_final']} cycles, {pl['cycles_failed']} failed, "
+        f"{pl['worker_scrape_failures']:g} worker scrapes failed; a cycle {pl['cycle_ms_median']:.2f} ms median, "
+        f"{pl['cycle_ms_max']:.2f} max; {pl['counters']} counters and {pl['histograms']} histogram counts equal to "
+        f"the workers' sums, requests {pl['requests_total']}; merged SLO n {pl['merged_slo_n']}; no alert; "
+        f"top --once {pl['top_s']:.2f} s")
+    return line
+
+
+# -------------------------------------------------------------- phase 12
+
+
+def chaos_start():
+    """Phase 12's start: `python -m zkp2p_tpu_torch.tools.chaos` with
+    CHAOS_ARGS (the toy world on the card, the reference's default fault
+    plan, two fleet workers) in a session of its own, its output in
+    CHAOS_DIR/chaos.log and its report in CHAOS_DIR/report.json; a thread
+    samples the card's memory.used every second."""
+    import os
+    import shutil
+
+    d = os.path.abspath(CHAOS_DIR)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    cmd = [sys.executable, "-m", "zkp2p_tpu_torch.tools.chaos", *CHAOS_ARGS, "--spool", os.path.join(d, "spool"),
+           "--report", os.path.join(d, "report.json")]
+    out = open(os.path.join(d, "chaos.log"), "w")
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), stdout=out,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    ch = dict(dir=d, proc=proc, out=out, t0=time.time(), smi=[], stop=threading.Event())
+
+    def sample():
+        while not ch["stop"].wait(1.0):
+            with contextlib.suppress(subprocess.SubprocessError, OSError, ValueError, IndexError):
+                ch["smi"].append(int(smi("memory.used").split()[0]))
+
+    ch["sampler"] = threading.Thread(target=sample, daemon=True)
+    ch["sampler"].start()
+    log(f"phase 12: chaos started ({' '.join(cmd[3:])})")
+    return ch
+
+
+def chaos_stop(ch):
+    """Kill what is left of the chaos run (its whole session) and end the
+    sampler; idempotent."""
+    import os
+    import signal
+
+    if ch["proc"].poll() is None:
+        with contextlib.suppress(OSError):
+            os.killpg(ch["proc"].pid, signal.SIGKILL)
+        ch["proc"].wait()
+    ch["stop"].set()
+    ch["sampler"].join()
+    ch["out"].close()
+
+
+def chaos_finish(ch, beside):
+    """Phase 12 (the chaos line), once the harness has exited (within
+    CHAOS_TIMEOUT_S of its start): exit 0 and no violation; every request
+    terminal, each proof verified; a SIGKILL landed on a worker holding a
+    claim, a claim holder drained with its claims done, the supervisor
+    SIGKILLed (rc -9) and its replacement clean (rc 0); the plane's request
+    counters equal to the live workers' sum under the faults, and the
+    restart storm parked its worker (rc 4) and fired.  Recorded: requests,
+    states, the restarts of both supervisors' workers, the plane's parity,
+    seconds, the card's peak memory.used, each worker's logged launches."""
+    import os
+    import re
+
+    try:
+        ch["proc"].wait(timeout=max(1.0, CHAOS_TIMEOUT_S - (time.time() - ch["t0"])))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"the chaos run did not end within {CHAOS_TIMEOUT_S} s") from None
+    seconds = time.time() - ch["t0"]
+    rc = ch["proc"].returncode
+    chaos_stop(ch)
+    with open(os.path.join(ch["dir"], "chaos.log")) as f:
+        text = f.read()
+    for ln in text.splitlines():
+        if ln.startswith("[chaos]") or "exiting" in ln or "ALERT" in ln or "PARKED" in ln:
+            log(f"  | {ln}")
+    report = read_json(os.path.join(ch["dir"], "report.json"))
+    if rc != 0 or not report or report["violations"]:
+        raise AssertionError(f"chaos: exit {rc}, violations {report and report['violations']}:\n{text[-4000:]}")
+    plane, storm = report["plane"], report["plane"]["restart_storm"]
+    fired = storm["alerts_state"]["restart_storm"]["fired_count"]
+    if not report["killed_worker"] or not report["drained_worker"] or report["supervisor_rcs"][0] != -9 \
+            or report["supervisor_rcs"][-1] != 0 or plane["parity"]["fleet"] != plane["parity"]["worker_sum"] \
+            or plane["parity"]["workers_scraped"] != 2 or storm["supervisor_rc"] != 4 or not fired \
+            or report["states"].get("open", 0) or report["proofs_verified"] != report["states"].get("done"):
+        raise AssertionError(f"chaos report: {json.dumps(report)[:3000]}")
+    restarts = {}
+    for sub in (".fleet1", ".fleet2"):
+        st = read_json(os.path.join(ch["dir"], "spool", sub, "status.json")) or {}
+        restarts[sub[1:]] = sum(w.get("restarts", 0) for w in st.get("workers", {}).values())
+    launches = [{"worker": wid, "why": why, "launches": json.loads(js)} for wid, why, js in
+                re.findall(r"\[chaos-worker \d+\] (\S+) exiting \((\w+)\): launches (\{[^{}]*\})", text)]
+    if not launches or not all(v["launches"] for v in launches):
+        raise AssertionError(f"chaos workers' launches: {launches}")
+    line = {"shape": "the toy circuit out = (x*y)^2 set up on the card, seed 'chaos'", "command": " ".join(
+                ch["proc"].args[3:]), "requests": report["requests"], "states": report["states"],
+            "proofs_verified": report["proofs_verified"], "killed_worker_held_claim": report["killed_worker"],
+            "drained_claims": report["drained_claims"], "restarts": restarts,
+            "supervisor_rcs": report["supervisor_rcs"], "faults": report["faults"],
+            "plane_parity": plane["parity"], "restart_storm": {"rc": storm["supervisor_rc"], "fired": fired},
+            "violations": report["violations"], "seconds": seconds, "beside": beside,
+            "card_memory_used_mib_peak": max(ch["smi"], default=None), "worker_launches": launches}
+    log(f"chaos: {report['requests']} requests {report['states']}, {report['proofs_verified']} verified; SIGKILL "
+        f"{report['killed_worker']} (held a claim), drained {report['drained_worker']} "
+        f"({len(report['drained_claims'])} claims done), supervisor {report['supervisor_rcs']}, restarts {restarts}; "
+        f"plane parity {plane['parity']['fleet']}; restart_storm fired {fired} (rc {storm['supervisor_rc']}); "
+        f"{seconds:.1f} s beside {beside}; memory.used peak {line['card_memory_used_mib_peak']} MiB; "
+        f"{len(launches)} workers logged launches")
     return line
 
 
@@ -4882,7 +5190,8 @@ def vector_phase(torch, device):
 
 
 def run(torch, device, peak_muls, sm_clock_hz):
-    """Phases 1-11 on `device`, in the order 1, 8 (its subprocesses beside
+    """Phases 1-12 on `device`, in the order 1 (12 from the end of its
+    kernel build, beside the rest of 1 and 8), 8 (its subprocesses beside
     it and 9), 9, 2 (phase 11's workers building their circuits and
     importing their keys beside it), 11 (2's K15/K16 bitwise checks and 3
     beside its proofs), 6, 7
@@ -4896,13 +5205,22 @@ def run(torch, device, peak_muls, sm_clock_hz):
     from zkp2p_tpu_torch.ops.ntt import pass_plan
     from zkp2p_tpu_torch.prover.groth16_gpu import prove_gpu
 
-    # phase 1, and phase 8's circuit built beside it
+    # phase 1, and phase 8's circuit built beside it; phase 12 (chaos)
+    # starts once the kernels are built, beside the rest of the circuit's
+    # build and phase 8
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
-        flagship_build = pool.submit(build_flagship)
-        libs = cuda_build.build_all()
-        build_s = time.perf_counter() - t0
-        built = flagship_build.result()
+    chaos = None
+    try:
+        with ThreadPoolExecutor(1) as pool:
+            flagship_build = pool.submit(build_flagship)
+            libs = cuda_build.build_all()
+            build_s = time.perf_counter() - t0
+            chaos = chaos_start()
+            built = flagship_build.result()
+    except BaseException:
+        if chaos is not None:
+            chaos_stop(chaos)
+        raise
     # its tens of millions of objects live to the end: no collection scans them
     gc.freeze()
     log(f"flagship: VenmoParams() built by the port in {built['build_s']:.1f} s beside the kernel build: "
@@ -4919,7 +5237,11 @@ def run(torch, device, peak_muls, sm_clock_hz):
     # phase 8 in this process and phase 9 (phase 2's kernel times run with
     # no other process's kernels on the card)
     t0 = time.perf_counter()
-    fl_start = flagship_start(torch, built, device)
+    try:
+        fl_start = flagship_start(torch, built, device)
+    except BaseException:
+        chaos_stop(chaos)
+        raise
     fleet = None
     log(f"phase 8's start (setup_device, the zkey's data; its files, subprocesses and inference follow in a "
         f"thread): {time.perf_counter() - t0:.1f} s")
@@ -4928,6 +5250,10 @@ def run(torch, device, peak_muls, sm_clock_hz):
         flagship, fl_setup, fl_prove, fl_batch, fl = flagship_phase(torch, built, fl_start, device)
         log(f"phase 8 (the flagship circuit) in this process: {time.perf_counter() - t0:.1f} s")
         del built
+        # phase 12 ends before phase 9
+        t0 = time.perf_counter()
+        chaos_line = chaos_finish(chaos, "phase 1's circuit build, phase 8")
+        log(f"phase 12 (chaos): waited {time.perf_counter() - t0:.1f} s for it after phase 8")
         # phase 9, on phase 8's key
         t0 = time.perf_counter()
         service, service_launches = service_phase(torch, fl, device)
@@ -4957,6 +5283,8 @@ def run(torch, device, peak_muls, sm_clock_hz):
         log(f"phase 11 (the fleet) after phase 2, K15/K16's bitwise checks and phase 3 beside it: "
             f"{time.perf_counter() - t0:.1f} s")
     finally:
+        chaos_stop(chaos)
+        shutil.rmtree(chaos["dir"], ignore_errors=True)
         if fleet is not None:
             fleet_stop(fleet)
             shutil.rmtree(fleet["dir"], ignore_errors=True)
@@ -5113,7 +5441,7 @@ def run(torch, device, peak_muls, sm_clock_hz):
              "affine_msm_same_run": affine_msm_same_run, "affine_same_run": affine_same_run,
              "real_size_batch": real_batch, "batch_same_run": batch_same_run, "setup_vector": setup_vector,
              "real_size_setup": real_setup, "cli_real_size": cli_line, "flagship": flagship, "service": service,
-             "fleet": fleet_line,
+             "fleet": fleet_line, "chaos": chaos_line,
              "ceremony": {"shape": f"phase 6's key (venmo 1024/6400 counts): c {V['n_wires'] - V['n_public'] - 1} + "
                                    f"h {1 << V['log_m']} points, zkey {cer_cli['zkey_bytes']} bytes",
                           "in_process": cer_line, "cli": cer_cli,

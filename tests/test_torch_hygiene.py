@@ -9,6 +9,8 @@ import json
 import os
 import subprocess
 import sys
+import threading
+import time
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -560,3 +562,77 @@ def test_the_supervisor_never_initialises_cuda(monkeypatch, tmp_path):
         cli.main(["fleet", "--spool", str(tmp_path / "spool"), "--workers", "2", "--worker-cmd",
                   json.dumps([sys.executable, "-c", "pass"])])
     assert rc.value.code == 0 and not torch.cuda.is_initialized()
+
+
+def test_plane_alerts_top_and_chaos_load_no_jax():
+    """The fleet plane, the alert engine, the SLO merge and the chaos
+    harness import neither JAX nor the reference package."""
+    mods = ["zkp2p_tpu_torch.pipeline.fleet_obs", "zkp2p_tpu_torch.utils.alerts", "zkp2p_tpu_torch.utils.slo",
+            "zkp2p_tpu_torch.tools.chaos", "zkp2p_tpu_torch.pipeline.cli"]
+    code = ("import sys, importlib\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "print([m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'zkp2p_tpu')])\n")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHONPATH")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "[]", out.stderr
+
+
+def test_the_plane_and_top_never_initialise_cuda(monkeypatch, tmp_path, capsys):
+    """The fleet command with its plane on, and `top` against a plane,
+    run without a call that would initialise CUDA in this process."""
+    from zkp2p_tpu_torch.pipeline import cli
+    from zkp2p_tpu_torch.pipeline.fleet import FleetSupervisor
+
+    def no_init(*a, **k):
+        raise AssertionError("initialised CUDA")
+
+    monkeypatch.setattr(torch.cuda, "_lazy_init", no_init)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    fleet_dir = tmp_path / "state"
+    with pytest.raises(SystemExit) as rc:
+        cli.main(["fleet", "--spool", str(tmp_path / "spool"), "--workers", "1", "--fleet-dir", str(fleet_dir),
+                  "--fleet-metrics-port", "auto", "--fleet-scrape-s", "0.1",
+                  "--worker-cmd", json.dumps([sys.executable, "-c", "import time; time.sleep(1)"])])
+    status = json.loads((fleet_dir / "status.json").read_text())
+    assert rc.value.code == 0 and status["metrics_port"] and status["scrape"]["cycles"] >= 1
+
+    sup = FleetSupervisor(str(tmp_path / "spool2"), lambda wid: [sys.executable, "-c", "import time; time.sleep(30)"],
+                          workers=1, fleet_metrics_port=0, scrape_s=0.1, log=lambda m: None)
+    t = threading.Thread(target=lambda: sup.run(poll_s=0.05, max_seconds=60, install_signals=False))
+    t.start()
+    try:
+        deadline = time.time() + 30
+        while time.time() < deadline and (sup.plane is None or sup.plane.bound_port is None):
+            time.sleep(0.02)
+        capsys.readouterr()
+        cli.main(["top", "--port", str(sup.plane.bound_port), "--once"])
+        frame = capsys.readouterr().out
+    finally:
+        sup.stop()
+        t.join(timeout=60)
+    assert f"fleet {sup.fleet_id}  NOT READY" in frame and "w0" in frame
+    assert not torch.cuda.is_initialized()
+
+
+def test_chaos_without_cuda_raises_before_spawning(monkeypatch, tmp_path):
+    """The chaos harness proves on CUDA unless --device cpu: without CUDA
+    its parent raises before it writes a request or spawns a process, and
+    a worker raises before it builds anything."""
+    from zkp2p_tpu_torch.tools import chaos
+
+    def no_spawn(*a, **k):
+        raise AssertionError("spawned a process")
+
+    spool = tmp_path / "spool"
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        m.setattr(subprocess, "Popen", no_spawn)
+        m.setattr(chaos, "_build_world", no_spawn)
+        for argv in (["--spool", str(spool)], ["--spool", str(spool), "--fleet", "2"],
+                     ["--worker", "--spool", str(spool)]):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                chaos.main(argv)
+    assert not spool.exists()
+    out = subprocess.run([sys.executable, "-m", "zkp2p_tpu_torch.tools.chaos", "--spool", str(spool)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0 and "no CUDA device" in out.stderr and not spool.exists()

@@ -6,7 +6,10 @@ horner_fold_planes over G1J / G2J, against the step loop it replaces
 with 3 planes over 6 lanes, with the special lanes: an init at infinity
 and one not, plane partials at infinity, a partial equal to 2^w * acc (the
 add's doubling branch) and one equal to -2^w * acc (infinity); window 16
-with 16 planes at batch (), as the bucket MSM folds.  The G2 cases of the
+with 16 planes at batch (), as the bucket MSM folds; window 4 with 5
+planes over 4 lanes, the init and the first 2 planes at infinity in every
+lane (as a witness's small scalars leave the top planes), which the plain
+fold skips.  The G2 cases of the
 reference comparison are slow (XLA compiles the Fq2 graphs for about 30 s
 on the CPU); the host comparison is their tier-1 twin."""
 
@@ -37,7 +40,7 @@ CURVES = {
                           plain=cuda_msm_fold.g2_horner_fold_plain),
 }
 # (lanes, planes, window); lanes None is the batch ()
-SHAPES = {"w4": (6, 3, 4), "w16": (None, 16, 16)}
+SHAPES = {"w4": (6, 3, 4), "w16": (None, 16, 16), "lead": (4, 5, 4)}
 
 
 def _jacobian(cv, pts):
@@ -61,6 +64,10 @@ def _case(curve, shape, seed):
         halves[2][4] = None  # lane 4: plane 1 at infinity
         for p in range(n_planes):
             halves[1 + p][5] = None  # lane 5: every plane at infinity
+    elif shape == "lead":
+        for row in halves[:3]:  # the init and planes 0 and 1 at infinity in every lane
+            row[:] = [None] * n
+        halves[4][1] = None
     else:
         halves[2][0] = None  # plane 1 at infinity
     jac = [_jacobian(cv, row) for row in halves]
@@ -101,6 +108,8 @@ def test_fold_matches_fold_steps_and_host(curve, shape):
     assert _equal(got, cv.fold(init, planes, window))
     assert _equal(got, msm._fold_steps(cv.C, init, planes, window))
     assert cv.to_host(got) == _horner_host(cv, init_h, planes_h, window)
+    if shape == "lead":
+        assert cuda_msm_fold._leading_idle_planes(curve == "g2", init, planes) == 2
     if shape == "w4":
         # lane 2 took the add's doubling branch to 2^(w+1) * init; lane 3
         # reached infinity at plane 0 and then added planes 1 and 2

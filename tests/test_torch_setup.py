@@ -18,6 +18,11 @@ the reference, on the CPU, bit for bit.
   drift: setup_from_rows on its rows gives the vector's key, and the
   port's verify accepts the vector's proof under the VK.
 
+The tests that take the native library as their oracle get it from the
+`native` fixture of test_torch_native_guard.py, which loads it again in a
+process whose first load failed while another test worker was building
+it.
+
 Write the setup vector anew with
 `python tests/test_torch_setup.py --write-vector`."""
 
@@ -39,6 +44,7 @@ from zkp2p_tpu.snark.groth16 import qap_rows as ref_qap_rows
 from zkp2p_tpu.snark.groth16 import setup as ref_setup
 from zkp2p_tpu.snark.r1cs import LC, ConstraintSystem
 
+from test_torch_native_guard import native  # noqa: F401  (the fixture: the native library, loaded)
 from test_torch_vector import build_vector_circuit
 from zkp2p_tpu_torch.curve import host
 from zkp2p_tpu_torch.field.tfield import FQ, FQ2, int_to_limbs
@@ -135,7 +141,7 @@ def special_scalars():
 
 
 @pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
-def test_fixed_base_plain_matches_native(g2):
+def test_fixed_base_plain_matches_native(g2, native):
     scalars = special_scalars() + ([] if g2 else [random.Random(3).randrange(R) for _ in range(48)])
     base = host.G2_GENERATOR if g2 else host.G1_GENERATOR
     table = fixed_base_table(g2, base, "cpu")
@@ -195,7 +201,7 @@ def demo_setup():
     return cs, setup_device(cs, device="cpu")
 
 
-def test_setup_device_demo_matches_reference(demo_setup):
+def test_setup_device_demo_matches_reference(demo_setup, native):
     cs, (key, vk) = demo_setup
     rkey, rvk = ref_setup_device(cs)
     assert_key_equal(key, rkey)
@@ -288,7 +294,7 @@ def rebuild_setup_vector():
     return c_rows, ref_widths_array(cs), "port-vector", vk, pub
 
 
-def test_committed_setup_vector_matches_its_circuit():
+def test_committed_setup_vector_matches_its_circuit(native):
     c_rows, widths, seed, vk, pub = rebuild_setup_vector()
     sv = load_setup_vector(SETUP_VECTOR_PATH)
     for got, want in zip(sv["c"], c_rows):

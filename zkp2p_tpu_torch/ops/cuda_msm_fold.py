@@ -36,9 +36,23 @@ from .cuda_msm_window import Coords, _device_of, _elem, _limbs
 # ---------------------------------------------------------- plain versions
 
 
+def _leading_idle_planes(g2: bool, acc: Coords, planes: Coords) -> int:
+    """How many leading planes leave `acc` as it is: planes at infinity in
+    every lane (Z all zero: the complete add returns acc for them), while
+    acc is at infinity in every lane and a doubling returns it bit for bit.
+    A witness's small scalars leave most planes so."""
+    n = 0
+    while n < planes[2].shape[0] and not bool(planes[2][n].any()):
+        n += 1
+    if n and (bool(acc[2].any()) or not all(torch.equal(d, a) for d, a in
+                                            zip(point_op_plain("double", g2, *acc), acc))):
+        return 0
+    return n
+
+
 def _fold_plain(g2: bool, init: Coords, planes: Coords, window: int) -> Coords:
     acc = tuple(init)
-    for p in range(planes[0].shape[0]):
+    for p in range(_leading_idle_planes(g2, acc, planes), planes[0].shape[0]):
         for _ in range(window):
             acc = point_op_plain("double", g2, *acc)
         acc = point_op_plain("add", g2, *acc, *(c[p] for c in planes))

@@ -47,7 +47,15 @@ rapidsnark drop-in prover.
            <fleet-dir>/status.json with each worker's state and metrics
            port.  Exit 0 clean, 3 a drain escalated, 4 every worker
            parked.  --worker-cmd JSON replaces the worker's argv ({wid}
-           and {spool} substituted).
+           and {spool} substituted).  --fleet-metrics-port N (or auto)
+           turns on the fleet plane (``pipeline.fleet_obs``): every
+           --fleet-scrape-s (2.0) it scrapes each worker's /snapshot and
+           serves the merged /metrics, /status (503 until every live
+           worker has armed its gates; the merged SLO, the alerts) and
+           /healthz; status.json then carries its body and its port.
+  top      the fleet plane's /status as a terminal view (--url, --port,
+           or --fleet-dir DIR reading DIR/status.json's metrics_port;
+           --interval 2, --once for one frame); an HTTP client, no card
   ceremony the phase-2 MPC over zkeys: contribute ZKEY_IN ZKEY_OUT
            [--entropy] [--name], beacon ZKEY_IN ZKEY_OUT --beacon-hash HEX
            [--iter-exp 10], verify ZKEY_INITIAL ZKEY_FINAL (prints the
@@ -64,7 +72,9 @@ rapidsnark drop-in prover.
     python -m zkp2p_tpu_torch verify
     python -m zkp2p_tpu_torch batch --indir inputs/ --outdir proofs/
     python -m zkp2p_tpu_torch --circuit venmo --max-header 1024 --max-body 6400 service --spool spool/
-    python -m zkp2p_tpu_torch --circuit venmo --max-header 1024 --max-body 6400 fleet --spool spool/ --batch 2
+    python -m zkp2p_tpu_torch --circuit venmo --max-header 1024 --max-body 6400 fleet --spool spool/ --batch 2 \
+        --fleet-metrics-port auto
+    python -m zkp2p_tpu_torch top --fleet-dir spool/.fleet
     python -m zkp2p_tpu_torch ceremony contribute build/circuit_0.zkey build/circuit_1.zkey --entropy "..."
     python -m zkp2p_tpu_torch doctor --json
 
@@ -469,10 +479,45 @@ def cmd_fleet(args):
                           drain_timeout_s=args.drain_timeout_s, breaker_k=args.breaker_k,
                           breaker_window_s=args.breaker_window_s, restart_backoff_s=args.restart_backoff_s,
                           rss_soft_mb=args.rss_soft_mb, rss_hard_mb=args.rss_hard_mb, liveness_s=args.liveness_s,
+                          fleet_metrics_port=args.fleet_metrics_port, scrape_s=args.fleet_scrape_s,
                           log=lambda m: _log(f"fleet: {m}"))
     _log(f"fleet {sup.fleet_id}: {sup.n} worker(s) on {args.spool} (fleet dir {sup.fleet_dir}, drain timeout "
          f"{sup.drain_timeout_s:g}s)")
     sys.exit(sup.run(max_seconds=args.max_seconds))
+
+
+def cmd_top(args):
+    """The fleet plane's /status as a terminal frame, every --interval
+    seconds (or once).  The endpoint is --url, --port on 127.0.0.1, or the
+    port in --fleet-dir's status.json."""
+    from .fleet_obs import discover_fleet_port, http_status_json, render_top
+
+    if args.url:
+        url = args.url.rstrip("/") + ("" if args.url.rstrip("/").endswith("/status") else "/status")
+    else:
+        port = args.port
+        if port is None and args.fleet_dir:
+            port = discover_fleet_port(args.fleet_dir)
+            if port is None:
+                raise SystemExit(f"{args.fleet_dir}/status.json has no metrics_port: is the fleet running with "
+                                 "--fleet-metrics-port?")
+        if port is None:
+            raise SystemExit("top needs --url, --port or --fleet-dir")
+        url = f"http://127.0.0.1:{port}/status"
+    try:
+        while True:
+            # a 503 body renders (its reason is the point); no answer
+            # renders as unreachable
+            body = http_status_json(url, timeout=5) or {"ok": False, "reason": f"unreachable: {url}"}
+            frame = render_top(body)
+            if args.once:
+                print(frame)
+                return
+            sys.stdout.write("\x1b[2J\x1b[H" + frame + "\n")
+            sys.stdout.flush()
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        print()  # the last frame stays on the screen
 
 
 def _metrics_port(v: str) -> int:
@@ -683,8 +728,21 @@ def main(argv=None):
     s.add_argument("--worker-cmd", default=None,
                    help="each worker's argv as a JSON list ('{wid}' and '{spool}' substituted; the identity "
                         "flags appended); default: this CLI's service")
+    s.add_argument("--fleet-metrics-port", type=_metrics_port, default=None,
+                   help="serve the fleet plane's merged /metrics, /status and /healthz on this port ('auto' or 0: "
+                        "one the OS chooses, in status.json; default: off)")
+    s.add_argument("--fleet-scrape-s", type=float, default=2.0,
+                   help="the fleet plane's interval between scrapes of the workers' /snapshot")
     device_arg(s)
     s.set_defaults(fn=cmd_fleet)
+
+    s = sub.add_parser("top", help="the fleet plane's /status as a live terminal view")
+    s.add_argument("--url", help="the fleet's status URL (before --port and --fleet-dir)")
+    s.add_argument("--port", type=int, default=None, help="the fleet plane's port on 127.0.0.1")
+    s.add_argument("--fleet-dir", help="read the port from <fleet-dir>/status.json")
+    s.add_argument("--interval", type=float, default=2.0, help="seconds between frames")
+    s.add_argument("--once", action="store_true", help="print one frame and exit")
+    s.set_defaults(fn=cmd_top)
 
     s = sub.add_parser("ceremony", help="phase-2 zkey MPC: contribute / beacon / verify")
     s.add_argument("op", choices=["contribute", "beacon", "verify"])

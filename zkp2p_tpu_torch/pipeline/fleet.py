@@ -22,7 +22,10 @@ Files in `fleet_dir` (default <spool>/.fleet/), replaced atomically:
                slo_window}
   <wid>.ctl    supervisor -> worker: {"degrade": 1} asks for the soft
                degrade at the worker's next sweep
-  status.json  the supervisor's state, rewritten each tick
+  status.json  the supervisor's state, rewritten each tick; with the
+               fleet plane on (``fleet_metrics_port``), the plane's /status
+               body: the merged SLO, the alerts, the scrape's health and
+               the plane's bound port (`metrics_port`)
 
 The supervisor holds no request state: killing it loses nothing (the
 claims arbitrate), and a new one spawns fresh workers on the same spool.
@@ -40,9 +43,9 @@ Where the port differs from the reference:
     has no fixed-base precomputed tables to drop.
   - The policy is keyword arguments whose defaults are the reference's
     configuration defaults (2 workers, drain 30 s, RSS budgets off,
-    breaker 5 in 60 s, backoff 0.5 s, liveness 60 s).  The fleet plane
-    and autoscaling are not ported yet; their reference defaults (no
-    plane, no autoscaling) are the static fleet below.
+    breaker 5 in 60 s, backoff 0.5 s, liveness 60 s, no fleet plane, a
+    plane's scrape every 2 s).  Only autoscaling is not ported yet; its
+    reference default (off) is the static fleet below.
   - The supervisor only spawns processes: it never touches CUDA.
 """
 
@@ -281,6 +284,8 @@ class FleetSupervisor:
         rss_soft_mb: int = 0,
         rss_hard_mb: int = 0,
         liveness_s: float = 60.0,
+        fleet_metrics_port: Optional[int] = None,
+        scrape_s: float = 2.0,
         log: Callable[[str], None] = lambda m: print(f"[fleet] {m}", flush=True),
     ):
         from ..utils.audit import record_arm
@@ -297,6 +302,11 @@ class FleetSupervisor:
         self.rss_soft_mb = rss_soft_mb
         self.rss_hard_mb = rss_hard_mb
         self.liveness_s = liveness_s
+        # the fleet plane (pipeline.fleet_obs): scrape, merge, alert and
+        # serve on this port (0: one the OS chooses); None: off
+        self.fleet_metrics_port = fleet_metrics_port
+        self.scrape_s = scrape_s
+        self.plane = None
         self.log = log
         self.slots: Dict[str, WorkerSlot] = {f"w{i}": WorkerSlot(wid=f"w{i}") for i in range(self.n)}
         self.escalations = 0
@@ -329,6 +339,12 @@ class FleetSupervisor:
         self.log(f"{slot.wid}: up (pid {slot.proc.pid})")
 
     def start(self) -> None:
+        if self.fleet_metrics_port is not None and self.plane is None:
+            from .fleet_obs import FleetPlane
+
+            self.plane = FleetPlane(self, port=self.fleet_metrics_port, scrape_s=self.scrape_s,
+                                    breaker_window_s=self.breaker_window_s, log=self.log)
+            self.plane.start()
         for slot in self.slots.values():
             self._spawn(slot)
 
@@ -495,7 +511,7 @@ class FleetSupervisor:
             "pid": os.getpid(),
             "spool": self.spool,
             "workers": workers,
-            # the reference's block; autoscaling is not ported (off)
+            # the reference's block; only autoscaling is not ported (off)
             "sched": {"autoscale": False},
             "drain_timeout_s": self.drain_timeout_s,
             "escalations": self.escalations,
@@ -504,7 +520,14 @@ class FleetSupervisor:
         }
 
     def _write_status(self) -> None:
-        _atomic_write_json(os.path.join(self.fleet_dir, "status.json"), self.status())
+        # with the plane on, status.json is what its /status serves
+        status = None
+        if self.plane is not None:
+            try:
+                status = self.plane.status_payload()
+            except Exception:  # noqa: BLE001 — status.json always lands
+                status = None
+        _atomic_write_json(os.path.join(self.fleet_dir, "status.json"), status or self.status())
 
     # ------------------------------------------------------------ drain
 
@@ -578,6 +601,16 @@ class FleetSupervisor:
             self._stop.wait(poll_s)
         clean = self.drain()
         self.tick()
+        if self.plane is not None:
+            # a last view into status.json (an alert that fired mid-run
+            # stays on record), then the scrape thread stops and the port
+            # is released
+            try:
+                self.plane.scrape_once()
+            except Exception:  # noqa: BLE001
+                pass
+            self._write_status()
+            self.plane.stop()
         parked = sum(1 for s in self.slots.values() if s.state == "parked")
         if parked:
             self.log(f"{parked} worker(s) parked by the circuit breaker")

@@ -11,7 +11,9 @@ reference's C++ prover; the port has no such prover and leaves it out.
 Instruments are plain attribute updates under the interpreter lock; the
 registry's lock is taken only to get or create one.  Snapshots of two
 registries merge (counters add, gauges keep the max, histograms of the
-same buckets add), so that a supervisor can sum its workers'.
+same buckets add); the fleet plane (``pipeline.fleet_obs``) builds its
+view this way, a fresh registry each scrape, with each worker's gauges
+labelled by worker.
 """
 
 from __future__ import annotations
@@ -69,6 +71,17 @@ METRIC_HELP: Dict[str, str] = {
     "zkp2p_fleet_worker_rss_bytes": "Per-worker resident-set size at the last governor sample",
     "zkp2p_fleet_watchdog_kills_total": "Hung workers (stale heartbeat, live pid) killed by the supervisor watchdog",
     "zkp2p_fleet_degrade_applied_total": "Governor soft-degrade overlays applied inside a worker",
+    "zkp2p_fleet_scrapes_total": "Fleet-plane scrape cycles completed by the supervisor",
+    "zkp2p_fleet_scrape_failures_total": "Worker snapshot scrapes that failed (counted, never fatal), by worker",
+    "zkp2p_fleet_merge_refusals_total": "Metric families refused during fleet merge (histogram bucket-layout mismatch), by family",
+    "zkp2p_fleet_alerts_total": "Alert FIRE transitions by rule (hysteresis: one inc per episode, not per flap)",
+    "zkp2p_fleet_slo_attainment": "Merged-window fleet SLO attainment (pooled worker samples)",
+    "zkp2p_fleet_slo_burn_fast": "Fleet error-budget burn over the trailing fast window (merged samples)",
+    "zkp2p_fleet_slo_burn_slow": "Fleet error-budget burn over the full merged window",
+    "zkp2p_fleet_slo_window_p95_s": "Exact p95 over the pooled fleet SLO window",
+    "zkp2p_fleet_slo_window_requests": "Samples across every worker's SLO window (sum of window sizes)",
+    "zkp2p_fleet_slo_objective_s": "Configured p95 objective the fleet windows are judged against",
+    "zkp2p_fleet_backlog": "Open spool requests at the last supervisor scrape (supervisor's own scan)",
 }
 
 

@@ -1,9 +1,9 @@
 """Service-level objective for the proving service (port of the
 reference's ``utils/slo.py``): a rolling-window latency tracker with an
 explicit objective, attainment and burn rate, the ``zkp2p_slo_*`` gauges,
-the window serialised for another process (``window_state``) and the
-``/status`` payload.  The fleet plane's merge of N windows
-(``merge_window_states``, ``publish_fleet_slo``) is not ported yet.
+the window serialised for another process (``window_state``), the fleet
+plane's merge of N such windows (``merge_window_states``,
+``publish_fleet_slo``) and the ``/status`` payload.
 
   objective   latency bound in seconds over a request's whole life, from
               its arrival in the spool (the request file's mtime) to its
@@ -15,9 +15,17 @@ the window serialised for another process (``window_state``) and the
   burn rate   (1 - attainment) / (1 - target): how many times faster
               than sustainable the error budget burns.
 
-The reference reads the objective, target and window from its
-environment; the port takes them as arguments whose defaults are the
-reference's (0.0 s, 0.95, 300 s).
+The merge pools the workers' raw samples and recomputes attainment and
+percentiles over the pooled set, which is what one tracker observing
+every worker's traffic would report: the mean of two p95s is no
+percentile of anything, and an idle worker's vacuous 1.0 must not dilute
+a drowning one's.  Burn rates come as the multi-window pair: `burn_fast`
+over the trailing `fast_window_s` (a fresh cliff), `burn_slow` over the
+whole window (a blip stays below it).
+
+The reference reads the objective, target, window and fast window from
+its environment; the port takes them as arguments whose defaults are the
+reference's (0.0 s, 0.95, 300 s, 60 s).
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 # Hard cap on samples held whatever the time window; evictions beyond it
 # are counted in the snapshot (`capped`).
@@ -34,6 +42,7 @@ MAX_WINDOW_SAMPLES = 65536
 DEFAULT_OBJECTIVE_S = 0.0
 DEFAULT_TARGET = 0.95
 DEFAULT_WINDOW_S = 300.0
+DEFAULT_FAST_WINDOW_S = 60.0
 
 
 class SloTracker:
@@ -129,6 +138,77 @@ class SloTracker:
             "dropped": dropped,
             "capped": capped,
         }
+
+
+def merge_window_states(states: List[Dict], fast_window_s: float = DEFAULT_FAST_WINDOW_S,
+                        target: Optional[float] = None) -> Dict:
+    """N workers' ``window_state`` dicts merged into one fleet snapshot by
+    pooling their samples.  `n` is the sum of the workers' true window
+    sizes (samples a transport cap left out included); attainment and the
+    percentiles are over the samples that arrived (`n_merged`).
+    `burn_slow` is over every pooled sample, `burn_fast` over those
+    younger than `fast_window_s`.  The target is the highest the workers
+    state (0.95 with none, or with one outside (0, 1))."""
+    states = [s for s in states if s]
+    tgt = target
+    if tgt is None:
+        tgt = max((s.get("target", DEFAULT_TARGET) for s in states), default=DEFAULT_TARGET)
+    if not 0.0 < tgt < 1.0:
+        tgt = DEFAULT_TARGET
+    pooled: List[List[float]] = []  # [age_s, latency_s, good]
+    n_true = capped = 0
+    objective = 0.0
+    for s in states:
+        pooled.extend(s.get("samples") or [])
+        n_true += int(s.get("n", len(s.get("samples") or [])))
+        capped += int(s.get("capped", 0))
+        objective = max(objective, float(s.get("objective_s", 0.0)))
+
+    def burn(sub: List[List[float]]) -> Dict:
+        k = len(sub)
+        good = sum(1 for x in sub if x[2])
+        att = (good / k) if k else 1.0
+        return {"n": k, "good": good, "attainment": round(att, 6), "burn": round((1.0 - att) / (1.0 - tgt), 4)}
+
+    full = burn(pooled)
+    fast = burn([x for x in pooled if x[0] <= fast_window_s])
+    lats = sorted(x[1] for x in pooled)
+
+    def pct(q: float) -> float:
+        if not lats:
+            return 0.0
+        return lats[max(0, min(len(lats) - 1, int(round(q * (len(lats) - 1)))))]
+
+    return {
+        "objective_p95_s": objective,
+        "target": tgt,
+        "fast_window_s": fast_window_s,
+        "workers": len(states),
+        "n": n_true,
+        "n_merged": full["n"],
+        "good": full["good"],
+        "attainment": full["attainment"],
+        "burn_slow": full["burn"],
+        "burn_fast": fast["burn"],
+        "n_fast": fast["n"],
+        "p50_s": round(pct(0.50), 6),
+        "p95_s": round(pct(0.95), 6),
+        "max_s": round(lats[-1], 6) if lats else 0.0,
+        "capped": capped,
+    }
+
+
+def publish_fleet_slo(snap: Dict, registry=None) -> None:
+    """Mirror a merged fleet snapshot into the ``zkp2p_fleet_slo_*`` gauges."""
+    from .metrics import REGISTRY
+
+    reg = registry if registry is not None else REGISTRY
+    reg.gauge("zkp2p_fleet_slo_attainment").set(snap["attainment"])
+    reg.gauge("zkp2p_fleet_slo_burn_fast").set(snap["burn_fast"])
+    reg.gauge("zkp2p_fleet_slo_burn_slow").set(snap["burn_slow"])
+    reg.gauge("zkp2p_fleet_slo_window_p95_s").set(snap["p95_s"])
+    reg.gauge("zkp2p_fleet_slo_window_requests").set(snap["n"])
+    reg.gauge("zkp2p_fleet_slo_objective_s").set(snap["objective_p95_s"])
 
 
 # The process-wide tracker: the service observes into it and the
