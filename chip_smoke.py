@@ -276,11 +276,16 @@ profiles:
 10. The key's life cycle, the phase-2 ceremony (the ceremony line).  In
    phase 2, K19 at the ceremony's shape (the
    flagship's C and H queries together, 13,305,359 points made on the
-   card by K17 and K15, 16 (0, 0) holes, G and -G among them) with a
-   seeded full-width scalar: timed with its bound, held bitwise against
-   plain over the first 65,536 points, 10 sampled points against the
-   host g1_mul, and its first 257 points with k = 0, 1, 2, 2^127, r-1
-   and r against the host g1_mul.  The counted run, in this process on phase 6's key as
+   card by K17 and K15, 16 (0, 0) holes, G, -G and 2 points off the
+   curve among them) with a seeded full-width scalar: timed with its
+   bound and the former NAF-only design's (scale.cu's second entry,
+   which no path launches) on the same points in the same call, then
+   K15's jac_to_affine once on its output; held bitwise against plain
+   over the first 65,536 points, 10 sampled points (K19's, the
+   comparator's, K15's) against the host g1_mul, and its first 257
+   points with k = 0, 1, 2, 2^127, r-1, r and 2^256-1 against the host
+   g1_mul; both kernels' registers, spills and static SASS mix.  The
+   counted run, in this process on phase 6's key as
    its parsed zkey (no file): contribute_zkey twice (the first binds the
    circuit hash), beacon_zkey at iter_exp 10, verify_zkeys of the chain
    against the initial key (it must accept with the reference's lines),
@@ -445,6 +450,9 @@ INT_MULS_PER_SM_CLK = 64  # 32-bit integer multiply-adds per SM per clock (Hoppe
 # 32-bit multiplies of one 8x32-bit CIOS Montgomery product: 64 + 64
 # wide products (lo and hi halves) and 8 low products
 MULS_PER_MONT = 2 * 64 + 2 * 64 + 8
+# of a Montgomery square (mont_cc.cuh's fe_sqr_cc): 28 cross products and
+# 8 squares (lo and hi halves each), then the same reduction
+MULS_PER_SQR = 2 * 36 + 2 * 64 + 8
 # Montgomery products per point op on a generic lane (Fq2 product = 3)
 MONTS = {"add": 16, "add_mixed": 11, "double": 7}
 # limb bytes read + written per element: operands in, three coordinates out
@@ -681,13 +689,15 @@ CHAOS_ARGS = ("--fleet", "2", "--requests", "12", "--batch", "2", "--prove-s", "
               "--device", "cuda")
 CHAOS_TIMEOUT_S = 420
 # phase 10, the ceremony: K19 at the ceremony's shape, where SCALE_HOLES
-# (0, 0) holes sit among the points and SCALE_SAMPLES are checked against
-# the host, as are the first SCALE_SPECIAL_POINTS with k = 0, 1, 2, 2^127,
-# r - 1, r; the scratch of its command line, the beacon's value and
+# (0, 0) holes and SCALE_OFF_CURVE points off the curve sit among the
+# points and SCALE_SAMPLES are checked against the host, as are the first
+# SCALE_SPECIAL_POINTS with k = 0, 1, 2, 2^127, r - 1, r, 2^256 - 1; the
+# scratch of its command line, the beacon's value and
 # iteration exponent
 SCALE_SPECIAL_POINTS = 257
 SCALE_HOLES = 16
 SCALE_SAMPLES = 10
+SCALE_OFF_CURVE = 2  # points off the curve: one among the special points, one in the big launch alone
 CEREMONY_DIR = ".chip_scratch/ceremony"
 CEREMONY_BEACON = bytes.fromhex("5f1e2a6c" * 8)
 CEREMONY_ITER_EXP = 10
@@ -4615,31 +4625,132 @@ def chaos_finish(ch, beside):
 # -------------------------------------------------------------- phase 10
 
 
-def scale_bound(n_live: int, n: int, k: int, peak_muls_per_s):
-    """K19's bound on these points: for each point that is not a hole, a
-    doubling (7 products) a NAF digit below the top and a mixed add (11)
-    a nonzero one below it, against the points read once and the
-    Jacobian points written once."""
-    from zkp2p_tpu_torch.ops.cuda_scale import naf_digits
+def sass_profile(lib_path):
+    """Each kernel's static SASS of a built library (`cuobjdump -sass`; no
+    ncu on the machine), as parse_sass gives it, or {"error": ...} where
+    the toolkit has no cuobjdump."""
+    import shutil
 
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return {"error": f"cuobjdump: {e}"}
+    return parse_sass(text)
+
+
+def parse_sass(text: str):
+    """{kernel: {"instructions", "imad" (the IMAD family), "muls" (of them
+    the multiplies: IMAD, IMAD.HI, IMAD.WIDE, not the moves and adds),
+    "per_mul", "top" (the ten commonest opcodes with their modifiers),
+    "calls": {address: the same for the called function there, from its
+    address to its RET}}}; the kernel's own figures leave its callees out."""
+    import collections
+    import re
+
+    def summary(rows):
+        ops = collections.Counter(op for _, op, _ in rows)
+        imad = sum(v for k, v in ops.items() if k.startswith("IMAD"))
+        muls = sum(v for k, v in ops.items() if k in ("IMAD", "IMAD.U32") or k.startswith(("IMAD.HI", "IMAD.WIDE")))
+        return {"instructions": len(rows), "imad": imad, "muls": muls, "per_mul": len(rows) / max(muls, 1),
+                "top": dict(ops.most_common(10))}
+
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*)", line)
+        if m and name is not None:
+            funcs[name].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    out = {}
+    for name, rows in funcs.items():
+        calls, inside = {}, set()
+        for target in sorted({int(t, 16) for _, op, rest in rows if op.startswith("CALL")
+                              for t in re.findall(r"0x([0-9a-f]+)", rest)}):
+            start = next((i for i, r in enumerate(rows) if r[0] == target), None)
+            if start is None:
+                continue
+            end = next((i for i in range(start, len(rows)) if rows[i][1].startswith("RET")), len(rows) - 1)
+            calls[f"0x{target:x}"] = summary(rows[start:end + 1])
+            inside.update(range(start, end + 1))
+        out[name] = dict(summary([r for i, r in enumerate(rows) if i not in inside]), calls=calls)
+    return out
+
+
+def scale_bound(n_on: int, n_off: int, n: int, k: int, peak_muls_per_s):
+    """K19's bounds on these points against the points read once and the
+    Jacobian points written once: the work the kernel does (the curve
+    test, 2 squares and a product a live point; beta * x a point on the
+    curve; each op of its stream after the first, which starts from the
+    point at infinity and costs nothing: a doubling 5 squares and 2
+    products, a mixed add 3 squares and 8 products; the GLV stream for
+    points on the curve, the NAF stream for the rest; a square
+    MULS_PER_SQR multiplies, a product MULS_PER_MONT) and, as bound_ms_naf,
+    the former NAF-only design's work for the same function (every live
+    point a doubling of 7 products a NAF digit below the top and a mixed
+    add of 11 at a nonzero one, at MULS_PER_MONT)."""
+    from zkp2p_tpu_torch.ops.cuda_scale import glv_ops, naf_digits, naf_ops
+
+    def work(ops):
+        d = sum(1 for o in ops if o == 0)
+        a = max(sum(1 for o in ops if o) - 1, 0)
+        return d, a, d * (5 * MULS_PER_SQR + 2 * MULS_PER_MONT) + a * (3 * MULS_PER_SQR + 8 * MULS_PER_MONT)
+
+    test = 2 * MULS_PER_SQR + MULS_PER_MONT
+    g_d, g_a, g_muls = work(glv_ops(k))
+    n_d, n_a, n_muls = work(naf_ops(k))
+    muls = n_on * (test + MULS_PER_MONT + g_muls) + n_off * (test + n_muls)
     digits = naf_digits(k)
-    doubles, adds = max(len(digits) - 1, 0), max(sum(1 for d in digits if d) - 1, 0)
-    muls = n_live * (doubles * MONTS["double"] + adds * MONTS["add_mixed"]) * MULS_PER_MONT
-    t_bytes, t_ops = n * (2 + 3) * 64 / HBM_BYTES_PER_S, muls / peak_muls_per_s
+    d_old, a_old = max(len(digits) - 1, 0), max(sum(1 for d in digits if d) - 1, 0)
+    muls_naf = (n_on + n_off) * (d_old * MONTS["double"] + a_old * MONTS["add_mixed"]) * MULS_PER_MONT
+    t_bytes = n * (2 + 3) * 64 / HBM_BYTES_PER_S
+    t_ops, t_naf = muls / peak_muls_per_s, muls_naf / peak_muls_per_s
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes > t_ops else "operations",
-                naf_doubles=doubles, naf_adds=adds)
+                bound_ms_naf=max(t_bytes, t_naf) * 1e3, glv_doubles=g_d, glv_adds=g_a, naf_doubles=n_d,
+                naf_adds=n_a, multiplies_a_point_on_curve=test + MULS_PER_MONT + g_muls,
+                multiplies_a_point_naf_design=(d_old * MONTS["double"] + a_old * MONTS["add_mixed"]) * MULS_PER_MONT)
 
 
-def check_scale_kernel(torch, peak_muls_per_s, device):
+def scale_naf_launch(torch, x, y, out, k: int) -> None:
+    """One launch of the NAF-only comparator entry that csrc/scale.cu keeps
+    beside K19 (no path of the program launches it; counted nowhere)."""
+    import ctypes
+
+    from zkp2p_tpu_torch.field.tfield import FQ
+    from zkp2p_tpu_torch.ops import cuda_build
+    from zkp2p_tpu_torch.ops.cuda_mont import field_consts
+    from zkp2p_tpu_torch.ops.cuda_scale import digit_block
+
+    fn = cuda_build.library("scale").zk_g1_scale_naf
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), y.data_ptr(), *(c.data_ptr() for c in out), x.shape[0], digit_block(k).ctypes.data,
+             field_consts(FQ).ctypes.data, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"zk_g1_scale_naf: CUDA launch failed with cudaError {err}")
+
+
+def check_scale_kernel(torch, peak_muls_per_s, sm_clock_hz, device):
     """K19 (phase 2): at the ceremony's shape, the
     flagship's C and H queries together (13,305,359 points made on the
     card as K17 multiples of the generator, SCALE_HOLES (0, 0) holes, the
-    generator and its negation among them) scaled by a seeded full-width
-    scalar: timed with its bound (the card otherwise quiet), held bitwise
-    against its plain version over the first PLAIN_SLICE points, and
-    SCALE_SAMPLES sampled points (the holes', G's and -G's among them)
-    against the host g1_mul; the first SCALE_SPECIAL_POINTS (a hole, G,
-    -G) with k = 0, 1, 2, 2^127, r - 1, r against the host g1_mul."""
+    generator and its negation and SCALE_OFF_CURVE points off the curve
+    among them) scaled by a seeded full-width scalar: timed with its
+    bounds (the card otherwise quiet), then the former NAF-only kernel
+    on the same points in the same call, then K15's jac_to_affine once on
+    K19's output; K19 held bitwise against its plain version over the
+    first PLAIN_SLICE points, and SCALE_SAMPLES sampled points (the
+    holes', G's, -G's and the off-curve ones among them), K19's, the
+    comparator's and K15's, against the host g1_mul; the first
+    SCALE_SPECIAL_POINTS (a hole, G, -G, a point off the curve) with
+    k = 0, 1, 2, 2^127, r - 1, r, 2^256 - 1 against the host g1_mul.  Also the static SASS mix of
+    both kernels (sass_profile) and what it gives with the times: SASS
+    instructions a multiply and the issue slots used.  Returns K19's row
+    and K15's line at this shape."""
     from zkp2p_tpu_torch.curve import host
     from zkp2p_tpu_torch.curve.tcurve import g1_jac_to_host, g1_limbs
     from zkp2p_tpu_torch.field.bn254 import R
@@ -4663,43 +4774,88 @@ def check_scale_kernel(torch, peak_muls_per_s, device):
     (gx,), (gy,) = (torch.from_numpy(c).to(device) for c in g1_limbs([host.G1_GENERATOR]))
     x[1], y[1], x[2], y[2] = gx, gy, gx, FQ.neg(gy)
     rng = random.Random(SEED + 191)
+    off = [3, n // 3][:SCALE_OFF_CURVE]
+    for i in off:  # y + 1: off the curve, and not on y^2 = x^3
+        y[i] = FQ.add(y[i], FQ.const("one", device).int())
 
     def host_points(idx):
         return [None if not (x[i].any() or y[i].any()) else (FQ.from_mont_host(x[i].cpu().numpy()),
                                                              FQ.from_mont_host(y[i].cpu().numpy())) for i in idx]
 
+    for (px, py) in host_points(off):
+        if (py * py - px ** 3) % FQ.modulus in (0, host.CURVE_B):
+            raise AssertionError("an off-curve test point lies on y^2 = x^3 or on the curve")
     first = host_points(range(SCALE_SPECIAL_POINTS))
-    for k in (0, 1, 2, 1 << 127, R - 1, R):
+    for k in (0, 1, 2, 1 << 127, R - 1, R, (1 << 256) - 1):
         got = g1_scale((x[:SCALE_SPECIAL_POINTS], y[:SCALE_SPECIAL_POINTS]), k)
         if g1_jac_to_host(got) != [None if p is None else host.g1_mul(p, k) for p in first]:
             raise AssertionError(f"g1_scale (k={k}) differs from the host g1_mul")
     k = rng.randrange(1, R)
     ms, got = cuda_ms(torch, lambda: g1_scale((x, y), k), 3)
+    naf_out = tuple(torch.empty_like(x) for _ in range(3))
+    ms_naf, _ = cuda_ms(torch, lambda: scale_naf_launch(torch, x, y, naf_out, k), 1)
+    ms_k15, (ax, ay) = cuda_ms(torch, lambda: jac_to_affine_batch(FQ, got), 1)
     m = min(n, PLAIN_SLICE)
     plain_ms, want = cuda_ms(torch, lambda: g1_scale_plain((x[:m], y[:m]), k), 1, warmup=False)
     if max_abs_err(torch, tuple(c[:m] for c in got), want):
         raise AssertionError(f"g1_scale at {n} points differs from its plain version over the first {m}")
-    idx = sorted({0, 1, 2, int(holes[SCALE_HOLES // 2]), n - 1, *(rng.randrange(n) for _ in range(SCALE_SAMPLES - 5))})
+    idx = sorted({0, 1, 2, *off, int(holes[SCALE_HOLES // 2]), n - 1,
+                  *(rng.randrange(n) for _ in range(SCALE_SAMPLES - 4 - len(off)))})
     pts = host_points(idx)
-    if g1_jac_to_host(tuple(c[idx] for c in got)) != [None if p is None else host.g1_mul(p, k) for p in pts]:
+    want_host = [None if p is None else host.g1_mul(p, k) for p in pts]
+    if g1_jac_to_host(tuple(c[idx] for c in got)) != want_host:
         raise AssertionError("g1_scale differs from the host g1_mul at the sampled points")
+    if g1_jac_to_host(tuple(c[idx] for c in naf_out)) != want_host:
+        raise AssertionError("the NAF-only comparator differs from the host g1_mul at the sampled points")
+    if [None if not (ax[i].any() or ay[i].any()) else (FQ.from_mont_host(ax[i].cpu().numpy()),
+                                                        FQ.from_mont_host(ay[i].cpu().numpy())) for i in idx] \
+            != want_host:
+        raise AssertionError("K15's jac_to_affine of K19's output differs from the host g1_mul at the samples")
+    n_off = len(off)
     n_live = n - int(((x == 0).all(-1) & (y == 0).all(-1)).sum())
     ptxas = [line.strip() for line in cuda_build._lib_path("scale").with_suffix(".log").read_text().splitlines()
-             if "registers" in line or "spill" in line]
+             if "registers" in line or "spill" in line or "Compiling entry" in line or "properties" in line]
+    b = scale_bound(n_live - n_off, n_off, n, k, peak_muls_per_s)
+    # the static SASS of K19, of its two called products and of the
+    # comparator; SASS instructions a multiply in the products (the
+    # comparator inlines its own), and from them and the times the issue
+    # slots that the products take (4 a clock an SM) and the share of the
+    # multiply pipe (the bound over the time)
+    found = sass_profile(cuda_build._lib_path("scale"))
+    sass = {name: next((v for key, v in found.items() if tag in key), None) for name, tag in (
+        ("k_g1_scale", "k_g1_scaleP"), ("k_g1_scale_naf", "k_g1_scale_nafP"))}
+    shares = {}
+    if all(sass.values()) and len(sass["k_g1_scale"]["calls"]) == 2:
+        prods = sass["k_g1_scale"]["calls"].values()  # the called product and square
+        per_mul = sum(v["instructions"] for v in prods) / sum(v["muls"] for v in prods)
+        slots = 4 * torch.cuda.get_device_properties(0).multi_processor_count * sm_clock_hz
+        for name, t, bms, pm in (("k_g1_scale", ms, b["bound_ms"], per_mul),
+                                 ("k_g1_scale_naf", ms_naf, b["bound_ms_naf"], sass["k_g1_scale_naf"]["per_mul"])):
+            warp_instructions = bms * 1e-3 * peak_muls_per_s * pm / 32
+            shares[name] = dict(sass_per_multiply=pm, issue_slot_share=warp_instructions / (t * 1e-3 * slots),
+                                multiply_pipe_share=bms / t)
+    else:
+        sass["found"] = found
     row = dict(max_abs_err=0, shape=[n], shape_of="the flagship's C and H queries together (c 4,916,751 + h "
                                                    "8,388,608 points)",
-               ms=ms, plain_ms=plain_ms, plain_over=m, holes=SCALE_HOLES, host_samples=len(idx), ptxas=ptxas,
-               **scale_bound(n_live, n, k, peak_muls_per_s),
-               check=(f"bitwise equal to plain at {n} points (holes, G, -G; plain over the first {m}); "
-                      f"{len(idx)} sampled points equal to the host g1_mul; at the first {SCALE_SPECIAL_POINTS} "
-                      f"points with k in {{0, 1, 2, 2^127, r-1, r}} equal to the host g1_mul"),
+               ms=ms, ms_naf_design_same_call=ms_naf, plain_ms=plain_ms, plain_over=m, holes=SCALE_HOLES,
+               off_curve=n_off, host_samples=len(idx), ptxas=ptxas, sass=sass, shares=shares, **b,
+               check=(f"bitwise equal to plain at {n} points (holes, G, -G, off the curve; plain over the first "
+                      f"{m}); {len(idx)} sampled points of it, of the NAF-only comparator and of K15's "
+                      f"normalisation equal to the host g1_mul; at the first {SCALE_SPECIAL_POINTS} points with k "
+                      f"in {{0, 1, 2, 2^127, r-1, r, 2^256-1}} equal to the host g1_mul"),
                library_ms_reason="no PyTorch call multiplies a curve point")
-    log(f"K19 g1_scale at {n} points: {ms:.1f} ms, bound {row['bound_ms']:.1f} ms ({row['bound_by']}; NAF "
-        f"{row['naf_doubles']} doublings, {row['naf_adds']} adds), plain {plain_ms:.1f} ms over {m}; bitwise equal; "
-        f"{len(idx)} samples equal to the host; ptxas {ptxas}")
-    del x, y, got, want
+    k15 = dict(shape=[n], ms=ms_k15, **bound(n, 7, 5 * 64, peak_muls_per_s),
+               check=f"{len(idx)} sampled points of K19's output equal to the host g1_mul's affine")
+    log(f"K19 g1_scale at {n} points: {ms:.1f} ms against the NAF-only design's {ms_naf:.1f} ms in the same call; "
+        f"bound {b['bound_ms']:.1f} ms ({b['bound_by']}; GLV {b['glv_doubles']} doublings, {b['glv_adds']} adds), "
+        f"the NAF-only work's {b['bound_ms_naf']:.1f} ms (NAF {b['naf_doubles']} doublings, {b['naf_adds']} adds); "
+        f"plain {plain_ms:.1f} ms over {m}; bitwise equal; {len(idx)} samples equal to the host; ptxas {ptxas}; "
+        f"SASS {json.dumps(sass)}; {json.dumps(shares)}; K15 jac_to_affine on its output {ms_k15:.1f} ms "
+        f"(bound {k15['bound_ms']:.1f})")
+    del x, y, got, want, naf_out, ax, ay
     torch.cuda.empty_cache()
-    return {"g1_scale": row}
+    return {"g1_scale": row}, k15
 
 
 def ceremony_in_process(torch, zk, device):
@@ -5163,7 +5319,9 @@ def kernels_phase(torch, peak_muls, sm_clock_hz, device):
     fb_sizes = {"setup G1 launch (a, b1, c, h)": (False, sum(g1_queries.values())),
                 **{q: (False, n) for q, n in g1_queries.items()}, "setup G2 launch (b2)": (True, g1_queries["b1"])}
     rows.update(check_fixed_base_kernels(torch, fb_sizes, peak_muls, device))
-    rows.update(check_scale_kernel(torch, peak_muls, device))
+    scale_rows, k15 = check_scale_kernel(torch, peak_muls, sm_clock_hz, device)
+    rows.update(scale_rows)
+    rows["jac_to_affine"].setdefault("at_shapes", {})["ceremony C + H (K19's output)"] = k15
     free, total = torch.cuda.mem_get_info()
     log(f"kernels against plain: {time.perf_counter() - t0:.1f} s; peak device memory allocated here "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, {free / 2**30:.2f} of "

@@ -303,9 +303,30 @@ def test_kernel_sources_include_their_headers():
     for stem in ("fixed_base", "lane_tree", "scale"):
         src = (cuda_build.CSRC_DIR / f"{stem}.cu").read_text()
         assert '#include "mont_cc.cuh"' in src and "<MulCC>" in src, stem
+    # K19 over the called product and Montgomery square (its comparator
+    # keeps <MulCC>)
+    src = (cuda_build.CSRC_DIR / "scale.cu").read_text()
+    assert "<MulCallCC>" in src and "fe_sqr_cc" in src and "fe_mul_cc" in src
     before = cuda_build._lib_path("lane_tree")
     assert cuda_build._lib_path("fixed_base") != before
     assert before.parent == cuda_build.BUILD_DIR and before.suffix == ".so"
+
+
+def test_scale_comparator_is_reached_only_from_chip_smoke():
+    """csrc/scale.cu keeps the NAF-only kernel as a second entry for
+    chip_smoke.py's same-call comparison: no module of the port names it,
+    it is no launcher of the build table, and K19's wrapper on CPU tensors
+    counts no launch."""
+    name = "zk_g1_scale_naf"
+    assert f"int {name}(" in (cuda_build.CSRC_DIR / "scale.cu").read_text()
+    assert name in (ROOT / "chip_smoke.py").read_text()
+    assert not [p for p in PKG.rglob("*.py") if name in p.read_text()]
+    assert name not in cuda_build.LAUNCHERS and cuda_build.SOURCES["scale"] == {
+        "zk_g1_scale": cuda_build.SOURCES["scale"]["zk_g1_scale"]}
+    cuda_build.reset_launches()
+    pts = (_rand((4,), 106), _rand((4,), 107))
+    cuda_scale.g1_scale(pts, (1 << 256) - 1)
+    assert all(v == 0 for v in cuda_build.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])

@@ -21,10 +21,12 @@
 // which changes no output.
 //
 // The Montgomery product is a template parameter M of the formulas (a type
-// with a static mul): MulC, mont.cuh's fe_mul, by default, so that a
+// with a static mul, and a static sqr that the formulas call where an
+// element is squared): MulC, mont.cuh's fe_mul, by default, so that a
 // kernel that names none runs fe_mul; MulCC (mont_cc.cuh), the same
-// product in PTX carry chains, where K17 and K18 name it.  Every value is
-// canonical, so the two give the same limbs.
+// product in PTX carry chains, where K17 and K18 name it; K19's MulCallCC
+// (scale.cu), that product and mont_cc.cuh's Montgomery square as called
+// functions.  Every value is canonical, so they all give the same limbs.
 #pragma once
 
 #include "mont.cuh"
@@ -35,10 +37,13 @@ struct Fe2 {
 
 struct MulC {
   __device__ __forceinline__ static Fe mul(const Fe& a, const Fe& b, const FieldConst& c) { return fe_mul(a, b, c); }
+  __device__ __forceinline__ static Fe sqr(const Fe& a, const FieldConst& c) { return fe_mul(a, a, c); }
 };
 
 template <class M = MulC>
 __device__ __forceinline__ Fe f_mul(const Fe& a, const Fe& b, const FieldConst& c) { return M::mul(a, b, c); }
+template <class M = MulC>
+__device__ __forceinline__ Fe f_sqr(const Fe& a, const FieldConst& c) { return M::sqr(a, c); }
 __device__ __forceinline__ Fe f_add(const Fe& a, const Fe& b, const FieldConst& c) { return fe_add(a, b, c); }
 __device__ __forceinline__ Fe f_sub(const Fe& a, const Fe& b, const FieldConst& c) { return fe_sub(a, b, c); }
 __device__ __forceinline__ bool f_is_zero(const Fe& a) { return fe_is_zero(a); }
@@ -57,6 +62,8 @@ __device__ __forceinline__ Fe2 f_mul(const Fe2& a, const Fe2& b, const FieldCons
   r.c1 = fe_sub(M::mul(fe_add(a.c0, a.c1, c), fe_add(b.c0, b.c1, c), c), fe_add(v0, v1, c), c);
   return r;
 }
+template <class M = MulC>
+__device__ __forceinline__ Fe2 f_sqr(const Fe2& a, const FieldConst& c) { return f_mul<M>(a, a, c); }
 __device__ __forceinline__ Fe2 f_add(const Fe2& a, const Fe2& b, const FieldConst& c) {
   return Fe2{fe_add(a.c0, b.c0, c), fe_add(a.c1, b.c1, c)};
 }
@@ -108,16 +115,16 @@ struct Jac {
 
 template <class M = MulC, class E>
 __device__ __forceinline__ Jac<E> pt_double(const Jac<E>& p, const FieldConst& c) {
-  E A = f_mul<M>(p.x, p.x, c);
-  E B = f_mul<M>(p.y, p.y, c);
-  E C = f_mul<M>(B, B, c);
+  E A = f_sqr<M>(p.x, c);
+  E B = f_sqr<M>(p.y, c);
+  E C = f_sqr<M>(B, c);
   E XB = f_add(p.x, B, c);
-  E XB2 = f_mul<M>(XB, XB, c);
+  E XB2 = f_sqr<M>(XB, c);
   E YZ = f_mul<M>(p.y, p.z, c);
   E t = f_sub(f_sub(XB2, A, c), C, c);
   E D = f_add(t, t, c);
   E Ev = f_add(f_add(A, A, c), A, c);
-  E Fv = f_mul<M>(Ev, Ev, c);
+  E Fv = f_sqr<M>(Ev, c);
   Jac<E> r;
   r.x = f_sub(Fv, f_add(D, D, c), c);
   E C8 = f_add(C, C, c);
@@ -148,8 +155,8 @@ __device__ __forceinline__ Jac<E> pt_add_core(const Jac<E>& p, const Q& q, const
     res.y = zero;
     res.z = zero;
   } else {
-    E HH = f_mul<M>(H, H, c);
-    E R2 = f_mul<M>(Rr, Rr, c);
+    E HH = f_sqr<M>(H, c);
+    E R2 = f_sqr<M>(Rr, c);
     E HHH = f_mul<M>(H, HH, c);
     E V = f_mul<M>(U1, HH, c);
     res.x = f_sub(f_sub(R2, HHH, c), f_add(V, V, c), c);
@@ -161,8 +168,8 @@ __device__ __forceinline__ Jac<E> pt_add_core(const Jac<E>& p, const Q& q, const
 
 template <class M = MulC, class E, class Q>
 __device__ __forceinline__ Jac<E> pt_add(const Jac<E>& p, const Q& q, const FieldConst& c) {
-  E Z1Z1 = f_mul<M>(p.z, p.z, c);
-  E Z2Z2 = f_mul<M>(q.qz(), q.qz(), c);
+  E Z1Z1 = f_sqr<M>(p.z, c);
+  E Z2Z2 = f_sqr<M>(q.qz(), c);
   E U1 = f_mul<M>(p.x, Z2Z2, c);
   E U2 = f_mul<M>(q.qx(), Z1Z1, c);
   E S1 = f_mul<M>(f_mul<M>(p.y, q.qz(), c), Z2Z2, c);
@@ -173,7 +180,7 @@ __device__ __forceinline__ Jac<E> pt_add(const Jac<E>& p, const Q& q, const Fiel
 
 template <class M = MulC, class E>
 __device__ __forceinline__ Jac<E> pt_add_mixed(const Jac<E>& p, const E& x2, const E& y2, const FieldConst& c) {
-  E Z1Z1 = f_mul<M>(p.z, p.z, c);
+  E Z1Z1 = f_sqr<M>(p.z, c);
   E U2 = f_mul<M>(x2, Z1Z1, c);
   E S2 = f_mul<M>(y2, f_mul<M>(p.z, Z1Z1, c), c);
   Jac<E> q;
@@ -188,8 +195,41 @@ __device__ __forceinline__ Jac<E> pt_add_mixed(const Jac<E>& p, const E& x2, con
 // one otherwise.
 template <class M = MulC, class E, class A>
 __device__ __forceinline__ Jac<E> pt_add_mixed_q(const Jac<E>& p, const A& a, const FieldConst& c) {
-  E Z1Z1 = f_mul<M>(p.z, p.z, c);
+  E Z1Z1 = f_sqr<M>(p.z, c);
   E U2 = f_mul<M>(a.qx(), Z1Z1, c);
   E S2 = f_mul<M>(a.qy(), f_mul<M>(p.z, Z1Z1, c), c);
   return pt_add_core<M>(p, a, p.x, U2, p.y, S2, p.z, c);
+}
+
+// p + (x2, y2) for an affine addend that is not (0, 0), for a kernel whose
+// loop holds the one doubling it runs (K19: one copy of each formula in
+// its code): pt_add_mixed's formulas and case selects in the same order,
+// except that where they double p this leaves p as it is and returns
+// false, for the caller to double it.
+template <class M = MulC>
+__device__ __forceinline__ bool pt_add_mixed_or_double(Jac<Fe>& p, const Fe& x2, const Fe& y2, const FieldConst& c) {
+  if (f_is_zero(p.z)) {
+    p = Jac<Fe>{x2, y2, fe_one(c)};
+    return true;
+  }
+  Fe Z1Z1 = f_sqr<M>(p.z, c);
+  Fe U2 = f_mul<M>(x2, Z1Z1, c);
+  Fe S2 = f_mul<M>(y2, f_mul<M>(p.z, Z1Z1, c), c);
+  Fe H = f_sub(U2, p.x, c);
+  Fe Rr = f_sub(S2, p.y, c);
+  if (f_is_zero(H)) {
+    if (f_is_zero(Rr)) return false;
+    p = Jac<Fe>{fe_zero(), fe_zero(), fe_zero()};
+    return true;
+  }
+  Fe HH = f_sqr<M>(H, c);
+  Fe R2 = f_sqr<M>(Rr, c);
+  Fe HHH = f_mul<M>(H, HH, c);
+  Fe V = f_mul<M>(p.x, HH, c);
+  Jac<Fe> res;
+  res.x = f_sub(f_sub(R2, HHH, c), f_add(V, V, c), c);
+  res.y = f_sub(f_mul<M>(Rr, f_sub(V, res.x, c), c), f_mul<M>(p.y, HHH, c), c);
+  res.z = f_mul<M>(p.z, H, c);
+  p = res;
+  return true;
 }
