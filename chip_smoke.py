@@ -5,9 +5,10 @@
 
 Phases, each of which raises on failure (the script then exits nonzero
 and prints no result line).  They run in the order 1 (phase 12, chaos,
-starting once its kernels are built, beside the rest of phase 1 and
-phase 8, and ending before phase 9), 8 (its CLI
-subprocesses beside it and phase 9), 9, 2 (no other process's kernels on
+and phase 13 (b), the scheduler's fleet, starting once its kernels are
+built, beside the rest of phase 1 and phase 8, and ending before phase
+9), 8 (its CLI
+subprocesses beside it and phase 9), 9, 13 (a), 2 (no other process's kernels on
 the card: phase 11's workers build their circuits and import their keys
 beside it), 11 (phase 2's K15/K16 bitwise checks and phase 3 beside its
 proofs), 6, 7 (phase 4's h_evals check
@@ -355,6 +356,34 @@ profiles:
    Recorded: requests, states, the workers' restarts under each
    supervisor, the parity, seconds, the card's peak memory.used, each
    worker's logged launches.
+13. The adaptive scheduler (the sched line).  (a) Right after phase 9, on
+   phase 8's resident key: ProvingService(sched="adaptive", batch 4)
+   replays phase 8's four witnesses, its cost curve seeded with this
+   run's measurements (amort_points {1: phase 8's warm prove_gpu
+   seconds, 4: phase 9's median prove seconds a chunk}), over six
+   requests: one interactive, three bulk, one whose deadline has passed
+   and one bulk whose deadline is half the seeded model's prediction for
+   its place.  The interactive request is proved alone in the first
+   batch, the bulk three in one batch after it, the other two end
+   error-shed with `sched` in their error before any witness work; the
+   done records carry batch_size_target, one sched line says backlog 6,
+   shed 2, lanes {interactive 1, bulk 3}, zkp2p_sched_decisions_total
+   counts them, every proof verifies under phase 8's vkey, the sweep
+   launches exactly two chunks' worth (the batch rule a chunk).
+   Recorded: the controller's model_scale after the first observed batch
+   (and that batch's seconds over the seed), the wall clock, each
+   batch's check_witness and prove seconds.  (b) `python -m
+   zkp2p_tpu_torch.tools.loadgen` with SCHED_FLEET_ARGS: one toy chaos
+   worker on the card under `fleet --workers-min 1 --workers-max 2
+   --sched adaptive`, a spike trace, in a session of its own from the
+   end of phase 1's kernel build beside chaos and phase 8, followed in
+   that session by the chaos invariant over its spool; it must exit 0
+   within SCHED_FLEET_TIMEOUT_S with every request done exactly once and
+   each proof verifying, the fleet grown to 2 on the spike and the same
+   worker retired back to 1 after it (the capacity JSON's and
+   status.json's scale events), no restart, park or escalation.
+   Recorded: served-under-SLO a segment, the scale events' seconds from
+   the ramp's start, each worker's logged launches.
 
 The launch counts are reset just before the first timed proof of each
 path and read just after it (phase 8: just before and after its setup,
@@ -397,7 +426,8 @@ prove and batch, the batch's seconds and proofs/s beside
 prove_gpu_batch's), and the flagship circuit's (phase 8: counts, build,
 witness, qap_coo, setup, proof and batch seconds, the CLI's wall clock,
 steps, classes and peak RSS, the 256/192 setup), the service's
-(phase 9), the fleet's (phase 11), chaos (phase 12) and the ceremony's (phase 10: the counted run's stage
+(phase 9), the fleet's (phase 11), chaos (phase 12), the scheduler's (phase 13) and the ceremony's (phase 10: the
+counted run's stage
 seconds, wall clock and launches an op; each command's).  The last line
 is {"ok": true, "device": {...}}.
 """
@@ -688,6 +718,34 @@ CHAOS_DIR = ".chip_scratch/chaos"
 CHAOS_ARGS = ("--fleet", "2", "--requests", "12", "--batch", "2", "--prove-s", "0.6", "--stale-claim-s", "3",
               "--device", "cuda")
 CHAOS_TIMEOUT_S = 420
+# phase 13, the scheduler: (a) in this process on phase 8's key, its batch
+# cap; (b) the load generator's toy fleet autoscaling 1 -> 2 -> 1 on a spike
+# (one chaos worker on the card at the start, 0.3 s a request and 0.6 s a
+# batch of service time, an 8 s objective), then the chaos invariant over
+# its spool in the same session; its scratch and time limit.  The windows
+# and the trace go together: a request alone holds the backlog above zero
+# (and so "growing", against the plane's 5 s trend window) for ~2.3 s, two
+# of the first segment's together for ~5 s, the spike for ~10 s: a 6 s
+# scale-up window grows the fleet on the spike alone (with 1 s windows it
+# grew on the first pair and flapped on a 0.3 QPS tail, on one H100).
+# The 0.1 QPS tail leaves idle gaps of 3 s and more once the spike's
+# backlog is gone, in which the 3 s scale-down window retires the worker
+# before the ramp ends.
+SCHED_DIR = ".chip_scratch/sched"
+SCHED_BATCH = 4
+SCHED_FLEET_ARGS = ("--circuit", "toy", "--device", "cuda", "--fleet", "1", "--fleet-min", "1", "--fleet-max", "2",
+                    "--sched", "adaptive", "--trace", "0.3x10,4x6,0.1x40", "--prove-s", "0.3", "--batch-overhead-s",
+                    "0.6", "--objective-s", "8", "--seed", "7", "--scale-up-s", "6", "--scale-down-s", "3",
+                    "--fleet-scrape-s", "0.5")
+SCHED_FLEET_CHECK = (
+    "import json, subprocess, sys\n"
+    "from zkp2p_tpu_torch.tools.chaos import check_invariants\n"
+    "rc = subprocess.call([sys.executable, '-m', 'zkp2p_tpu_torch.tools.loadgen', *sys.argv[3:]])\n"
+    "rep = check_invariants(sys.argv[1], device='cuda') if rc == 0 else {}\n"
+    "with open(sys.argv[2], 'w') as f:\n"
+    "    json.dump({'rc': rc, **rep}, f)\n"
+    "sys.exit(rc)\n")
+SCHED_FLEET_TIMEOUT_S = 300
 # phase 10, the ceremony: K19 at the ceremony's shape, where SCALE_HOLES
 # (0, 0) holes and SCALE_OFF_CURVE points off the curve sit among the
 # points and SCALE_SAMPLES are checked against the host, as are the first
@@ -3801,7 +3859,7 @@ def flagship_phase(torch, built, st, device):
             f"first {ifirst_s:.3f} s, warm {iwarm_s:.3f} s ("
             + ", ".join(f"{k[2:]} {v:.4f}" for k, v in iwarm.items() if k.startswith("s_"))
             + "); the same bytes as under the tagged classes")
-        del ikey, again, wits
+        del ikey, again
         torch.cuda.empty_cache()
         dump(proof_to_json(proof), os.path.join(d, "want.proof.json"))
         dump(public_to_json(pubs[0]), os.path.join(d, "want.public.json"))
@@ -3835,8 +3893,9 @@ def flagship_phase(torch, built, st, device):
         }
         # phase 9's: the resident key, the circuit, the batch's proofs
         # with their (r, s) and public signals
+        # and phase 13's: the four witnesses, the warm proof's seconds
         ctx = dict(key=key, vk=vk, cs=cs, lay=lay, params=params, rs=rs, pubs=pubs, proofs=proofs,
-                   flagship_cli=st["cli_prove"][0])
+                   flagship_cli=st["cli_prove"][0], wits=wits, warm_prove_s=warm_s)
         return line, st["setup_launches"], prove_launches, batch_launches, ctx
     except BaseException:
         stop(st["procs"])
@@ -4622,6 +4681,252 @@ def chaos_finish(ch, beside):
     return line
 
 
+# -------------------------------------------------------------- phase 13
+
+
+def sched_fleet_start():
+    """Phase 13 (b)'s start: the load generator's toy fleet
+    (SCHED_FLEET_ARGS: one chaos worker on the card under `fleet
+    --workers-min 1 --workers-max 2 --sched adaptive`, a spike trace) in a
+    session of its own, from the end of phase 1's kernel build beside
+    chaos and phase 8, then, in the same session, the chaos harness's
+    invariant over its spool (SCHED_FLEET_CHECK: every proof verified on
+    the host, off this process's thread); the output in
+    SCHED_DIR/fleet/loadgen.log, the capacity JSON in capacity.json, the
+    invariant's report in report.json."""
+    import os
+    import shutil
+
+    d = os.path.abspath(os.path.join(SCHED_DIR, "fleet"))
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    cmd = [sys.executable, "-c", SCHED_FLEET_CHECK, os.path.join(d, "spool"), os.path.join(d, "report.json"),
+           *SCHED_FLEET_ARGS, "--spool", os.path.join(d, "spool"), "--out", os.path.join(d, "capacity.json")]
+    out = open(os.path.join(d, "loadgen.log"), "w")
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), stdout=out,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    log(f"phase 13 (b): the load generator's fleet started (python -m zkp2p_tpu_torch.tools.loadgen "
+        f"{' '.join(cmd[5:])})")
+    return dict(dir=d, proc=proc, out=out, t0=time.time())
+
+
+def sched_fleet_stop(lg):
+    """Kill what is left of the load generator's run (its whole session);
+    idempotent."""
+    import os
+    import signal
+
+    if lg["proc"].poll() is None:
+        with contextlib.suppress(OSError):
+            os.killpg(lg["proc"].pid, signal.SIGKILL)
+        lg["proc"].wait()
+    lg["out"].close()
+
+
+def sched_fleet_finish(lg, beside):
+    """Phase 13 (b), once the load generator has exited (within
+    SCHED_FLEET_TIMEOUT_S of its start): exit 0; every request terminal
+    exactly once, each proof verifying under the toy key's VK (the
+    session's ``chaos.check_invariants``), all of them done; the fleet grown to 2
+    on the spike and retired back to 1 after it (the capacity JSON's
+    fleet_sched events and status.json's sched block: up to 2, then down
+    to 1 of the same worker), no worker restarted or parked, no drain
+    escalated.  Recorded: served-under-SLO a segment, the scale events'
+    seconds from the ramp's start, each worker's logged launches."""
+    import glob
+    import os
+    import re
+
+    try:
+        lg["proc"].wait(timeout=max(1.0, SCHED_FLEET_TIMEOUT_S - (time.time() - lg["t0"])))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"the load generator's fleet did not end within {SCHED_FLEET_TIMEOUT_S} s") from None
+    seconds = time.time() - lg["t0"]
+    rc = lg["proc"].returncode
+    sched_fleet_stop(lg)
+    with open(os.path.join(lg["dir"], "loadgen.log")) as f:
+        text = f.read()
+    for ln in text.splitlines():
+        if "autoscale" in ln or "scaled down" in ln or "exiting" in ln or "[loadgen]" in ln:
+            log(f"  | {ln}")
+    cap = read_json(os.path.join(lg["dir"], "capacity.json"))
+    report = read_json(os.path.join(lg["dir"], "report.json"))
+    if rc != 0 or not cap or not report:
+        raise AssertionError(f"the load generator's fleet exited {rc}:\n{text[-4000:]}")
+    spool = os.path.join(lg["dir"], "spool")
+    offered = sum(s["offered"] for s in cap["steps"])
+    if report["violations"] or report["states"] != {"done": offered} or report["proofs_verified"] != offered:
+        raise AssertionError(f"phase 13 (b)'s spool: {report} ({offered} offered)")
+    status = [read_json(p) for p in glob.glob(os.path.join(spool, ".fleet-*", "status.json"))]
+    if len(status) != 1 or not status[0]:
+        raise AssertionError(f"phase 13 (b)'s status.json: {status}")
+    status = status[0]
+    # grown on the spike (after the trace's first segment), retired after
+    # it: up to 2, then down to 1 (alternating, should it grow again)
+    spike_at = float(SCHED_FLEET_ARGS[SCHED_FLEET_ARGS.index("--trace") + 1].split("x")[1].split(",")[0])
+    for name, block in (("capacity JSON", cap.get("fleet_sched") or {}), ("status.json", status.get("sched") or {})):
+        events = block.get("events") or []
+        steps = [(e["direction"], e["workers"]) for e in events]
+        if not steps or steps != [("up", 2), ("down", 1)] * (len(steps) // 2) or len(steps) % 2 \
+                or events[0]["ts"] < cap["ts"] + spike_at or events[0]["worker"] != events[1]["worker"]:
+            raise AssertionError(f"the {name}'s scale events {events}: up to 2 on the spike (from {spike_at:g} s into "
+                                 "the ramp) and down to 1 after it expected")
+    workers = status["workers"]
+    if any(w.get("restarts") or w["state"] == "parked" for w in workers.values()) or status["escalations"]:
+        raise AssertionError(f"phase 13 (b)'s workers: {workers}, escalations {status['escalations']}")
+    events = [{**e, "s_from_ramp": round(e["ts"] - cap["ts"], 3)} for e in cap["fleet_sched"]["events"]]
+    launches = [{"worker": wid, "why": why, "launches": json.loads(js)} for wid, why, js in
+                re.findall(r"\[chaos-worker \d+\] (\S+) exiting \((\w+)\): launches (\{[^{}]*\})", text)]
+    line = {"shape": "the toy circuit out = (x*y)^2 set up on the card, seed 'chaos'; chaos workers under `fleet`",
+            "command": "python -m zkp2p_tpu_torch.tools.loadgen " + " ".join(lg["proc"].args[5:]), "trace": cap["trace"], "objective_p95_s": cap["objective_p95_s"],
+            "sched": cap["sched"], "requests": offered, "states": report["states"],
+            "served_under_slo": [s["served_under_slo"] for s in cap["steps"]],
+            "p95_s": [s["p95_s"] for s in cap["steps"]], "attainment": [s["attainment"] for s in cap["steps"]],
+            "mean_batch_fill": cap.get("mean_batch_fill"), "scale_events": events,
+            "fleet_slo": cap.get("fleet_slo"), "alerts_fired": (cap.get("fleet_alerts") or {}).get("fired"),
+            "workers": {wid: {"state": w["state"], "last_rc": w["last_rc"], "restarts": w["restarts"]}
+                        for wid, w in workers.items()},
+            "worker_launches": launches, "seconds": seconds, "beside": beside}
+    log(f"sched fleet: {offered} requests {report['states']}, {report['proofs_verified']} verified; served under "
+        f"the {cap['objective_p95_s']:g} s objective {line['served_under_slo']} of "
+        f"{[s['offered'] for s in cap['steps']]}; scale events "
+        + ", ".join(f"{e['direction']} {e['worker']} -> {e['workers']} at {e['s_from_ramp']:.1f} s ({e['reason']})"
+                    for e in events)
+        + f"; {seconds:.1f} s beside {beside}; {len(launches)} workers logged launches")
+    return line
+
+
+def sched_phase(torch, fl, service_line, device):
+    """Phase 13 (a): the adaptive scheduler at full width, on phase 8's
+    resident key (`fl`).  A ProvingService with sched="adaptive",
+    batch_size SCHED_BATCH, seeded with the card's cost measured earlier in
+    this run (amort_points {1: phase 8's warm prove_gpu seconds, 4: phase
+    9's median prove seconds a chunk}), replays phase 8's four witnesses
+    over six requests: one interactive, three bulk, one whose deadline
+    has passed, one bulk whose deadline (unexpired) is half of what the
+    seeded model predicts for its place.  The interactive request must
+    be proved alone in the first batch and the three bulk in one batch
+    after it, the other two end error-shed with `sched` in their error
+    before any witness work; every done record carries
+    batch_size_target; one sched line reports backlog 6, shed 2, lanes
+    {interactive 1, bulk 3}; zkp2p_sched_decisions_total counts 2 sheds,
+    2 batches, 1 lane; every proof verifies under phase 8's vkey; the
+    sweep launches exactly two chunks' worth.  Recorded: the controller's
+    model_scale after the first observed batch (and the observed batch
+    seconds over the seed), the wall clock, each batch's witness check
+    and prove seconds.  Returns (the line, the sweep's launches)."""
+    import os
+    import shutil
+
+    from zkp2p_tpu_torch.ops import cuda_build
+    from zkp2p_tpu_torch.pipeline.sched import AmortModel
+    from zkp2p_tpu_torch.pipeline.service import ProvingService
+    from zkp2p_tpu_torch.utils import trace as tr
+    from zkp2p_tpu_torch.utils.metrics import REGISTRY
+
+    d = os.path.abspath(os.path.join(SCHED_DIR, "in_process"))
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    cs, wits, n_pub = fl["cs"], fl["wits"], fl["cs"].num_public
+    points = {1: fl["warm_prove_s"], SCHED_BATCH: statistics.median(service_line["default"]["prove_s"])}
+    try:
+        spool = os.path.join(d, "spool")
+        svc = ProvingService(cs, fl["key"], fl["vk"], lambda p: wits[int(p["w"])], lambda w: list(w[1 : n_pub + 1]),
+                             batch_size=SCHED_BATCH, sched="adaptive", amort_points=points, device=device)
+        ctl = svc._sched_controller()
+        observed = []
+        observe = ctl.observe_batch
+
+        def observe_batch(fill, seconds):
+            scale = observe(fill, seconds)
+            observed.append({"fill": fill, "s": seconds, "over_seed": seconds / ctl.amort.batch_s(fill),
+                             "model_scale": scale})
+            return scale
+
+        ctl.observe_batch = observe_batch
+        # the tight request sits at kept position 4 (after the interactive
+        # and the three bulk): the seeded model's optimistic completion
+        # there, of which its deadline is half
+        predicted = min(-(-5 // s) * AmortModel(points).batch_s(s) for s in range(1, SCHED_BATCH + 1))
+        write_requests(spool, {"a_inter": {"w": 0, "priority": "interactive"},
+                               "b_late": {"w": 1, "deadline_s": 5}})
+        past = time.time() - 60
+        os.utime(os.path.join(spool, "b_late.req.json"), (past, past))
+        write_requests(spool, {f"c_bulk{i}": {"w": i} for i in (1, 2, 3)})
+        write_requests(spool, {"d_tight": {"w": 2, "priority": "bulk", "deadline_s": predicted / 2}})
+        check_s = []
+        real_check = cs.check_witness
+
+        def timed_check(w):
+            t0 = time.perf_counter()
+            real_check(w)
+            check_s.append(time.perf_counter() - t0)
+
+        kinds = ("shed", "batch", "lane")
+        before = {k: REGISTRY.counter("zkp2p_sched_decisions_total", {"kind": k}).value for k in kinds}
+        tr.reset()
+        cuda_build.reset_launches()
+        with patched([(cs, "check_witness", timed_check)]):
+            wall, stats = wall_s(torch, lambda: svc.process_dir(spool))
+        launches = dict(cuda_build.LAUNCHES)
+        spans = tr.records()
+        decisions = {k: REGISTRY.counter("zkp2p_sched_decisions_total", {"kind": k}).value - v
+                     for k, v in before.items()}
+        if stats != {"done": 4, "error-bad-input": 0, "error-failed-to-prove": 0, "error-deadline-exceeded": 0,
+                     "error-shed": 2}:
+            raise AssertionError(f"the adaptive sweep ended {stats}")
+        recs = {r["request_id"]: r for r in sink_records(spool, "request")}
+        done = ["a_inter", "c_bulk1", "c_bulk2", "c_bulk3"]
+        slots = {n: (recs[n]["state"], recs[n].get("batch_n"), recs[n].get("batch_size_target")) for n in done}
+        if slots != {"a_inter": ("done", 1, 1), **{n: ("done", 3, 3) for n in done[1:]}}:
+            raise AssertionError(f"the adaptive sweep's batches: {slots}")
+        if recs["a_inter"]["t_claim"] >= min(recs[n]["t_claim"] for n in done[1:]) or recs["a_inter"]["ts"] >= min(
+                recs[n]["ts"] for n in done[1:]):
+            raise AssertionError("the interactive request was not claimed and proved first")
+        for n in ("b_late", "d_tight"):
+            if recs[n]["state"] != "error-shed" or "sched:" not in recs[n]["error"] or recs[n].get("spans"):
+                raise AssertionError(f"{n}: {recs[n]}")
+        lines = sink_records(spool, "sched")
+        if len(lines) != 1 or (lines[0]["backlog"], lines[0]["shed"], lines[0]["lanes"]) != (
+                6, 2, {"interactive": 1, "bulk": 3}):
+            raise AssertionError(f"the sched lines: {lines}")
+        if decisions != {"shed": 2, "batch": 2, "lane": 1}:
+            raise AssertionError(f"zkp2p_sched_decisions_total moved {decisions}")
+        want = {"fr_ntt_pass": 6, "fr_matvec": 2, "signed_recode": 2, **CLASSED_PROOF_LAUNCHES}
+        got = {k: launches["zk_" + k] for k in want}
+        if got != {k: 2 * v for k, v in want.items()}:
+            raise AssertionError(f"the adaptive sweep's launches {got}, two chunks of {want} expected")
+        missing = [k for k in PATH_KERNELS["batch"] if not launches["zk_" + k]]
+        stray = [k for k in NOT_ON_JACOBIAN if launches["zk_" + k]]
+        if missing or stray:
+            raise AssertionError(f"the adaptive sweep launched {launches}: missing {missing}, stray {stray}")
+        verify_s = verify_spool(fl["vk"], spool, done)
+        if len(observed) != 2 or [o["fill"] for o in observed] != [1, 3]:
+            raise AssertionError(f"the controller observed {observed}")
+        prove_s = [r["ms"] / 1e3 for r in spans if r["stage"] == "service/prove"]
+        sample_verify_s = [r["ms"] / 1e3 for r in spans if r["stage"] == "service/verify"]
+        line = {
+            "shape": "venmo 1024/6400, phase 8's key and its four witnesses replayed",
+            "amort_points": points, "predicted_s_at_position_4": predicted, "tight_deadline_s": predicted / 2,
+            "stats": stats, "batches": [1, 3], "sched_line": {k: v for k, v in lines[0].items()
+                                                              if k not in ("ts", "pid", "run_id")},
+            "decisions": decisions, "wall_s": wall, "check_witness_s": check_s, "prove_s": prove_s,
+            "sample_verify_s": sample_verify_s, "observed": observed,
+            "model_scale_after_first_batch": observed[0]["model_scale"], "model_scale": ctl.model_scale,
+            "all_verify": True, "verify_s": verify_s, "launches": {k[3:]: v for k, v in launches.items() if v},
+        }
+        log(f"sched, adaptive at full width: {stats} in {wall:.2f} s; batches [1, 3] (the interactive first); "
+            f"seed {{1: {points[1]:.3f}, {SCHED_BATCH}: {points[SCHED_BATCH]:.3f}}} s, the tight deadline "
+            f"{predicted / 2:.2f} s of a predicted {predicted:.2f} s; observed "
+            + ", ".join(f"{o['fill']}: {o['s']:.2f} s ({o['over_seed']:.2f}x the seed)" for o in observed)
+            + f", model_scale {observed[0]['model_scale']:.3f} after the first batch, {ctl.model_scale:.3f} after "
+            f"both; check_witness {[round(x, 2) for x in check_s]} s, prove {[round(x, 3) for x in prove_s]} s; "
+            f"every proof verifies ({verify_s:.2f} s)")
+        return line, launches
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 # -------------------------------------------------------------- phase 10
 
 
@@ -5348,9 +5653,9 @@ def vector_phase(torch, device):
 
 
 def run(torch, device, peak_muls, sm_clock_hz):
-    """Phases 1-12 on `device`, in the order 1 (12 from the end of its
-    kernel build, beside the rest of 1 and 8), 8 (its subprocesses beside
-    it and 9), 9, 2 (phase 11's workers building their circuits and
+    """Phases 1-13 on `device`, in the order 1 (12 and 13 (b) from the end
+    of its kernel build, beside the rest of 1 and 8), 8 (its subprocesses
+    beside it and 9), 9, 13 (a), 2 (phase 11's workers building their circuits and
     importing their keys beside it), 11 (2's K15/K16 bitwise checks and 3
     beside its proofs), 6, 7
     (phase 4's set-up beside its subprocesses), 10 (its command line in a
@@ -5367,17 +5672,20 @@ def run(torch, device, peak_muls, sm_clock_hz):
     # starts once the kernels are built, beside the rest of the circuit's
     # build and phase 8
     t0 = time.perf_counter()
-    chaos = None
+    chaos = sched_fleet = None
     try:
         with ThreadPoolExecutor(1) as pool:
             flagship_build = pool.submit(build_flagship)
             libs = cuda_build.build_all()
             build_s = time.perf_counter() - t0
             chaos = chaos_start()
+            sched_fleet = sched_fleet_start()
             built = flagship_build.result()
     except BaseException:
         if chaos is not None:
             chaos_stop(chaos)
+        if sched_fleet is not None:
+            sched_fleet_stop(sched_fleet)
         raise
     # its tens of millions of objects live to the end: no collection scans them
     gc.freeze()
@@ -5399,6 +5707,7 @@ def run(torch, device, peak_muls, sm_clock_hz):
         fl_start = flagship_start(torch, built, device)
     except BaseException:
         chaos_stop(chaos)
+        sched_fleet_stop(sched_fleet)
         raise
     fleet = None
     log(f"phase 8's start (setup_device, the zkey's data; its files, subprocesses and inference follow in a "
@@ -5412,13 +5721,21 @@ def run(torch, device, peak_muls, sm_clock_hz):
         t0 = time.perf_counter()
         chaos_line = chaos_finish(chaos, "phase 1's circuit build, phase 8")
         log(f"phase 12 (chaos): waited {time.perf_counter() - t0:.1f} s for it after phase 8")
+        # phase 13 (b) ends before phase 9 too
+        t0 = time.perf_counter()
+        sched_fleet_line = sched_fleet_finish(sched_fleet, "phase 1's circuit build, chaos, phase 8")
+        log(f"phase 13 (b) (the scheduler's fleet): waited {time.perf_counter() - t0:.1f} s for it after phase 12")
         # phase 9, on phase 8's key
         t0 = time.perf_counter()
         service, service_launches = service_phase(torch, fl, device)
+        log(f"phase 9 (the proving service): {time.perf_counter() - t0:.1f} s")
+        # phase 13 (a), on phase 8's key and witnesses, seeded by phases 8-9
+        t0 = time.perf_counter()
+        sched_line, sched_launches = sched_phase(torch, fl, service, device)
+        log(f"phase 13 (a) (the adaptive scheduler at full width): {time.perf_counter() - t0:.1f} s")
         del fl
         fl_start.pop("key")  # the flagship key leaves the card before phase 2
         torch.cuda.empty_cache()
-        log(f"phase 9 (the proving service): {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         flagship_finish(fl_start, flagship)
         log(f"phase 8's CLI after phase 9: {time.perf_counter() - t0:.1f} s")
@@ -5443,6 +5760,8 @@ def run(torch, device, peak_muls, sm_clock_hz):
     finally:
         chaos_stop(chaos)
         shutil.rmtree(chaos["dir"], ignore_errors=True)
+        sched_fleet_stop(sched_fleet)
+        shutil.rmtree(os.path.abspath(SCHED_DIR), ignore_errors=True)
         if fleet is not None:
             fleet_stop(fleet)
             shutil.rmtree(fleet["dir"], ignore_errors=True)
@@ -5528,7 +5847,8 @@ def run(torch, device, peak_muls, sm_clock_hz):
         "affine")
     by_path = {"jacobian": jac_launches, "affine": aff_launches, "batch": batch_launches, "setup": setup_launches,
                "cli_prove": cli_launches, "cli_batch": cli_batch_launches, "flagship_setup": fl_setup,
-               "flagship_prove": fl_prove, "flagship_batch": fl_batch, "service": service_launches, **cer_launches}
+               "flagship_prove": fl_prove, "flagship_batch": fl_batch, "service": service_launches,
+               "sched": sched_launches, **cer_launches}
     for path, names in PATH_KERNELS.items():
         missing = [k for k in names if by_path[path]["zk_" + k] == 0]
         if missing:
@@ -5536,7 +5856,8 @@ def run(torch, device, peak_muls, sm_clock_hz):
     for path, names in (("jacobian", NOT_ON_JACOBIAN), ("affine", NOT_ON_AFFINE), ("batch", NOT_ON_JACOBIAN),
                         ("setup", OFF_PATH), ("cli_prove", NOT_ON_JACOBIAN), ("cli_batch", NOT_ON_JACOBIAN),
                         ("flagship_setup", OFF_PATH), ("flagship_prove", NOT_ON_JACOBIAN),
-                        ("flagship_batch", NOT_ON_JACOBIAN), ("service", NOT_ON_JACOBIAN)):
+                        ("flagship_batch", NOT_ON_JACOBIAN), ("service", NOT_ON_JACOBIAN),
+                        ("sched", NOT_ON_JACOBIAN)):
         stray = [k for k in names if by_path[path]["zk_" + k]]
         if stray:
             raise AssertionError(f"launchers launched on the {path} path, which no longer runs them: {stray}")
@@ -5600,6 +5921,7 @@ def run(torch, device, peak_muls, sm_clock_hz):
              "real_size_batch": real_batch, "batch_same_run": batch_same_run, "setup_vector": setup_vector,
              "real_size_setup": real_setup, "cli_real_size": cli_line, "flagship": flagship, "service": service,
              "fleet": fleet_line, "chaos": chaos_line,
+             "sched": {"in_process": sched_line, "fleet": sched_fleet_line},
              "ceremony": {"shape": f"phase 6's key (venmo 1024/6400 counts): c {V['n_wires'] - V['n_public'] - 1} + "
                                    f"h {1 << V['log_m']} points, zkey {cer_cli['zkey_bytes']} bytes",
                           "in_process": cer_line, "cli": cer_cli,

@@ -187,9 +187,8 @@ def test_worker_side_soft_degrade(tmp_path):
 
 
 def test_heartbeat_has_the_reference_fields(tmp_path):
-    """The reference's heartbeat fields less tier, sched and perf (the
-    scheduler and the perf sentry are not ported), the SLO window's
-    fields equal."""
+    """The reference's heartbeat fields less perf (the perf sentry is not
+    ported), the SLO window's fields equal, the advertised tier equal."""
     stub = SimpleNamespace(draining=False, _worker_id="w4", _fleet_id="f4", _fleet_degraded=False)
     hbs = {}
     for side, mod in SIDES.items():
@@ -197,7 +196,7 @@ def test_heartbeat_has_the_reference_fields(tmp_path):
         mod._write_heartbeat(stub, d)
         with open(os.path.join(d, "w4.hb")) as f:
             hbs[side] = json.load(f)
-    assert set(hbs["port"]) == set(hbs["reference"]) - {"tier", "sched", "perf"}
+    assert set(hbs["port"]) == set(hbs["reference"]) - {"perf"}
     assert set(hbs["port"]["slo_window"]) == set(hbs["reference"]["slo_window"])
-    for k in ("pid", "worker", "fleet", "state", "degraded"):
+    for k in ("pid", "worker", "fleet", "state", "degraded", "tier"):
         assert hbs["port"][k] == hbs["reference"][k]

@@ -657,3 +657,40 @@ def test_chaos_without_cuda_raises_before_spawning(monkeypatch, tmp_path):
     out = subprocess.run([sys.executable, "-m", "zkp2p_tpu_torch.tools.chaos", "--spool", str(spool)], cwd=ROOT,
                          capture_output=True, text=True, timeout=300, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode != 0 and "no CUDA device" in out.stderr and not spool.exists()
+
+
+def test_scheduler_and_loadgen_load_no_jax():
+    """The scheduler and the load generator import neither JAX nor the
+    reference package."""
+    mods = ["zkp2p_tpu_torch.pipeline.sched", "zkp2p_tpu_torch.tools.loadgen"]
+    code = ("import sys, importlib\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "print([m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'zkp2p_tpu')])\n")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHONPATH")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "[]", out.stderr
+
+
+def test_loadgen_without_cuda_raises_before_writing_or_spawning(monkeypatch, tmp_path):
+    """The load generator serves on CUDA unless --device cpu: without CUDA
+    it raises before it writes a request, builds a world or spawns a
+    fleet, in process and from its entry point."""
+    from zkp2p_tpu_torch.tools import loadgen
+
+    def no_spawn(*a, **k):
+        raise AssertionError("spawned a process or built a world")
+
+    spool = tmp_path / "spool"
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        m.setattr(subprocess, "Popen", no_spawn)
+        m.setattr(loadgen, "toy_world", no_spawn)
+        m.setattr(loadgen, "build_venmo", no_spawn)
+        for argv in (["--spool", str(spool)], ["--spool", str(spool), "--fleet", "1", "--fleet-max", "2"],
+                     ["--spool", str(spool), "--circuit", "venmo"], ["--spool", str(spool), "--device", "cuda"]):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                loadgen.main(argv)
+    assert not spool.exists()
+    out = subprocess.run([sys.executable, "-m", "zkp2p_tpu_torch.tools.loadgen", "--spool", str(spool)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0 and "no CUDA device" in out.stderr and not spool.exists()

@@ -37,8 +37,14 @@ rapidsnark drop-in prover.
            port the OS chooses) serves /metrics (Prometheus text),
            /status (JSON; 503 until the preflight has run), /healthz and
            /snapshot (the registry and SLO window as JSON) on
-           --metrics-addr (default 127.0.0.1).  It logs its kernels'
-           launch counts at exit.
+           --metrics-addr (default 127.0.0.1).  --sched adaptive hands
+           admission and batching to the scheduler (``pipeline.sched``:
+           priority lanes by the payload's `priority`, --priority-default
+           bulk; shedding by predicted deadline miss; batches sized by
+           --sched-amort 'S:sec,...' and --sched-target-fill 0.8 against
+           the deadline or --slo-p95-s); --worker-tier is the tier its
+           heartbeat advertises.  It logs its kernels' launch counts at
+           exit.
   fleet    N `service` workers on one spool under a supervisor
            (``pipeline.fleet``): restarts with backoff and a crash-loop
            breaker, SIGTERM drains every worker (SIGKILL past
@@ -53,6 +59,10 @@ rapidsnark drop-in prover.
            serves the merged /metrics, /status (503 until every live
            worker has armed its gates; the merged SLO, the alerts) and
            /healthz; status.json then carries its body and its port.
+           --workers-max N (> 0) autoscales the fleet between
+           --workers-min and N on the plane's backlog trend and burn
+           rates (--scale-up-s 10, --scale-down-s 30; the plane turns on);
+           --sched ARM is appended to each worker's argv.
   top      the fleet plane's /status as a terminal view (--url, --port,
            or --fleet-dir DIR reading DIR/status.json's metrics_port;
            --interval 2, --once for one frame); an HTTP client, no card
@@ -74,6 +84,8 @@ rapidsnark drop-in prover.
     python -m zkp2p_tpu_torch --circuit venmo --max-header 1024 --max-body 6400 service --spool spool/
     python -m zkp2p_tpu_torch --circuit venmo --max-header 1024 --max-body 6400 fleet --spool spool/ --batch 2 \
         --fleet-metrics-port auto
+    python -m zkp2p_tpu_torch --circuit venmo --max-header 1024 --max-body 6400 fleet --spool spool/ --batch 2 \
+        --workers-min 1 --workers-max 2 --sched adaptive
     python -m zkp2p_tpu_torch top --fleet-dir spool/.fleet
     python -m zkp2p_tpu_torch ceremony contribute build/circuit_0.zkey build/circuit_1.zkey --entropy "..."
     python -m zkp2p_tpu_torch doctor --json
@@ -418,7 +430,9 @@ def cmd_service(args):
                   deadline_s=args.deadline_s, spool_cap=args.spool_cap, slo_p95_s=args.slo_p95_s,
                   ts_sample_s=args.ts_sample_s, device=dev, metrics_port=args.metrics_port,
                   metrics_addr=args.metrics_addr, worker_id=args.worker_id, fleet_id=args.fleet_id,
-                  fleet_dir=args.fleet_dir)
+                  fleet_dir=args.fleet_dir, sched=args.sched, sched_amort=args.sched_amort,
+                  sched_target_fill=args.sched_target_fill, sched_priority_default=args.priority_default,
+                  worker_tier=args.worker_tier)
     if args.circuit == "venmo":
         svc = ProvingService.for_venmo(cs, lay, params, dpk, vk, **svc_kw)
     else:
@@ -434,7 +448,7 @@ def cmd_service(args):
         svc = ProvingService(cs, dpk, vk, witness_fn, lambda w: list(w[1 : cs.num_public + 1]), **svc_kw)
     os.makedirs(args.spool, exist_ok=True)
     install_drain_handlers(svc)
-    _log(f"service sweeping {args.spool} (batch={args.batch})")
+    _log(f"service sweeping {args.spool} (batch={args.batch}, sched={args.sched})")
     why = svc.run(args.spool, poll_s=args.poll, max_sweeps=args.max_sweeps, max_seconds=args.max_seconds,
                   exit_when_spool_terminal=args.exit_when_terminal)
     # which kernels this worker ran, in its log
@@ -480,7 +494,8 @@ def cmd_fleet(args):
                           breaker_window_s=args.breaker_window_s, restart_backoff_s=args.restart_backoff_s,
                           rss_soft_mb=args.rss_soft_mb, rss_hard_mb=args.rss_hard_mb, liveness_s=args.liveness_s,
                           fleet_metrics_port=args.fleet_metrics_port, scrape_s=args.fleet_scrape_s,
-                          log=lambda m: _log(f"fleet: {m}"))
+                          workers_min=args.workers_min, workers_max=args.workers_max, scale_up_s=args.scale_up_s,
+                          scale_down_s=args.scale_down_s, sched=args.sched, log=lambda m: _log(f"fleet: {m}"))
     _log(f"fleet {sup.fleet_id}: {sup.n} worker(s) on {args.spool} (fleet dir {sup.fleet_dir}, drain timeout "
          f"{sup.drain_timeout_s:g}s)")
     sys.exit(sup.run(max_seconds=args.max_seconds))
@@ -693,6 +708,18 @@ def main(argv=None):
     s.add_argument("--metrics-addr", default="127.0.0.1", help="the endpoint's address (default 127.0.0.1)")
     s.add_argument("--worker-id", default="", help="this worker's id in a fleet (the supervisor sets it)")
     s.add_argument("--fleet-id", default="", help="the fleet's id (the supervisor sets it)")
+    s.add_argument("--sched", choices=["off", "adaptive"], default="off",
+                   help="admission and batching: off = the static batch_size slices and newest-first shed; adaptive "
+                        "= batches sized against the deadline / objective, shedding by predicted miss, priority "
+                        "lanes")
+    s.add_argument("--sched-amort", default="",
+                   help="the adaptive controller's batch cost curve 'S:seconds,...' (default: the built-in curve)")
+    s.add_argument("--sched-target-fill", type=float, default=0.8,
+                   help="the share of a request's deadline / objective its batch is planned to fill")
+    s.add_argument("--priority-default", choices=["interactive", "bulk"], default="bulk",
+                   help="the lane of a request whose payload names no valid priority")
+    s.add_argument("--worker-tier", default="",
+                   help="the tier this worker advertises to its peers: sharded or native (anything else)")
     s.add_argument("--fleet-dir", default="",
                    help="the fleet's heartbeat / control directory (the supervisor sets it; default: solo)")
     s.set_defaults(fn=cmd_service)
@@ -731,6 +758,15 @@ def main(argv=None):
     s.add_argument("--fleet-metrics-port", type=_metrics_port, default=None,
                    help="serve the fleet plane's merged /metrics, /status and /healthz on this port ('auto' or 0: "
                         "one the OS chooses, in status.json; default: off)")
+    s.add_argument("--sched", choices=["off", "adaptive"], default=None,
+                   help="the workers' scheduler arm, appended to each worker's argv (default: theirs, off)")
+    s.add_argument("--workers-min", type=int, default=0, help="the autoscaler's floor (at least 1 when it is on)")
+    s.add_argument("--workers-max", type=int, default=0,
+                   help="the autoscaler's ceiling; 0 = autoscaling off (on, it runs the fleet plane)")
+    s.add_argument("--scale-up-s", type=float, default=10.0,
+                   help="how long backlog growth or an SLO burn must hold before a worker is added")
+    s.add_argument("--scale-down-s", type=float, default=30.0,
+                   help="how long an empty backlog must hold before the newest worker is retired")
     s.add_argument("--fleet-scrape-s", type=float, default=2.0,
                    help="the fleet plane's interval between scrapes of the workers' /snapshot")
     device_arg(s)

@@ -14,12 +14,17 @@ the reference's ``pipeline/fleet.py``).
     - governor: each worker's RSS from /proc; over the soft budget the
       worker is told (its ctl file) to degrade, over the hard one it is
       drained and restarted, without a breaker penalty
+    - autoscaling (workers_max > 0): ``pipeline.sched.AutoscalePolicy``
+      on the fleet plane's merged signals grows the fleet by a fresh
+      worker (ids never come back) or retires the newest live one (a
+      drain: SIGTERM, SIGKILL past the drain timeout) inside
+      [workers_min, workers_max]
 
 Files in `fleet_dir` (default <spool>/.fleet/), replaced atomically:
 
   <wid>.hb     the worker's heartbeat: {pid, ts, worker, fleet, state,
                port (its endpoint's bound port), rss_mb, degraded,
-               slo_window}
+               slo_window, tier, sched (its last sweep's decisions)}
   <wid>.ctl    supervisor -> worker: {"degrade": 1} asks for the soft
                degrade at the worker's next sweep
   status.json  the supervisor's state, rewritten each tick; with the
@@ -35,17 +40,17 @@ Where the port differs from the reference:
     appends `--worker-id <wid> --fleet-id <id> --fleet-dir <dir>
     --metrics-port 0` to each worker's argv (port 0: each worker's
     endpoint on a port the OS chooses, so that N workers never collide;
-    the heartbeat carries the port).  The workers inherit the
-    supervisor's environment, which nothing here reads.
-  - The heartbeat has no `tier`, `sched` or `perf`: the scheduler and
-    the perf sentry are not ported yet.
+    the heartbeat carries the port), and `--sched <arm>` when given one.
+    The workers inherit the supervisor's environment, which nothing here
+    reads.
+  - The heartbeat has no `perf`: the perf sentry is not ported yet.
   - The soft degrade halves the batch and frees nothing else: the port
     has no fixed-base precomputed tables to drop.
   - The policy is keyword arguments whose defaults are the reference's
     configuration defaults (2 workers, drain 30 s, RSS budgets off,
     breaker 5 in 60 s, backoff 0.5 s, liveness 60 s, no fleet plane, a
-    plane's scrape every 2 s).  Only autoscaling is not ported yet; its
-    reference default (off) is the static fleet below.
+    plane's scrape every 2 s, autoscaling off: workers_max 0, scale-up
+    and scale-down windows 10 s and 30 s).
   - The supervisor only spawns processes: it never touches CUDA.
 """
 
@@ -175,6 +180,15 @@ def _write_heartbeat(svc, fleet_dir: str, state: Optional[str] = None) -> None:
         # for the fleet plane to merge when a scrape fails
         "slo_window": default_tracker().window_state(max_samples=512),
     }
+    # the tier this worker advertises: its peers route their lanes by it
+    # (pipeline.sched; run() records it as the worker_tier arm)
+    from .sched import normalize_tier
+
+    hb["tier"] = normalize_tier(getattr(svc, "worker_tier", ""))
+    # the last sweep's scheduler decisions, for the fleet's /status and `top`
+    sched_hb = getattr(svc, "_sched_hb", None)
+    if sched_hb:
+        hb["sched"] = dict(sched_hb)
     _atomic_write_json(os.path.join(fleet_dir, hb["worker"] + ".hb"), hb)
 
 
@@ -245,10 +259,10 @@ def governor_arm(rss_soft_mb: int, rss_hard_mb: int) -> str:
 @dataclass
 class WorkerSlot:
     """One worker as the supervisor sees it.  States: starting -> up ->
-    (done | backoff -> up | parked | draining -> done).  `done` is an exit
-    with rc 0 (drained, or the spool ended) or any exit in a fleet drain,
-    and is never restarted; `parked` is the breaker's, and is never
-    restarted either."""
+    (done | backoff -> up | parked | draining -> done | retiring -> done).
+    `done` is an exit with rc 0 (drained, or the spool ended), any exit in
+    a fleet drain or any exit of a retiring worker, and is never
+    restarted; `parked` is the breaker's, and is never restarted either."""
 
     wid: str
     proc: Optional[subprocess.Popen] = None
@@ -262,13 +276,21 @@ class WorkerSlot:
     soft_signalled: bool = False
     governor_deadline: float = 0.0  # the hard governor's drain deadline (0 = none)
     governor_restart: bool = False  # the next exit is the governor's restart, not a crash
+    # the autoscaler's scale-down: SIGTERMed to leave the fleet (a drain),
+    # its exit final whatever the rc; SIGKILL past scale_deadline
+    retiring: bool = False
+    scale_deadline: float = 0.0
 
 
 class FleetSupervisor:
     """Spawn N workers on one spool and keep them healthy.  `worker_cmd`
     maps a worker id to its argv, to which the supervisor appends the
-    worker's identity flags.  Exit codes of run(): 0 clean, 3 the drain
-    escalated to SIGKILL, 4 every worker parked."""
+    worker's identity flags (and `--sched` when `sched` is given).  With
+    workers_max > 0 the fleet autoscales in [max(1, workers_min),
+    workers_max] (`workers` clamped into the band), which turns on the
+    fleet plane (on a port the OS chooses when none is given).  Exit codes
+    of run(): 0 clean, 3 the drain escalated to SIGKILL, 4 every worker
+    parked."""
 
     def __init__(
         self,
@@ -286,6 +308,11 @@ class FleetSupervisor:
         liveness_s: float = 60.0,
         fleet_metrics_port: Optional[int] = None,
         scrape_s: float = 2.0,
+        workers_min: int = 0,
+        workers_max: int = 0,
+        scale_up_s: float = 10.0,
+        scale_down_s: float = 30.0,
+        sched: Optional[str] = None,
         log: Callable[[str], None] = lambda m: print(f"[fleet] {m}", flush=True),
     ):
         from ..utils.audit import record_arm
@@ -313,6 +340,37 @@ class FleetSupervisor:
         self.watchdog_kills = 0
         self._stop = threading.Event()
         self._draining = False
+        # the workers' scheduler arm (None: their own default)
+        self.sched = sched
+        # autoscaling (pipeline.sched.AutoscalePolicy): workers_max 0 is
+        # off, the static fleet
+        self.workers_min = workers_min
+        self.workers_max = workers_max
+        self.scale_up_s = scale_up_s
+        self.scale_down_s = scale_down_s
+        self.autoscale = workers_max > 0
+        self._autoscaler = None
+        self._scale_events: List[Dict] = []
+        self._next_widx = self.n
+        if self.autoscale:
+            from .sched import AutoscalePolicy
+
+            self.workers_min = max(1, workers_min)
+            self.workers_max = max(self.workers_min, workers_max)
+            # --workers seeds the fleet inside the band
+            if not self.workers_min <= self.n <= self.workers_max:
+                was = self.n
+                self.n = min(max(self.n, self.workers_min), self.workers_max)
+                log(f"autoscale: initial workers {was} clamped to {self.n} "
+                    f"(band [{self.workers_min}, {self.workers_max}])")
+                self.slots = {f"w{i}": WorkerSlot(wid=f"w{i}") for i in range(self.n)}
+                self._next_widx = self.n
+            self._autoscaler = AutoscalePolicy(self.workers_min, self.workers_max, scale_up_s=scale_up_s,
+                                               scale_down_s=scale_down_s)
+            # the policy reads the plane's merged signals
+            if self.fleet_metrics_port is None:
+                self.fleet_metrics_port = 0
+                log("autoscale needs the fleet plane: enabling an ephemeral fleet metrics port")
         os.makedirs(self.fleet_dir, exist_ok=True)
         record_arm("service_fleet", f"supervisor:{self.n}")
         governor_arm(rss_soft_mb, rss_hard_mb)
@@ -320,8 +378,11 @@ class FleetSupervisor:
     # ------------------------------------------------------------ spawn
 
     def _argv(self, wid: str) -> List[str]:
-        return list(self.worker_cmd(wid)) + ["--worker-id", wid, "--fleet-id", self.fleet_id,
+        argv = list(self.worker_cmd(wid)) + ["--worker-id", wid, "--fleet-id", self.fleet_id,
                                              "--fleet-dir", self.fleet_dir, "--metrics-port", "0"]
+        if self.sched is not None:
+            argv += ["--sched", self.sched]
+        return argv
 
     def _spawn(self, slot: WorkerSlot) -> None:
         # a new incarnation inherits neither the old ctl nor the old
@@ -441,6 +502,13 @@ class FleetSupervisor:
                 slot.last_rc = rc
                 if self._draining:
                     slot.state = "done"  # in a fleet drain any exit is final
+                elif slot.retiring:
+                    # the scale-down's exit: final whatever the rc (a
+                    # straggler's claims go stale and its peers take them)
+                    slot.state = "done"
+                    slot.retiring = False
+                    slot.scale_deadline = 0.0
+                    self.log(f"{slot.wid}: scaled down (rc={rc})")
                 elif slot.governor_restart:
                     # the governor's recycle, before the rc 0 branch: a worker
                     # that drains cleanly on the governor's SIGTERM is
@@ -459,6 +527,14 @@ class FleetSupervisor:
                 else:
                     self._on_failure(slot, now, f"exited rc={rc}")
                 continue
+            if slot.retiring:
+                if slot.scale_deadline and now > slot.scale_deadline:
+                    self.log(f"{slot.wid}: scale-down drain timed out — SIGKILL")
+                    self.escalations += 1
+                    REGISTRY.counter("zkp2p_fleet_drain_escalations_total").inc()
+                    self._kill(slot)
+                    slot.scale_deadline = 0.0
+                continue  # leaving: no watchdog, no governor
             if slot.governor_deadline and now > slot.governor_deadline:
                 self.log(f"{slot.wid}: governor drain timed out — SIGKILL")
                 self.escalations += 1
@@ -479,16 +555,74 @@ class FleetSupervisor:
                 self._kill(slot)
                 continue
             self._governor(slot, now)
+        self._autoscale_tick(now)
         counts: Dict[str, int] = {}
         for slot in self.slots.values():
             counts[slot.state] = counts.get(slot.state, 0) + 1
-        for state in ("up", "backoff", "parked", "done", "starting"):
+        for state in ("up", "backoff", "parked", "done", "starting", "retiring"):
             REGISTRY.gauge("zkp2p_fleet_workers", {"state": state}).set(counts.get(state, 0))
         self._write_status()
 
+    # -------------------------------------------------------- autoscale
+
+    def _live_workers(self) -> List[WorkerSlot]:
+        """The slots serving or about to (up, starting, backoff; not
+        retiring): the count the band governs.  A list, because the plane's
+        threads read `slots` while a scale-up adds to it."""
+        return [s for s in list(self.slots.values())
+                if s.state in ("up", "starting", "backoff") and not s.retiring]
+
+    def _autoscale_tick(self, now: float) -> None:
+        """One evaluation: the plane's merged signals through the policy,
+        at most one step.  Up: a fresh slot (wN never comes back).  Down:
+        the newest live `up` worker drains (SIGTERM; it finishes its claims
+        and exits), never below workers_min running workers (a slot in
+        backoff or starting counts as live for the policy, not for the
+        floor)."""
+        if self._autoscaler is None or self._draining or self.plane is None:
+            return
+        from ..utils.metrics import REGISTRY
+
+        signals = self.plane.last_signals()
+        if signals is None:
+            return
+        live = self._live_workers()
+        REGISTRY.gauge("zkp2p_fleet_workers_target").set(len(live))
+        decision = self._autoscaler.update(now, len(live), signals)
+        if decision is None:
+            return
+        if decision["direction"] == "up":
+            wid = f"w{self._next_widx}"
+            self._next_widx += 1
+            slot = self.slots[wid] = WorkerSlot(wid=wid)
+            self._spawn(slot)
+            n_after = len(live) + 1
+        else:
+            candidates = [s for s in live if s.state == "up" and s.proc is not None and not s.governor_deadline]
+            if not candidates or len(candidates) - 1 < self.workers_min:
+                return
+            victim = max(candidates, key=lambda s: int(s.wid[1:]) if s.wid[1:].isdigit() else 0)
+            try:
+                victim.proc.send_signal(signal.SIGTERM)
+            except OSError:
+                return
+            victim.state = "retiring"
+            victim.retiring = True
+            victim.scale_deadline = now + (self.drain_timeout_s or 10.0)
+            wid = victim.wid
+            n_after = len(live) - 1
+        REGISTRY.counter("zkp2p_sched_decisions_total", {"kind": f"scale_{decision['direction']}"}).inc()
+        REGISTRY.gauge("zkp2p_fleet_workers_target").set(n_after)
+        event = {"ts": round(now, 3), "direction": decision["direction"], "reason": decision["reason"],
+                 "worker": wid, "workers": n_after}
+        self._scale_events.append(event)
+        self.log(f"autoscale: {decision['direction']} ({decision['reason']}) — {wid}, fleet now targets {n_after} "
+                 f"worker(s) in [{self.workers_min}, {self.workers_max}]")
+
     def status(self) -> Dict:
         workers = {}
-        for slot in self.slots.values():
+        # a list: the plane's threads call this while a scale-up adds a slot
+        for slot in list(self.slots.values()):
             hb = self._hb(slot) or {}
             age = self._hb_age_s(slot)
             workers[slot.wid] = {
@@ -504,6 +638,18 @@ class FleetSupervisor:
                 "hb_state": hb.get("state"),
                 "degraded": hb.get("degraded", False),
             }
+            # the worker's last scheduler decisions, from its heartbeat
+            if hb.get("sched"):
+                workers[slot.wid]["sched"] = hb["sched"]
+        sched_block: Dict = {"autoscale": self.autoscale}
+        if self.autoscale:
+            sched_block.update({
+                "workers_min": self.workers_min, "workers_max": self.workers_max,
+                "workers_live": len(self._live_workers()), "scale_events": len(self._scale_events),
+                "last_scale": self._scale_events[-1] if self._scale_events else None,
+                # every grow and shrink of the run (the newest 50)
+                "events": list(self._scale_events[-50:]),
+            })
         return {
             "type": "fleet_status",
             "fleet_id": self.fleet_id,
@@ -511,8 +657,7 @@ class FleetSupervisor:
             "pid": os.getpid(),
             "spool": self.spool,
             "workers": workers,
-            # the reference's block; only autoscaling is not ported (off)
-            "sched": {"autoscale": False},
+            "sched": sched_block,
             "drain_timeout_s": self.drain_timeout_s,
             "escalations": self.escalations,
             "watchdog_kills": self.watchdog_kills,
@@ -541,6 +686,10 @@ class FleetSupervisor:
         self._draining = True
         live = [s for s in self.slots.values() if s.proc is not None and s.proc.poll() is None]
         for slot in live:
+            # a retiring worker has its SIGTERM already: a second one while
+            # it drains means "exit now" and would strand its claims
+            if slot.retiring:
+                continue
             slot.state = "draining"
             try:
                 slot.proc.send_signal(signal.SIGTERM)

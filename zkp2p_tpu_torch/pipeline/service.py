@@ -25,6 +25,14 @@ service's, checked at claim and again at batch assembly) and a spool
 backlog cap that sheds load visibly.  Every layer can be made to fail
 on demand through the injection sites of ``utils.faults``.
 
+Admission and batching have two arms (`sched`).  "off", the default, is
+the static path: fixed `batch_size` slices in scan order, the newest
+shed beyond the cap.  "adaptive" hands each sweep to
+``pipeline.sched.BatchController``: priority lanes (a payload's
+`priority`, "interactive" or "bulk"), shedding by predicted deadline
+miss, batches sized against the deadline or objective, and the
+calibration fed by each batch's wall seconds.
+
 The reference reads its policy from its environment; here each setting
 is a keyword of ``ProvingService`` with the reference's default, and
 nothing reads the environment.  The default prover is
@@ -32,9 +40,7 @@ nothing reads the environment.  The default prover is
 when given a port (``utils.metrics``), logs the preflight, and, as a
 fleet worker (``pipeline.fleet``), writes its heartbeat and applies the
 supervisor's soft degrade.  Not ported yet (the reference's defaults
-stand in their place): the adaptive scheduler (its "off" arm, the static
-path below, is the reference's default), the perf-ledger sentry and the
-flame sampler.
+stand in their place): the perf-ledger sentry and the flame sampler.
 """
 
 from __future__ import annotations
@@ -219,6 +225,9 @@ class Request:
     # across bisection), and the batch size intended when it was assembled
     batch_index: Optional[int] = None
     batch_target: Optional[int] = None
+    # the priority lane, "interactive" or "bulk" (the adaptive arm batches
+    # interactive first; the static arm ignores it)
+    priority: str = "bulk"
     # this sweep's lifecycle spans, written with every record it emits
     spans: List[Dict] = field(default_factory=list)
 
@@ -316,6 +325,12 @@ class ProvingService:
         worker_id: str = "",
         fleet_id: str = "",
         fleet_dir: str = "",
+        sched: str = "off",
+        sched_amort: str = "",
+        sched_target_fill: float = 0.8,
+        sched_priority_default: str = "bulk",
+        worker_tier: str = "",
+        amort_points: Optional[Dict[int, float]] = None,
     ):
         """witness_fn: payload -> witness (raises on bad input);
         public_fn: witness -> public signals.
@@ -347,6 +362,17 @@ class ProvingService:
         records, time-series lines and the endpoint carry the ids, and
         with a fleet_dir run() writes heartbeats there and reads the
         supervisor's control file.
+        sched: the admission and batching arm, "adaptive" or "off" (the
+        static path; anything else reads as "off"), read each sweep.
+        sched_amort / amort_points / sched_target_fill: the adaptive
+        controller's cost curve, as an "S:sec,..." spec (which wins) or
+        as {S: seconds} measured on this card (which also seeds the
+        calibration), and the share of a budget batches are planned to
+        (``pipeline.sched.build_controller``; slo_p95_s is its objective).
+        sched_priority_default: the lane of a payload without a valid
+        `priority` ("interactive" or "bulk").
+        worker_tier: the tier this worker advertises in its heartbeat and
+        plans for ("sharded" or "native"; anything else reads as native).
         The defaults are the reference's."""
         self.cs = cs
         self.dpk = dpk
@@ -371,6 +397,16 @@ class ProvingService:
         self._worker_id = worker_id
         self._fleet_id = fleet_id
         self.fleet_dir = fleet_dir
+        self.sched = sched
+        self.sched_amort = sched_amort
+        self.sched_target_fill = sched_target_fill
+        self.worker_tier = worker_tier
+        self.amort_points = amort_points
+        self._priority_default = "interactive" if sched_priority_default == "interactive" else "bulk"
+        # the adaptive controller, built at the first adaptive sweep, and
+        # the last sweep's decisions, which the fleet heartbeat carries
+        self._sched_ctl = None
+        self._sched_hb: Optional[Dict] = None
         # set by the governor's soft degrade (pipeline.fleet.apply_soft_degrade)
         self._fleet_degraded = False
         # the policy, stamped on every request record
@@ -378,7 +414,9 @@ class ProvingService:
             "batch_size": batch_size, "prefetch": self.prefetch, "stale_claim_s": stale_claim_s,
             "deadline_s": deadline_s, "spool_cap": spool_cap, "retries": retries,
             "retry_backoff_s": retry_backoff_s, "slo_p95_s": slo_p95_s, "ts_sample_s": ts_sample_s,
-            "device": str(self.device),
+            "device": str(self.device), "sched": sched, "sched_amort": sched_amort,
+            "sched_target_fill": sched_target_fill, "sched_priority_default": self._priority_default,
+            "worker_tier": worker_tier,
         }
         # per-path rotating sinks; the producer and the consumer thread
         # both emit records, and two sinks for one path would rotate
@@ -404,6 +442,74 @@ class ProvingService:
         """{"worker", "fleet"}: this process's place in a fleet ("" when
         solo)."""
         return {"worker": self._worker_id, "fleet": self._fleet_id}
+
+    # a heartbeat younger than this marks a live fleet peer (a beat every
+    # ~5 s: three beats of slack before a peer stops counting)
+    _PEER_HB_FRESH_S = 15.0
+
+    def _live_peers(self) -> int:
+        """Live workers on this spool, this one included, from the fresh
+        heartbeat files in the fleet dir: the scheduler's parallelism (N
+        workers pull one queue, and a worker that predicted as if it served
+        the backlog alone would shed what its peers could still serve).
+        Solo (no fleet dir) or an unreadable dir: 1."""
+        if not self.fleet_dir:
+            return 1
+        n = 0
+        now = time.time()
+        try:
+            for fn in os.listdir(self.fleet_dir):
+                if not fn.endswith(".hb"):
+                    continue
+                try:
+                    if now - os.path.getmtime(os.path.join(self.fleet_dir, fn)) < self._PEER_HB_FRESH_S:
+                        n += 1
+                except OSError:
+                    pass
+        except OSError:
+            return 1
+        return max(1, n)
+
+    def _live_peer_tiers(self) -> List[str]:
+        """The tiers the live peers advertise (this worker left out), from
+        the `tier` of fresh heartbeats: the scheduler's tier routing.  Solo,
+        or heartbeats without a readable tier: [] (both lanes served here,
+        never a starved lane)."""
+        if not self.fleet_dir:
+            return []
+        mine = (self._worker_id or "") + ".hb"
+        tiers: List[str] = []
+        now = time.time()
+        try:
+            for fn in os.listdir(self.fleet_dir):
+                if not fn.endswith(".hb") or fn == mine:
+                    continue
+                path = os.path.join(self.fleet_dir, fn)
+                try:
+                    if now - os.path.getmtime(path) >= self._PEER_HB_FRESH_S:
+                        continue
+                    with open(path) as f:
+                        hb = json.load(f)
+                    tier = hb.get("tier")
+                    if isinstance(tier, str) and tier:
+                        tiers.append(tier)
+                except (OSError, ValueError):
+                    pass  # a torn heartbeat: a peer for parallelism, not for routing
+        except OSError:
+            return []
+        return tiers
+
+    def _sched_controller(self):
+        """The adaptive controller, built once a service (its curve and
+        objective cannot change under a running service; the arm is read
+        each sweep): ``pipeline.sched.build_controller`` over sched_amort,
+        amort_points, slo_p95_s, sched_target_fill and worker_tier."""
+        if self._sched_ctl is None:
+            from .sched import build_controller
+
+            self._sched_ctl = build_controller(self.sched_amort, self.amort_points, self.slo_p95_s,
+                                               self.sched_target_fill, self.worker_tier)
+        return self._sched_ctl
 
     # -------------------------------------------------------- observability
     #
@@ -743,6 +849,81 @@ class ProvingService:
             req.done = "done"
             stats["done"] += 1
 
+    # ---------------------------------------------------------- scheduler
+
+    def _sched_sweep(self, spool: str, pending: List[Request], stats: Dict[str, int]) -> List[List[Request]]:
+        """The adaptive arm's plan of a sweep (``pipeline.sched``): the
+        arrival EWMA, the shed verdicts (claimed and ended error-shed, each
+        counted), the lane-sorted batches; and its telemetry: the
+        zkp2p_sched_batch_size gauge, zkp2p_sched_decisions_total{kind},
+        one {"type": "sched"} line in the sink, the heartbeat's block."""
+        from .sched import SchedRequest
+
+        ctl = self._sched_controller()
+        now = time.time()
+        by_rid: Dict[str, Request] = {r.rid: r for r in pending}
+        sreqs = [SchedRequest(rid=r.rid, t_submit=r.t_submit, deadline=self._deadline_of(r),
+                              interactive=(r.priority == "interactive"))
+                 for r in pending]
+        peers = self._live_peers()
+        peer_tiers = self._live_peer_tiers()
+        # never shed while draining; the peers share the queue; the peers'
+        # tiers route the lanes (a deferred request stays unclaimed)
+        plan = ctl.plan(now, sreqs, cap=max(1, self.batch_size), spool_cap=self.spool_cap or 0,
+                        allow_shed=not self._drain.is_set(), parallelism=peers, peer_tiers=peer_tiers)
+        backlog = len(pending)
+        for sr, reason in plan.shed:
+            r = by_rid[sr.rid]
+            if not self._try_claim(r.path):
+                continue  # a peer is on it: not ours to shed
+            r.t_claim = time.time()
+            # counted only when the terminal lands (a failed artifact write
+            # defers the request, as on the static arm)
+            if self._terminal_error(spool, r, "error-shed", RuntimeError(f"sched: {reason} (backlog {backlog})"),
+                                    stats):
+                REGISTRY.counter("zkp2p_service_shed_total").inc()
+                REGISTRY.counter("zkp2p_sched_decisions_total", {"kind": "shed"}).inc()
+        REGISTRY.gauge("zkp2p_sched_batch_size").set(plan.batch_target)
+        if plan.batches:
+            REGISTRY.counter("zkp2p_sched_decisions_total", {"kind": "batch"}).inc(len(plan.batches))
+        if plan.lanes.get("interactive"):
+            REGISTRY.counter("zkp2p_sched_decisions_total", {"kind": "lane"}).inc()
+        if plan.deferred:
+            # a decision a sweep and lane, not a count of requests
+            REGISTRY.counter("zkp2p_sched_decisions_total", {"kind": "defer"}).inc(len(plan.deferred))
+        if plan.tier_fallback:
+            REGISTRY.counter("zkp2p_sched_decisions_total", {"kind": "tier_fallback"}).inc()
+        if self._sampler is not None:
+            self._sampler.batch_target_last = plan.batch_target
+        self._sched_hb = {
+            "mode": "adaptive", "batch_target": plan.batch_target, "interactive_target": plan.interactive_target,
+            "lane_interactive": plan.lanes.get("interactive", 0), "lane_bulk": plan.lanes.get("bulk", 0),
+            "rate_hz": plan.rate_hz, "peers": peers, "tier": plan.tier,
+        }
+        if plan.deferred:
+            self._sched_hb["deferred"] = dict(plan.deferred)
+        if pending:
+            # one decision line a sweep with work, beside the records it shaped
+            try:
+                rec: Dict = {
+                    "type": "sched", "ts": round(now, 3), "run_id": run_id(), "pid": os.getpid(),
+                    "backlog": backlog, "rate_hz": plan.rate_hz, "oldest_wait_s": plan.oldest_wait_s,
+                    "batch_target": plan.batch_target, "batch_reason": plan.batch_reason,
+                    "interactive_target": plan.interactive_target, "lanes": plan.lanes,
+                    "batches": len(plan.batches), "shed": len(plan.shed), "peers": peers, "tier": plan.tier,
+                }
+                if peer_tiers:
+                    rec["peer_tiers"] = peer_tiers
+                if plan.deferred:
+                    rec["deferred"] = dict(plan.deferred)
+                if plan.tier_fallback:
+                    rec["tier_fallback"] = True
+                rec.update((k, v) for k, v in self.identity().items() if v)
+                self._sink(spool).write(rec)
+            except Exception:  # noqa: BLE001 — a record must never stop a sweep
+                pass
+        return [[by_rid[sr.rid] for sr in b] for b in plan.batches]
+
     # ------------------------------------------------------------ one pass
 
     def process_dir(self, spool: str) -> Dict[str, int]:
@@ -752,6 +933,16 @@ class ProvingService:
         # draining before the sweep starts: claim nothing, scan nothing
         if self._drain.is_set():
             return stats
+        from ..utils.audit import gate_arms
+        from .sched import normalize_sched, sched_arm
+
+        # the arm, read each sweep (one service can run both) and recorded
+        # when it differs from the process's: the digest follows it, and an
+        # idle service's counters stay still (the fleet plane's parity)
+        arm = normalize_sched(self.sched)
+        if gate_arms().get("service_sched") != arm:
+            sched_arm(arm)
+        adaptive = arm == "adaptive"
         pending: List[Request] = []
         for fn in sorted(os.listdir(spool)):
             if ".claim.stale." in fn:
@@ -803,12 +994,23 @@ class ProvingService:
                 t_submit = os.path.getmtime(fpath)
             except OSError:
                 t_submit = time.time()
-            pending.append(Request(path=os.path.join(spool, base), payload=payload, rid=base, t_submit=t_submit))
+            # the lane: the payload's priority, anything else the default (a
+            # mistyped priority must not make a third lane)
+            prio = payload.get("priority") if isinstance(payload, dict) else None
+            if prio not in ("interactive", "bulk"):
+                prio = self._priority_default
+            pending.append(Request(path=os.path.join(spool, base), payload=payload, rid=base, t_submit=t_submit,
+                                   priority=prio))
 
-        # Admission control: a backlog beyond the cap is shed newest first
-        # (the oldest are nearest their deadlines), each with a visible
-        # error-shed.  Never while draining: a peer may still serve them.
-        if self.spool_cap and len(pending) > self.spool_cap and not self._drain.is_set():
+        # Admission control.  Adaptive: the controller plans the sweep (the
+        # shed by predicted miss, the lanes, the sizes).  Static: a backlog
+        # beyond the cap is shed newest first (the oldest are nearest their
+        # deadlines), each with a visible error-shed.  Never while
+        # draining: a peer may still serve them.
+        batch_plan: Optional[List[List[Request]]] = None
+        if adaptive:
+            batch_plan = self._sched_sweep(spool, pending, stats)
+        elif self.spool_cap and len(pending) > self.spool_cap and not self._drain.is_set():
             backlog = len(pending)
             pending.sort(key=lambda r: (r.t_submit, r.rid))
             keep, shed = pending[: self.spool_cap], pending[self.spool_cap:]
@@ -824,8 +1026,11 @@ class ProvingService:
                 ):
                     REGISTRY.counter("zkp2p_service_shed_total").inc()
             pending = sorted(keep, key=lambda r: r.rid)
-        if self._sampler is not None:
-            self._sampler.batch_target_last = self.batch_size
+        if not adaptive:
+            # the static arm's target is the cap (fill below it is low load)
+            if self._sampler is not None:
+                self._sampler.batch_target_last = self.batch_size
+            self._sched_hb = {"mode": "off", "batch_target": self.batch_size}
 
         # Witness || prove: a producer thread builds the next batches'
         # witnesses on the host while this thread proves on the card.  The
@@ -915,20 +1120,29 @@ class ProvingService:
 
         def produce():
             try:
-                for i in range(0, len(pending), self.batch_size):
+                # adaptive: the plan's lane-sorted batches; static: fixed
+                # batch_size slices of the scan order
+                if batch_plan is not None:
+                    slices = batch_plan
+                else:
+                    slices = [pending[i : i + self.batch_size] for i in range(0, len(pending), self.batch_size)]
+                for chunk in slices:
                     # once draining, claim nothing more: the claimed
                     # batches finish under the heartbeat, the rest stays
                     # free for peers
                     if self._drain.is_set():
                         break
+                    # the size intended for this batch: the planned chunk's,
+                    # or the static cap
+                    target = len(chunk) if batch_plan is not None else self.batch_size
                     # claim at dequeue, not at scan: scan-time claims would
                     # age while earlier batches prove
                     cand = []
-                    for r in pending[i : i + self.batch_size]:
+                    for r in chunk:
                         if not self._try_claim(r.path):
                             continue
                         r.t_claim = time.time()
-                        r.batch_target = self.batch_size
+                        r.batch_target = target
                         with hb_lock:
                             hb_reqs.append(r)  # heartbeat from claim to terminal
                         # deadline gate 1, at claim: before any witness work
@@ -1001,8 +1215,13 @@ class ProvingService:
             REGISTRY.histogram("zkp2p_service_batch_fill", buckets=BATCH_FILL_BUCKETS).observe(len(live))
             if self._sampler is not None:
                 self._sampler.batch_fill_last = len(live)
+            t_batch0 = time.perf_counter()
             try:
                 self._prove_isolating(spool, live, stats, batch_n=len(live))
+                # the adaptive arm's calibration: the batch's wall seconds
+                # against the model's
+                if self._sched_ctl is not None:
+                    self._sched_ctl.observe_batch(len(live), time.perf_counter() - t_batch0)
             except Exception as e:  # noqa: BLE001 — the safety net
                 # _prove_isolating ends every request itself; an exception
                 # out of it is a fault in the rescue path, and the requests
@@ -1081,6 +1300,7 @@ class ProvingService:
         first sweep, beats from a thread between sweeps (a sweep may take
         minutes), ticks after every sweep and, at exit, with the reason."""
         from .fleet import fleet_member_arm, start_heartbeat_thread, worker_tick
+        from .sched import sched_arm, worker_tier_arm
 
         self._build_kernels()
         maybe_start_metrics_server(self.metrics_port, self.metrics_addr, identity=self.identity())
@@ -1088,6 +1308,8 @@ class ProvingService:
         slo_arm(self.slo_p95_s)
         timeseries_arm(self.ts_sample_s)
         fleet_member_arm(self._worker_id)
+        sched_arm(self.sched)
+        worker_tier_arm(self.worker_tier)
         tag = f"[service {self._worker_id}]" if self._worker_id else "[service]"
         # the preflight: every gate's arm and the digest, logged before the
         # first claim (its warnings too)

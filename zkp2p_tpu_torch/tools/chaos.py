@@ -34,8 +34,8 @@ the workers' under faults, and a crash-looping worker is parked and fires
 
 A worker is this module with --worker: it builds the toy world, arms the
 fault plan of its --faults (``utils.faults.arm``; the reference hands it
-over in its environment), and sweeps until every request has ended or
---max-seconds pass.  It logs its kernels' launch counts at exit.
+over in its environment), and sweeps, on the scheduler arm of its --sched
+(off by default), until every request has ended or --max-seconds pass.  It logs its kernels' launch counts at exit.
 """
 
 from __future__ import annotations
@@ -102,7 +102,7 @@ def worker_main(args) -> int:
     svc = ProvingService(cs, dpk, vk, witness_fn, public_fn=lambda w: [w[1]], batch_size=args.batch,
                          prover_fn=prover_fn, stale_claim_s=args.stale_claim_s, retry_backoff_s=0.05, device=device,
                          metrics_port=args.metrics_port, worker_id=args.worker_id, fleet_id=args.fleet_id,
-                         fleet_dir=args.fleet_dir)
+                         fleet_dir=args.fleet_dir, sched=args.sched)
     install_drain_handlers(svc)
     print(f"[chaos-worker {os.getpid()}] up, sweeping {args.spool}", flush=True)
     # --linger keeps sweeping a spool whose requests have all ended
@@ -571,6 +571,8 @@ def main(argv=None) -> int:
     ap.add_argument("--fleet-id", default="", help=argparse.SUPPRESS)
     ap.add_argument("--fleet-dir", default="", help=argparse.SUPPRESS)
     ap.add_argument("--metrics-port", type=int, default=None, help=argparse.SUPPRESS)
+    # a worker's scheduler arm (the supervisor appends it when given one)
+    ap.add_argument("--sched", choices=["off", "adaptive"], default="off", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
         return worker_main(args)

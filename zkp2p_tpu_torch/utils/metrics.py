@@ -82,6 +82,9 @@ METRIC_HELP: Dict[str, str] = {
     "zkp2p_fleet_slo_window_requests": "Samples across every worker's SLO window (sum of window sizes)",
     "zkp2p_fleet_slo_objective_s": "Configured p95 objective the fleet windows are judged against",
     "zkp2p_fleet_backlog": "Open spool requests at the last supervisor scrape (supervisor's own scan)",
+    "zkp2p_sched_batch_size": "Adaptive controller's bulk-lane batch target at the last sweep plan",
+    "zkp2p_sched_decisions_total": "Scheduler decisions by kind (batch|shed|lane|scale_up|scale_down)",
+    "zkp2p_fleet_workers_target": "Autoscaler's live-worker target after the last evaluation",
 }
 
 
