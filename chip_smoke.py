@@ -5,9 +5,9 @@
 
 Phases, each of which raises on failure (the script then exits nonzero
 and prints no result line).  They run in the order 1 (phase 12, chaos,
-and phase 13 (b), the scheduler's fleet, starting once its kernels are
-built, beside the rest of phase 1 and phase 8, and ending before phase
-9), 8 (its CLI
+and phase 13 (b), the scheduler's fleet, and the `flame` command, starting
+once its kernels are built, beside the rest of phase 1 and phase 8, and
+ending before phase 9), 8 (its CLI
 subprocesses beside it and phase 9), 9, 13 (a), 2 (no other process's kernels on
 the card: phase 11's workers build their circuits and import their keys
 beside it), 11 (phase 2's K15/K16 bitwise checks and phase 3 beside its
@@ -259,7 +259,19 @@ profiles:
    this process's (its wall clock, logged steps and sampled peak RSS
    recorded).  After phase 9: the CLI prove's proof.json and public.json equal to
    prove_gpu's and its key's classes to the inferred ones; `verify` (OK)
-   as a subprocess beside phase 2.
+   as a subprocess beside phase 2.  The flame sampler (the flame line):
+   (a) after this phase's timed work, one warm prove_gpu on its key and
+   first witness outside the sampler (its launches held to the Jacobian
+   rule), FLAME_PLAIN_PROOFS timed without it, then FLAME_S seconds of
+   warm proofs under it through flameprof.profile_proves: the capture's
+   gpu_launches equal, launcher by launcher, the proofs times the warm
+   proof's, a `gpu:` frame sits under prove_gpu, and the top stacks,
+   samples, the sampler's self_ms and the proofs' p50 with and without
+   it are printed; (c) `python -m zkp2p_tpu_torch --circuit toy flame
+   --duration 3` (the dev setup on the card) from the end of phase 1's
+   build must exit 0, print collapsed stacks and write a capture of the
+   card's launches; `perf --json` on (b)'s ledger, beside phase 2, must
+   print its trendlines.
 9. The proving service (the service line), on phase 8's resident key:
    ProvingService.for_venmo at batch 4 sweeps
    FLAGSHIP_EMAILS as demo payloads beside a payload with no raw_id, a
@@ -273,7 +285,13 @@ profiles:
    K13 and K14 2, K18 7 + 2, K2 3 + 1; nothing of NOT_ON_JACOBIAN),
    every proof verified; requests/s, the witness_batch, check_witness
    and prove seconds of each batch, the card's busy share (prove seconds
-   over the sweep's wall clock), peak device memory and host RSS.
+   over the sweep's wall clock), peak device memory and host RSS.  The
+   perf sentry (b): this sweep runs with the ledger on in
+   .chip_scratch/perf/cache (the pinned sweep with none); its exit stamp
+   must be one valid entry under the card's fingerprint key; `perf
+   --rebaseline` then `perf --gate` on that ledger must exit 0; then
+   PERF_SEEDED entries whose prove p50 is a tenth of the sweep's are
+   appended and a second band frozen from them, for phase 13 (a).
 10. The key's life cycle, the phase-2 ceremony (the ceremony line).  In
    phase 2, K19 at the ceremony's shape (the
    flagship's C and H queries together, 13,305,359 points made on the
@@ -372,7 +390,13 @@ profiles:
    launches exactly two chunks' worth (the batch rule a chunk).
    Recorded: the controller's model_scale after the first observed batch
    (and that batch's seconds over the seed), the wall clock, each
-   batch's check_witness and prove seconds.  (b) `python -m
+   batch's check_witness and prove seconds.  It runs with flame=True on
+   phase 9's seeded ledger: every done request's prove span must overrun
+   the seeded budget and count in zkp2p_stage_budget_overruns_total, the
+   counters' moves must equal the heartbeat's perf block, one capture
+   must land linked to the seeded head with `gpu:` frames, and after the
+   run's stamp `perf --gate` against the seeded band must exit 1 naming
+   that capture.  (b) `python -m
    zkp2p_tpu_torch.tools.loadgen` with SCHED_FLEET_ARGS: one toy chaos
    worker on the card under `fleet --workers-min 1 --workers-max 2
    --sched adaptive`, a spike trace, in a session of its own from the
@@ -426,7 +450,8 @@ prove and batch, the batch's seconds and proofs/s beside
 prove_gpu_batch's), and the flagship circuit's (phase 8: counts, build,
 witness, qap_coo, setup, proof and batch seconds, the CLI's wall clock,
 steps, classes and peak RSS, the 256/192 setup), the service's
-(phase 9), the fleet's (phase 11), chaos (phase 12), the scheduler's (phase 13) and the ceremony's (phase 10: the
+(phase 9), the fleet's (phase 11), chaos (phase 12), the scheduler's (phase 13), the flame sampler's and the
+perf sentry's commands (the flame line) and the ceremony's (phase 10: the
 counted run's stage
 seconds, wall clock and launches an op; each command's).  The last line
 is {"ok": true, "device": {...}}.
@@ -746,6 +771,19 @@ SCHED_FLEET_CHECK = (
     "    json.dump({'rc': rc, **rep}, f)\n"
     "sys.exit(rc)\n")
 SCHED_FLEET_TIMEOUT_S = 300
+# the perf sentry and the flame sampler (phases 8, 9 and 13 (a)): their
+# scratch (the ledger's cache dir, the baselines, the flame command's build
+# dir), the flame loop's seconds at full width after FLAME_PLAIN_PROOFS
+# proofs without the sampler, the top stacks printed, the history seeded
+# before phase 13 (a) (PERF_SEEDED entries at a tenth of phase 9's prove
+# p50), the flame command's duration on the toy circuit and time limit
+PERF_DIR = ".chip_scratch/perf"
+FLAME_S = 5.0
+FLAME_PLAIN_PROOFS = 3
+FLAME_TOP = 8
+PERF_SEEDED = 3
+FLAME_CLI_S = 3.0
+FLAME_CLI_TIMEOUT_S = 300
 # phase 10, the ceremony: K19 at the ceremony's shape, where SCALE_HOLES
 # (0, 0) holes and SCALE_OFF_CURVE points off the curve sit among the
 # points and SCALE_SAMPLES are checked against the host, as are the first
@@ -4025,7 +4063,7 @@ def service_phase(torch, fl, device):
                                    device=device)
 
         svc = ProvingService.for_venmo(cs, fl["lay"], fl["params"], fl["key"], fl["vk"], batch_size=SERVICE_BATCH,
-                                       prover_fn=pinned, device=device)
+                                       prover_fn=pinned, device=device, cache_dir=None)
         pinned_s, pinned_stats = wall_s(torch, lambda: svc.process_dir(spool))
         want = {"done": 4, "error-bad-input": 2, "error-failed-to-prove": 0, "error-deadline-exceeded": 1,
                 "error-shed": 0}
@@ -4053,8 +4091,10 @@ def service_phase(torch, fl, device):
         spool = os.path.join(d, "default")
         names = [f"r{i}" for i in range(len(SERVICE_EMAILS))]
         write_requests(spool, {n: demo_payload(*e) for n, e in zip(names, SERVICE_EMAILS)})
+        # the perf sentry on (its default), its ledger in PERF_DIR/cache
+        cache = os.path.abspath(os.path.join(PERF_DIR, "cache"))
         svc = ProvingService.for_venmo(cs, fl["lay"], fl["params"], fl["key"], fl["vk"], batch_size=SERVICE_BATCH,
-                                       prefetch=SERVICE_PREFETCH, device=device)
+                                       prefetch=SERVICE_PREFETCH, device=device, circuit="venmo", cache_dir=cache)
         check_s = []
         real_check = cs.check_witness
 
@@ -4105,8 +4145,10 @@ def service_phase(torch, fl, device):
         if len(witness_s) != chunks or len(prove_s) != chunks:
             raise AssertionError(f"spans: witness_batch {witness_s}, prove {prove_s}")
         recs = sink_records(spool, "request")
+        stamp = perf_stamp_check(svc, cache, len(names), device)
         line = {
             "shape": "venmo 1024/6400, phase 8's key; synthetic signed emails as demo payloads",
+            "perf_stamp": stamp,
             "pinned": {"requests": 7, "stats": pinned_stats, "s": pinned_s, "files_equal_prove_gpu_batch": True},
             "default": {"requests": len(names), "batch": SERVICE_BATCH, "prefetch": SERVICE_PREFETCH,
                         "wall_s": wall, "requests_per_s": len(names) / wall, "witness_batch_s": witness_s,
@@ -4126,6 +4168,28 @@ def service_phase(torch, fl, device):
         return line, launches
     finally:
         shutil.rmtree(d, ignore_errors=True)
+
+
+def perf_stamp_check(svc, cache, n_requests, device):
+    """Phase 9's exit stamp (the sweep's ledger entry): exactly one valid
+    entry under the card's fingerprint key in `cache`'s ledger, source
+    service, circuit venmo, its prove stage over every request."""
+    from zkp2p_tpu_torch.utils import hostprof
+    from zkp2p_tpu_torch.utils import perfledger as pl
+
+    path = svc._perf_stamp()
+    entries, refused = pl.load_entries(path, device=device)
+    key = hostprof.fingerprint_key(device=device)
+    if path != pl.ledger_path(cache, device) or len(entries) != 1 or any(refused.values()):
+        raise AssertionError(f"phase 9's stamp: {path}, {len(entries)} valid entries, refused {refused}")
+    e = entries[0]
+    if (e["source"], e["circuit"], e["fingerprint_key"], e["stages"]["prove"]["n"]) != (
+            "service", "venmo", key, n_requests):
+        raise AssertionError(f"phase 9's stamp: {e}")
+    fp = hostprof.host_fingerprint(device)
+    log(f"sentry (b): phase 9's exit stamp, one valid entry under key {key} ({fp.get('device_name')}, "
+        f"{fp.get('sm_count')} SMs): prove p50 {e['stages']['prove']['p50_ms']:.1f} ms over {n_requests} requests")
+    return {"ledger": path, "key": key, "fingerprint": fp, "stages": e["stages"], "device": str(device)}
 
 
 # -------------------------------------------------------------- phase 11
@@ -4162,11 +4226,12 @@ def fleet_start(build_dir):
     cmd = [sys.executable, "-m", "zkp2p_tpu_torch", "--build-dir", build_dir, "--circuit", "venmo", "--max-header",
            "1024", "--max-body", "6400", "fleet", "--spool", spool, "--workers", str(FLEET_WORKERS), "--batch",
            str(FLEET_BATCH), "--fleet-dir", state, "--drain-timeout-s", str(FLEET_DRAIN_TIMEOUT_S),
-           "--fleet-metrics-port", "auto"]
+           "--fleet-metrics-port", "auto", "--cache-dir", os.path.join(d, "cache")]
     files = (open(os.path.join(d, "fleet.log"), "w"), open(os.path.join(d, "fleet.out"), "w"))
     proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), stdout=files[1], stderr=files[0],
                             text=True, start_new_session=True)
-    fh = dict(dir=d, spool=spool, state=state, proc=proc, files=files, t0=time.time(), ready={}, smi=[],
+    fh = dict(dir=d, spool=spool, state=state, cache=os.path.join(d, "cache"), proc=proc, files=files,
+              t0=time.time(), ready={}, smi=[],
               stop=threading.Event(), plane=dict(port=None, polls=0, reasons={}, first_200=None, cycle_ms={},
                                                  unreachable=0))
 
@@ -4479,8 +4544,8 @@ def fleet_drained(fh, line, proof_launches):
     among them, each record and time-series line naming its worker and
     the fleet; each worker drained with its logged launches exactly its
     chunks' (`proof_launches`, phase 8's proof under the zkey's classes,
-    a chunk: K1 4 + B) and its domain tables' (domain_table_launches).
-    Completes and returns the fleet line: requests/s, each worker's ready
+    a chunk: K1 4 + B) and its domain tables' (domain_table_launches);
+    one perf-ledger stamp a worker in the fleet's own cache.  Completes and returns the fleet line: requests/s, each worker's ready
     seconds, done count, chunks, witness_batch, prove and sample verify
     seconds, busy share, idle and peak device memory, the card's peak
     memory.used."""
@@ -4530,6 +4595,14 @@ def fleet_drained(fh, line, proof_launches):
         want["mont_mul"] = 4 * chunks[w] + len(by[w]) + domain_table_launches(VENMO["log_m"])
         if logged.get(w) != ("drained", want):
             raise AssertionError(f"{w} logged {logged.get(w)}; drained with {chunks[w]} chunks' {want} expected")
+    # the perf sentry in each worker: its ledger in this run's fresh cache
+    # (no budgets, so no overrun), one exit stamp a worker under the card's key
+    from zkp2p_tpu_torch.utils import perfledger
+
+    stamps, refused = perfledger.load_entries(perfledger.ledger_path(fh["cache"], "cuda"), device="cuda")
+    if len(stamps) != FLEET_WORKERS or any(refused.values()) or any(
+            (e["source"], e["circuit"]) != ("service", "venmo") for e in stamps):
+        raise AssertionError(f"the fleet's ledger: {len(stamps)} valid stamps, refused {refused}")
     stages = sink_records(spool, "stage")
     pid_of = {r["pid"]: r["worker"] for r in recs}
     t_req = line.pop("t_req")
@@ -4553,6 +4626,7 @@ def fleet_drained(fh, line, proof_launches):
     smi_run = [m for t, m in fh["smi"] if t_req <= t <= fh["t_exit"]]
     line.update({"wall_s": wall, "requests_per_s": len(names) / wall, "drain_s": drain_s, "exit": rc,
                  "escalations": status["escalations"], "claims_left": 0, "timeseries_lines": len(ts),
+                 "ledger_stamps": len(stamps),
                  "card_memory_used_mib_peak": {"proving": max(smi_run, default=None),
                                                "from_spawn": max(smi_all, default=None)},
                  "per_worker": workers})
@@ -4796,7 +4870,7 @@ def sched_fleet_finish(lg, beside):
     return line
 
 
-def sched_phase(torch, fl, service_line, device):
+def sched_phase(torch, fl, service_line, sentry, device):
     """Phase 13 (a): the adaptive scheduler at full width, on phase 8's
     resident key (`fl`).  A ProvingService with sched="adaptive",
     batch_size SCHED_BATCH, seeded with the card's cost measured earlier in
@@ -4814,7 +4888,9 @@ def sched_phase(torch, fl, service_line, device):
     sweep launches exactly two chunks' worth.  Recorded: the controller's
     model_scale after the first observed batch (and the observed batch
     seconds over the seed), the wall clock, each batch's witness check
-    and prove seconds.  Returns (the line, the sweep's launches)."""
+    and prove seconds.  The service runs with flame=True (a capture over
+    one sweep) on the seeded ledger of `sentry` (sentry_seed), which
+    sentry_check then holds.  Returns (the line, the sweep's launches)."""
     import os
     import shutil
 
@@ -4832,7 +4908,8 @@ def sched_phase(torch, fl, service_line, device):
     try:
         spool = os.path.join(d, "spool")
         svc = ProvingService(cs, fl["key"], fl["vk"], lambda p: wits[int(p["w"])], lambda w: list(w[1 : n_pub + 1]),
-                             batch_size=SCHED_BATCH, sched="adaptive", amort_points=points, device=device)
+                             batch_size=SCHED_BATCH, sched="adaptive", amort_points=points, device=device,
+                             circuit="venmo", flame=True, flame_capture_n=1, cache_dir=sentry["cache_dir"])
         ctl = svc._sched_controller()
         observed = []
         observe = ctl.observe_batch
@@ -4864,6 +4941,7 @@ def sched_phase(torch, fl, service_line, device):
 
         kinds = ("shed", "batch", "lane")
         before = {k: REGISTRY.counter("zkp2p_sched_decisions_total", {"kind": k}).value for k in kinds}
+        overruns_before = overrun_counts()
         tr.reset()
         cuda_build.reset_launches()
         with patched([(cs, "check_witness", timed_check)]):
@@ -4907,6 +4985,7 @@ def sched_phase(torch, fl, service_line, device):
         sample_verify_s = [r["ms"] / 1e3 for r in spans if r["stage"] == "service/verify"]
         line = {
             "shape": "venmo 1024/6400, phase 8's key and its four witnesses replayed",
+            "sentry": sentry_check(svc, recs, done, overruns_before, sentry),
             "amort_points": points, "predicted_s_at_position_4": predicted, "tight_deadline_s": predicted / 2,
             "stats": stats, "batches": [1, 3], "sched_line": {k: v for k, v in lines[0].items()
                                                               if k not in ("ts", "pid", "run_id")},
@@ -4925,6 +5004,246 @@ def sched_phase(torch, fl, service_line, device):
         return line, launches
     finally:
         shutil.rmtree(d, ignore_errors=True)
+
+
+# ------------------------------------- the perf sentry and the flame sampler
+
+
+def perf_cmd(args):
+    """`python -m zkp2p_tpu_torch perf ARGS` in this process: (its exit
+    code, its standard output)."""
+    import io
+
+    from zkp2p_tpu_torch.pipeline import cli
+
+    buf, rc = io.StringIO(), 0
+    with contextlib.redirect_stdout(buf):
+        try:
+            cli.main(["perf", *args])
+        except SystemExit as e:
+            rc = e.code or 0
+    return rc, buf.getvalue()
+
+
+def flame_cli_start():
+    """(c)'s first command, from the end of phase 1's kernel build beside
+    phase 8: `python -m zkp2p_tpu_torch --circuit toy flame --duration
+    FLAME_CLI_S` on the card, its build dir empty (so the dev setup runs on
+    the card), its capture in PERF_DIR/flame_cli.  PERF_DIR is made anew
+    here."""
+    import os
+    import shutil
+
+    d = os.path.abspath(PERF_DIR)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return cli_start(["--circuit", "toy", "--build-dir", os.path.join(d, "toy_build"), "flame", "--duration",
+                      str(FLAME_CLI_S), "--cache-dir", os.path.join(d, "flame_cli")], os.path.join(d, "flame.log"))
+
+
+def flame_cli_finish(handle):
+    """The flame command must exit 0 within FLAME_CLI_TIMEOUT_S, print
+    collapsed stacks (`frames count` lines) and write a loadable manual
+    capture whose launches are the card's; the capture is removed.
+    Returns what the line records."""
+    import os
+    import re
+
+    from zkp2p_tpu_torch.utils import flameprof
+
+    wall, out, _rss = cli_finish(handle, timeout=FLAME_CLI_TIMEOUT_S)
+    if out.returncode:
+        raise AssertionError(f"`flame --circuit toy` exited {out.returncode}")
+    rows = [ln.rsplit(" ", 1) for ln in out.stdout.splitlines() if ln.strip()]
+    if not rows or not all(len(r) == 2 and r[1].isdigit() for r in rows):
+        raise AssertionError(f"`flame` printed no collapsed stacks: {out.stdout[:2000]!r}")
+    m = re.search(r"flame: capture -> (\S+)", out.stderr)
+    doc = flameprof.load_capture(m.group(1)) if m else None
+    if doc is None or doc["trigger"] != "manual" or not sum(doc["gpu_launches"].values()):
+        raise AssertionError(f"`flame` wrote no capture of the card's launches: {m and m.group(1)}, {doc}")
+    os.remove(m.group(1))
+    return {"command": "--circuit toy flame --duration " + str(FLAME_CLI_S), "wall_s": wall, "rc": 0,
+            "stack_lines": len(rows), "samples": doc["samples"], "self_ms": doc["sampler"]["self_ms"],
+            "gpu_launches": doc["gpu_launches"], "gpu_frames": sum(v for k, v in doc["stacks"].items() if ";gpu:" in k)}
+
+
+def flame_phase(torch, fl, device):
+    """(a), after phase 8's timed work, on its key and first witness: one
+    warm prove_gpu outside the sampler (its launches held to the Jacobian
+    launch rule), FLAME_PLAIN_PROOFS more timed, then
+    flameprof.profile_proves for FLAME_S seconds.  The capture's launches
+    must equal, launcher by launcher, the proofs times the warm proof's,
+    and its stacks must hold a `gpu:` frame under prove_gpu, some of them
+    beside the waits in tcurve.py's copies to the host.  Returns the
+    flame line's in-process part."""
+    from zkp2p_tpu_torch.ops import cuda_build
+    from zkp2p_tpu_torch.ops.ntt import pass_plan
+    from zkp2p_tpu_torch.prover.groth16_gpu import prove_gpu
+    from zkp2p_tpu_torch.utils import flameprof
+
+    key, w = fl["key"], fl["wits"][0]
+
+    def prove():
+        return prove_gpu(key, w, device=device)
+
+    cuda_build.reset_launches()
+    prove()
+    per_proof = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    rule = {"fr_ntt_pass": 2 * len(pass_plan(VENMO["log_m"])), "fr_matvec": 2, "signed_recode": 2,
+            **CLASSED_PROOF_LAUNCHES}
+    missing = [k for k in PATH_KERNELS["jacobian"] if "zk_" + k not in per_proof]
+    stray = [k for k in NOT_ON_JACOBIAN if "zk_" + k in per_proof]
+    if missing or stray or any(per_proof.get("zk_" + k) != v for k, v in rule.items()) \
+            or per_proof["zk_mont_mul"] > K1_JACOBIAN_MAX:
+        raise AssertionError(f"the warm flagship proof launched {per_proof}: missing {missing}, stray {stray}")
+    plain = [wall_s(torch, prove)[0] for _ in range(FLAME_PLAIN_PROOFS)]
+    sampler, seconds = flameprof.profile_proves(prove, FLAME_S, hz=flameprof.DEFAULT_HZ)
+    sampler.stop()
+    body = sampler.result()
+    want = {k: len(seconds) * v for k, v in per_proof.items()}
+    if body["gpu_launches"] != want:
+        raise AssertionError(f"the sampler counted {body['gpu_launches']}, {len(seconds)} proofs of {per_proof} "
+                             "expected")
+    under = {k: v for k, v in body["stacks"].items() if "groth16_gpu.py:prove_gpu" in k and ";gpu:" in k}
+    if not under:
+        raise AssertionError("no gpu: frame under prove_gpu in the flame stacks")
+    # the prover's waits for the MSMs (the copies to the host in
+    # tcurve.py): the card is busy there, so they carry the last launcher
+    waits = {k: v for k, v in body["stacks"].items() if "groth16_gpu.py:prove_gpu" in k
+             and [f for f in k.split(";") if not f.startswith("gpu:")][-1].startswith("tcurve.py:")}
+    waits_gpu = sum(v for k, v in waits.items() if ";gpu:" in k)
+    if not waits_gpu:
+        raise AssertionError(f"no gpu: frame beside the prover's waits on the card: {waits}")
+    top = flameprof.collapsed_text(body["stacks"]).splitlines()[:FLAME_TOP]
+    line = {"shape": "venmo 1024/6400, phase 8's key and first witness, prove_gpu warm",
+            "hz": body["hz"], "proofs": len(seconds), "samples": body["samples"], "windows": body["windows"],
+            "duration_s": body["duration_s"], "self_ms": body["sampler"]["self_ms"],
+            "cpu_ms": body["sampler"]["cpu_ms"],
+            "p50_s_sampled": statistics.median(seconds), "p50_s_plain": statistics.median(plain),
+            "prove_s_sampled": seconds, "prove_s_plain": plain, "launches_a_proof": per_proof,
+            "launches_equal_proofs_times_a_proof": True, "gpu_launches": body["gpu_launches"],
+            "gpu_unattributed_launches": body["gpu_unattributed_launches"],
+            "samples_gpu_under_prove_gpu": sum(under.values()), "samples_waiting_in_tcurve": sum(waits.values()),
+            "samples_waiting_in_tcurve_with_gpu": waits_gpu,
+            "top": [";".join(k.rsplit(" ", 1)[0].split(";")[-6:]) + " " + k.rsplit(" ", 1)[1] for k in top]}
+    log(f"flame (a): {len(seconds)} warm proofs in {body['duration_s']:.2f} s under the sampler at {body['hz']:g} Hz, "
+        f"p50 {line['p50_s_sampled']:.3f} s against {line['p50_s_plain']:.3f} s without it; {body['samples']} samples, "
+        f"self {body['sampler']['self_ms']:.1f} ms ({body['sampler']['cpu_ms']:.1f} ms of CPU); launches {sum(want.values())} = {len(seconds)} x "
+        f"{sum(per_proof.values())}; {line['samples_gpu_under_prove_gpu']} samples with a gpu: frame under prove_gpu, "
+        f"{waits_gpu} of the {line['samples_waiting_in_tcurve']} waiting in tcurve.py's copies to the host")
+    for row in line["top"]:
+        log(f"  flame | ...{row}")
+    return line
+
+
+def sentry_seed(stamp):
+    """(b) between phases 9 and 13 (a), on phase 9's ledger (`stamp`: its
+    exit stamp's path and stages): `perf --rebaseline` then `perf --gate`
+    must exit 0; then PERF_SEEDED entries whose prove p50 is a tenth of
+    phase 9's are appended (the seeded history) and a second band is
+    frozen from them.  Returns the state phase 13 (a) and the gate after
+    it read."""
+    import os
+
+    from zkp2p_tpu_torch.utils import perfledger as pl
+
+    ledger, d = stamp["ledger"], os.path.dirname(stamp["ledger"])
+    clean, seeded = os.path.join(d, "baseline_clean.json"), os.path.join(d, "baseline_seeded.json")
+    rc1, _ = perf_cmd(["--rebaseline", "--baseline", clean, "--ledger", ledger])
+    rc2, out2 = perf_cmd(["--gate", "--baseline", clean, "--ledger", ledger])
+    if rc1 or rc2 or "perf-gate: ok" not in out2:
+        raise AssertionError(f"perf --rebaseline / --gate on phase 9's ledger exited {rc1} / {rc2}:\n{out2}")
+    p50 = stamp["stages"]["prove"]["p50_ms"] / 10
+    for _ in range(PERF_SEEDED):
+        pl.append_entry(pl.make_entry("bench", "venmo", {"prove": {"p50_ms": p50, "p95_ms": p50, "n": 4}},
+                                      device=stamp["device"]), ledger)
+    entries, _ = pl.load_entries(ledger, device=stamp["device"])
+    rc3, _ = perf_cmd(["--rebaseline", "--baseline", seeded, "--ledger", ledger])
+    if rc3 or len(entries) != 1 + PERF_SEEDED:
+        raise AssertionError(f"the seeded ledger holds {len(entries)} entries; its rebaseline exited {rc3}")
+    log(f"sentry (b): phase 9's stamp rebaselined and gated ok; {PERF_SEEDED} entries seeded at prove p50 "
+        f"{p50:.1f} ms (a tenth of phase 9's), a band frozen from them")
+    return {"ledger": ledger, "cache_dir": d, "baseline_seeded": seeded, "seeded_p50_ms": p50,
+            "seeded_head": entries[-1]["entry_digest"], "gate_clean": out2.strip().splitlines()}
+
+
+def sentry_check(svc, recs, done, before, sentry):
+    """(b) after phase 13 (a)'s sweep (`svc`, its records `recs`, the done
+    ones `done`, the overrun counters `before` it): every done request's
+    prove span over the seeded budget and counted; the counters' moves
+    equal to the heartbeat's perf block (a heartbeat file written here);
+    one capture, linked to the seeded head, with `gpu:` frames and in the
+    heartbeat; then the run's stamp, and `perf --gate` against the seeded
+    band exits 1 naming that capture."""
+    import os
+    import tempfile
+
+    from zkp2p_tpu_torch.pipeline.fleet import _write_heartbeat
+    from zkp2p_tpu_torch.utils import flameprof
+
+    moved = {k: v - before.get(k, 0) for k, v in overrun_counts().items() if v - before.get(k, 0)}
+    budget = svc._perf_book.budget_ms("prove")
+    spans = [sp["ms"] for n in done for sp in recs[n]["spans"] if sp["name"] == "prove"]
+    if len(spans) != len(done) or not all(ms > budget for ms in spans) or moved.get("prove") != len(done):
+        raise AssertionError(f"prove spans {spans} against the seeded budget {budget} ms; overruns moved {moved}")
+    with tempfile.TemporaryDirectory(dir=sentry["cache_dir"]) as hb_dir:
+        _write_heartbeat(svc, hb_dir)
+        (hb_file,) = os.listdir(hb_dir)
+        hb = read_json(os.path.join(hb_dir, hb_file))["perf"]
+    if hb["overruns"] != sum(moved.values()) or hb["budgets"] != len(svc._perf_book) or hb["checked"] < len(done):
+        raise AssertionError(f"the heartbeat's perf block {hb} against the counters' moves {moved}")
+    caps = flameprof.captures_for("venmo", sentry["cache_dir"], "prove")
+    if len(caps) != 1:
+        raise AssertionError(f"captures: {[c[0] for c in caps]}")
+    path, doc = caps[0]
+    gpu = sum(v for k, v in doc["stacks"].items() if ";gpu:" in k)
+    if doc["entry_digest"] != sentry["seeded_head"] or doc["trigger"] != "overrun" or not gpu \
+            or (hb.get("capture") or {}).get("file") != os.path.basename(path):
+        raise AssertionError(f"the capture {path}: entry {doc['entry_digest']} (seeded head "
+                             f"{sentry['seeded_head']}), gpu frames {gpu}, heartbeat {hb.get('capture')}")
+    if not svc._perf_stamp():
+        raise AssertionError("phase 13 (a)'s exit stamp was not written")
+    rc, out = perf_cmd(["--gate", "--baseline", sentry["baseline_seeded"], "--ledger", sentry["ledger"]])
+    if rc != 1 or "DRIFT" not in out or f"capture: {path}" not in out:
+        raise AssertionError(f"perf --gate against the seeded band exited {rc}:\n{out}")
+    line = {"budget_ms": budget, "prove_span_ms": spans, "overruns_moved": moved, "heartbeat_perf": hb,
+            "capture": {"file": os.path.basename(path), "samples": doc["samples"], "gpu_frames": gpu,
+                        "self_ms": doc["sampler"]["self_ms"], "gpu_launches": doc["gpu_launches"],
+                        "entry_digest_is_seeded_head": True},
+            "gate_seeded": {"rc": rc, "out": out.strip().splitlines()}}
+    log(f"sentry (b): phase 13 (a) overran the seeded prove budget {budget:.1f} ms on every done request "
+        f"({[round(x) for x in spans]} ms); counters {moved} equal the heartbeat's {hb['overruns']}; capture "
+        f"{os.path.basename(path)} ({doc['samples']} samples, {gpu} with gpu: frames) linked to the seeded head; "
+        f"perf --gate against the seeded band: rc 1, naming it")
+    return line
+
+
+def overrun_counts():
+    """zkp2p_stage_budget_overruns_total by stage, in this process."""
+    from zkp2p_tpu_torch.utils.metrics import REGISTRY
+
+    return {m["labels"]["stage"]: m["value"] for m in REGISTRY.snapshot()
+            if m["name"] == "zkp2p_stage_budget_overruns_total"}
+
+
+def perf_json_start(sentry):
+    """(c)'s second command: `perf --json` on (b)'s ledger as a process,
+    beside phase 2 (it launches nothing)."""
+    import os
+
+    return cli_start(["perf", "--json", "--ledger", sentry["ledger"]], os.path.join(sentry["cache_dir"], "perf.log"))
+
+
+def perf_json_finish(handle, sentry):
+    """`perf --json` must exit 0 and print the trendlines: venmo/prove's
+    series ending in phase 9's, the seeded and phase 13 (a)'s p50s."""
+    wall, out, _rss = cli_finish(handle, timeout=300)
+    doc = json.loads(out.stdout) if out.returncode == 0 else {}
+    series = (doc.get("series") or {}).get("venmo/prove") or []
+    if len(series) != PERF_SEEDED + 2 or series[1:1 + PERF_SEEDED] != [round(sentry["seeded_p50_ms"], 3)] * PERF_SEEDED:
+        raise AssertionError(f"`perf --json` exited {out.returncode}: {out.stdout[:2000]}")
+    log(f"sentry (c): `perf --json` in {wall:.1f} s: venmo/prove {series}")
+    return {"wall_s": wall, "series_prove": series, "budgets_prove": doc["budgets"]["venmo"]["prove"]}
 
 
 # -------------------------------------------------------------- phase 10
@@ -5672,7 +5991,7 @@ def run(torch, device, peak_muls, sm_clock_hz):
     # starts once the kernels are built, beside the rest of the circuit's
     # build and phase 8
     t0 = time.perf_counter()
-    chaos = sched_fleet = None
+    chaos = sched_fleet = flame_cli = perf_json = None
     try:
         with ThreadPoolExecutor(1) as pool:
             flagship_build = pool.submit(build_flagship)
@@ -5680,12 +5999,15 @@ def run(torch, device, peak_muls, sm_clock_hz):
             build_s = time.perf_counter() - t0
             chaos = chaos_start()
             sched_fleet = sched_fleet_start()
+            flame_cli = flame_cli_start()
             built = flagship_build.result()
     except BaseException:
         if chaos is not None:
             chaos_stop(chaos)
         if sched_fleet is not None:
             sched_fleet_stop(sched_fleet)
+        if flame_cli is not None:
+            stop([flame_cli[0]])
         raise
     # its tens of millions of objects live to the end: no collection scans them
     gc.freeze()
@@ -5708,6 +6030,7 @@ def run(torch, device, peak_muls, sm_clock_hz):
     except BaseException:
         chaos_stop(chaos)
         sched_fleet_stop(sched_fleet)
+        stop([flame_cli[0]])
         raise
     fleet = None
     log(f"phase 8's start (setup_device, the zkey's data; its files, subprocesses and inference follow in a "
@@ -5717,6 +6040,11 @@ def run(torch, device, peak_muls, sm_clock_hz):
         flagship, fl_setup, fl_prove, fl_batch, fl = flagship_phase(torch, built, fl_start, device)
         log(f"phase 8 (the flagship circuit) in this process: {time.perf_counter() - t0:.1f} s")
         del built
+        # (a): the flame loop on phase 8's key, after its timed work
+        t0 = time.perf_counter()
+        flame_line = flame_phase(torch, fl, device)
+        log(f"flame (a) at full width: {time.perf_counter() - t0:.1f} s")
+        flame_line = {"in_process": flame_line, "cli": flame_cli_finish(flame_cli)}
         # phase 12 ends before phase 9
         t0 = time.perf_counter()
         chaos_line = chaos_finish(chaos, "phase 1's circuit build, phase 8")
@@ -5729,10 +6057,14 @@ def run(torch, device, peak_muls, sm_clock_hz):
         t0 = time.perf_counter()
         service, service_launches = service_phase(torch, fl, device)
         log(f"phase 9 (the proving service): {time.perf_counter() - t0:.1f} s")
+        # (b): phase 9's ledger gated, then seeded for phase 13 (a)
+        sentry = sentry_seed(service["perf_stamp"])
         # phase 13 (a), on phase 8's key and witnesses, seeded by phases 8-9
         t0 = time.perf_counter()
-        sched_line, sched_launches = sched_phase(torch, fl, service, device)
+        sched_line, sched_launches = sched_phase(torch, fl, service, sentry, device)
         log(f"phase 13 (a) (the adaptive scheduler at full width): {time.perf_counter() - t0:.1f} s")
+        # (c)'s `perf --json` on that ledger, beside phase 2
+        perf_json = perf_json_start(sentry)
         del fl
         fl_start.pop("key")  # the flagship key leaves the card before phase 2
         torch.cuda.empty_cache()
@@ -5745,6 +6077,7 @@ def run(torch, device, peak_muls, sm_clock_hz):
         # phase 2
         rows, affine_msm_same_run = kernels_phase(torch, peak_muls, sm_clock_hz, device)
         flagship_verified(fl_start, flagship)
+        flame_line["perf_json"] = perf_json_finish(perf_json, sentry)
         # phase 11's requests; phase 2's untimed K15/K16 checks and phase 3
         # beside their proofs
         t0 = time.perf_counter()
@@ -5760,6 +6093,8 @@ def run(torch, device, peak_muls, sm_clock_hz):
     finally:
         chaos_stop(chaos)
         shutil.rmtree(chaos["dir"], ignore_errors=True)
+        stop([h[0] for h in (flame_cli, perf_json) if h is not None])
+        shutil.rmtree(os.path.abspath(PERF_DIR), ignore_errors=True)
         sched_fleet_stop(sched_fleet)
         shutil.rmtree(os.path.abspath(SCHED_DIR), ignore_errors=True)
         if fleet is not None:
@@ -5920,7 +6255,7 @@ def run(torch, device, peak_muls, sm_clock_hz):
              "affine_msm_same_run": affine_msm_same_run, "affine_same_run": affine_same_run,
              "real_size_batch": real_batch, "batch_same_run": batch_same_run, "setup_vector": setup_vector,
              "real_size_setup": real_setup, "cli_real_size": cli_line, "flagship": flagship, "service": service,
-             "fleet": fleet_line, "chaos": chaos_line,
+             "fleet": fleet_line, "chaos": chaos_line, "flame": flame_line,
              "sched": {"in_process": sched_line, "fleet": sched_fleet_line},
              "ceremony": {"shape": f"phase 6's key (venmo 1024/6400 counts): c {V['n_wires'] - V['n_public'] - 1} + "
                                    f"h {1 << V['log_m']} points, zkey {cer_cli['zkey_bytes']} bytes",

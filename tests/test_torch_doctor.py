@@ -99,7 +99,7 @@ def test_service_logs_the_preflight_before_claiming(tmp_path, capsys):
 
     spool = tmp_path / "spool"
     spool.mkdir()
-    svc = ProvingService(None, None, None, None, None, device="cpu")
+    svc = ProvingService(None, None, None, None, None, device="cpu", cache_dir=None)
     assert svc.run(str(spool), max_sweeps=1) == "sweeps"
     out = capsys.readouterr()
     assert re.search(r"\[service\] preflight: backend=\w+ execution_digest=[0-9a-f]{16}", out.out)

@@ -101,7 +101,7 @@ def prove(dpk, wits):
 svc = ProvingService(cs, pk, vk, witness_fn, lambda w: [w[1]], batch_size=2, prover_fn=slowed_prover(prove, 0.3),
                      stale_claim_s={stale!r}, retry_backoff_s=0.0, ts_sample_s=0.5, device="cpu",
                      metrics_port=args.metrics_port, worker_id=args.worker_id, fleet_id=args.fleet_id,
-                     fleet_dir=args.fleet_dir)
+                     fleet_dir=args.fleet_dir, cache_dir=None)
 install_drain_handlers(svc)
 why = svc.run(args.spool, poll_s=0.05, max_seconds=120, exit_when_spool_terminal=not args.linger)
 sys.exit(0 if why in ("drained", "terminal") else 2)

@@ -523,7 +523,7 @@ def test_service_run_on_cuda_builds_every_kernel_before_claiming(monkeypatch, tm
     spool = tmp_path / "spool"
     spool.mkdir()
     (spool / "r0.req.json").write_text("{}")
-    svc = ProvingService(None, None, None, None, None, device="cpu")
+    svc = ProvingService(None, None, None, None, None, device="cpu", cache_dir=None)
     svc.device = torch.device("cuda", 0)
 
     def failed_build(stems=None):
@@ -694,3 +694,56 @@ def test_loadgen_without_cuda_raises_before_writing_or_spawning(monkeypatch, tmp
     out = subprocess.run([sys.executable, "-m", "zkp2p_tpu_torch.tools.loadgen", "--spool", str(spool)], cwd=ROOT,
                          capture_output=True, text=True, timeout=300, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode != 0 and "no CUDA device" in out.stderr and not spool.exists()
+
+
+SENTRY_MODULES = ("hostprof", "perfledger", "flameprof")
+
+
+def test_the_sentry_and_the_sampler_load_no_jax_and_read_no_knob():
+    """The fingerprint, the perf ledger and the flame sampler import
+    neither JAX nor the reference package, and name no ZKP2P_* variable
+    outside their docstrings (their settings are keywords)."""
+    mods = [f"zkp2p_tpu_torch.utils.{m}" for m in SENTRY_MODULES]
+    code = ("import sys, importlib\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "print([m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'zkp2p_tpu')])\n")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHONPATH")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "[]", out.stderr
+    bad = []
+    for name in SENTRY_MODULES:
+        tree = ast.parse((PKG / "utils" / f"{name}.py").read_text())
+        docs = {id(n.body[0].value) for n in ast.walk(tree)
+                if isinstance(n, (ast.Module, ast.FunctionDef, ast.ClassDef)) and n.body
+                and isinstance(n.body[0], ast.Expr) and isinstance(n.body[0].value, ast.Constant)}
+        bad += [(name, n.lineno) for n in ast.walk(tree) if isinstance(n, ast.Constant) and id(n) not in docs
+                and isinstance(n.value, str) and "ZKP2P_" in n.value]
+    assert bad == []
+
+
+def test_flame_and_perf_without_cuda_raise_before_any_work(monkeypatch, tmp_path):
+    """`flame` and `perf` run on (and key their ledger to) the card unless
+    --device cpu: without CUDA they raise before they build a circuit or
+    read a ledger, in process and from the entry point, and write no
+    capture."""
+    from zkp2p_tpu_torch.pipeline import cli
+    from zkp2p_tpu_torch.utils import perfledger
+
+    def no_work(*a, **k):
+        raise AssertionError("built a circuit or read a ledger")
+
+    captures = set(Path(perfledger.DEFAULT_CACHE_DIR).glob("flame_*.json"))
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        m.setattr(cli, "_build_circuit", no_work)
+        m.setattr(perfledger, "load_entries", no_work)
+        for argv in (["--circuit", "toy", "flame", "--duration", "0"],
+                     ["--circuit", "toy", "flame", "--device", "cuda"],
+                     ["perf", "--ledger", str(tmp_path / "l.jsonl")], ["perf", "--gate"], ["perf", "--json"]):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                cli.main(argv)
+    out = subprocess.run([sys.executable, "-m", "zkp2p_tpu_torch", "--circuit", "toy", "--build-dir",
+                          str(tmp_path / "b"), "flame", "--duration", "0"], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0 and "no CUDA device" in out.stderr and out.stdout == ""
+    assert set(Path(perfledger.DEFAULT_CACHE_DIR).glob("flame_*.json")) <= captures

@@ -94,6 +94,7 @@ def world():
 def _service(world, **kw):
     cs, vk, witness_fn, prove = world
     kw.setdefault("batch_size", 4)
+    kw.setdefault("cache_dir", None)
     return ProvingService(cs, None, vk, witness_fn, public_fn=lambda w: [w[1]], prover_fn=prove, device="cpu", **kw)
 
 

@@ -91,6 +91,8 @@ class Side:
         witness_fn = kw.pop("witness_fn", self.witness_fn)
         if self.port:
             kw["device"] = "cpu"
+            # the card's ledger in the repo stays out of the tests' budgets
+            kw.setdefault("cache_dir", None)
         return (PortService if self.port else RefService)(self.cs, self.pk, self.vk, witness_fn,
                                                           public_fn=lambda w: [w[1]], **kw)
 

@@ -43,7 +43,7 @@ def swept(tmp_path_factory):
         return cs.witness(*inputs_fn(payload))
 
     svc = ProvingService(cs, device_pk(pk, cs, device="cpu"), port_vk(vk), witness_fn, lambda w: [w[1]],
-                         batch_size=2, inputs_fn=inputs_fn, device="cpu")
+                         batch_size=2, inputs_fn=inputs_fn, device="cpu", cache_dir=None)
     spool = str(tmp_path_factory.mktemp("svc-prover") / "spool")
     os.makedirs(spool)
     write_reqs(spool, PAIRS)

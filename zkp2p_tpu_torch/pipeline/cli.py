@@ -43,8 +43,14 @@ rapidsnark drop-in prover.
            bulk; shedding by predicted deadline miss; batches sized by
            --sched-amort 'S:sec,...' and --sched-target-fill 0.8 against
            the deadline or --slo-p95-s); --worker-tier is the tier its
-           heartbeat advertises.  It logs its kernels' launch counts at
-           exit.
+           heartbeat advertises.  The perf sentry checks every terminal
+           request's spans against the card's ledger budgets and stamps one
+           ledger entry at exit (--no-perf-ledger turns it off;
+           --perf-window 8, --perf-tolerance 1.5; the ledger and captures
+           in --cache-dir, default <repo>/.bench_cache); --flame turns on the
+           overrun-triggered flame captures (--flame-hz 47,
+           --flame-capture-n 2 sweeps, --flame-cooldown-s 60).  It logs its
+           kernels' launch counts at exit.
   fleet    N `service` workers on one spool under a supervisor
            (``pipeline.fleet``): restarts with backoff and a crash-loop
            breaker, SIGTERM drains every worker (SIGKILL past
@@ -62,7 +68,8 @@ rapidsnark drop-in prover.
            --workers-max N (> 0) autoscales the fleet between
            --workers-min and N on the plane's backlog trend and burn
            rates (--scale-up-s 10, --scale-down-s 30; the plane turns on);
-           --sched ARM is appended to each worker's argv.
+           --sched ARM is appended to each worker's argv, and so are the
+           service's perf flags below when given.
   top      the fleet plane's /status as a terminal view (--url, --port,
            or --fleet-dir DIR reading DIR/status.json's metrics_port;
            --interval 2, --once for one frame); an HTTP client, no card
@@ -75,6 +82,23 @@ rapidsnark drop-in prover.
            plain version (--no-workload skips it); --json for one JSON
            object; --strict exits 1 on a warning (no CUDA device among
            them)
+  perf     the perf sentry (``utils.perfledger``) over the card's stage-cost
+           ledger (<repo>/.bench_cache/perf_ledger_<key>.jsonl, or
+           --ledger): a trendline and verdict a (circuit, stage) against the
+           budgets (--window 8, --tolerance 1.5; --circuit, --stage filter;
+           --json for the budgets and series), --rebaseline freezes the
+           budgets as the band (--baseline, default PERF_BASELINE_GPU.json),
+           --gate replays the ledger's head against it: exit 0 ok, 1 drift
+           (a DRIFT row names the flame capture beside the ledger), 2 fail
+           closed
+  flame    ``prove_gpu`` on the card in a loop for --duration seconds under
+           the flame sampler (``utils.flameprof``; --hz 47), after one
+           warm-up proof outside it: the collapsed stacks on stdout (with
+           `gpu:<launcher>` frames under the frames that waited on the
+           card) and a trigger="manual" capture in --cache-dir (default
+           <repo>/.bench_cache).  The
+           key is --zkey's (or the build dir's); without one, the dev setup
+           runs on the card
 
     python -m zkp2p_tpu_torch --circuit venmo --max-header 1024 --max-body 6400 setup
     python -m zkp2p_tpu_torch --circuit venmo --max-header 1024 --max-body 6400 prove --eml receipt.eml
@@ -89,9 +113,12 @@ rapidsnark drop-in prover.
     python -m zkp2p_tpu_torch top --fleet-dir spool/.fleet
     python -m zkp2p_tpu_torch ceremony contribute build/circuit_0.zkey build/circuit_1.zkey --entropy "..."
     python -m zkp2p_tpu_torch doctor --json
+    python -m zkp2p_tpu_torch perf --gate
+    python -m zkp2p_tpu_torch --circuit toy flame --duration 5
 
-``setup``, ``prove``, ``batch``, ``service``, ``fleet`` (its workers) and
-``ceremony`` run on the CUDA card (``--device cuda``, the default) and
+``setup``, ``prove``, ``batch``, ``service``, ``fleet`` (its workers),
+``ceremony`` and ``flame`` run on the CUDA card, and ``perf`` reads that
+card's ledger (``--device cuda``, the default); they
 raise before they build a circuit or read a file when there is none;
 ``--device cpu`` runs the plain versions of the kernels.  A .wtns's
 values are proved as their residues mod r, and public.json carries them
@@ -432,7 +459,10 @@ def cmd_service(args):
                   metrics_addr=args.metrics_addr, worker_id=args.worker_id, fleet_id=args.fleet_id,
                   fleet_dir=args.fleet_dir, sched=args.sched, sched_amort=args.sched_amort,
                   sched_target_fill=args.sched_target_fill, sched_priority_default=args.priority_default,
-                  worker_tier=args.worker_tier)
+                  worker_tier=args.worker_tier, circuit=args.circuit, perf_ledger=not args.no_perf_ledger,
+                  perf_window=args.perf_window, perf_tolerance=args.perf_tolerance, flame=args.flame,
+                  flame_hz=args.flame_hz, flame_capture_n=args.flame_capture_n,
+                  flame_cooldown_s=args.flame_cooldown_s, cache_dir=args.cache_dir)
     if args.circuit == "venmo":
         svc = ProvingService.for_venmo(cs, lay, params, dpk, vk, **svc_kw)
     else:
@@ -488,6 +518,13 @@ def cmd_fleet(args):
         def worker_cmd(_wid):
             return list(base)
 
+    # the perf settings given, as the workers' flags (absent: their defaults)
+    perf = {k: getattr(args, k) for k in ("perf_window", "perf_tolerance", "cache_dir", "flame_hz",
+                                          "flame_capture_n", "flame_cooldown_s") if getattr(args, k) is not None}
+    if args.no_perf_ledger:
+        perf["perf_ledger"] = False
+    if args.flame:
+        perf["flame"] = True
     os.makedirs(args.spool, exist_ok=True)
     sup = FleetSupervisor(args.spool, worker_cmd, workers=args.workers, fleet_dir=args.fleet_dir,
                           drain_timeout_s=args.drain_timeout_s, breaker_k=args.breaker_k,
@@ -495,7 +532,8 @@ def cmd_fleet(args):
                           rss_soft_mb=args.rss_soft_mb, rss_hard_mb=args.rss_hard_mb, liveness_s=args.liveness_s,
                           fleet_metrics_port=args.fleet_metrics_port, scrape_s=args.fleet_scrape_s,
                           workers_min=args.workers_min, workers_max=args.workers_max, scale_up_s=args.scale_up_s,
-                          scale_down_s=args.scale_down_s, sched=args.sched, log=lambda m: _log(f"fleet: {m}"))
+                          scale_down_s=args.scale_down_s, sched=args.sched, perf=perf,
+                          log=lambda m: _log(f"fleet: {m}"))
     _log(f"fleet {sup.fleet_id}: {sup.n} worker(s) on {args.spool} (fleet dir {sup.fleet_dir}, drain timeout "
          f"{sup.drain_timeout_s:g}s)")
     sys.exit(sup.run(max_seconds=args.max_seconds))
@@ -621,7 +659,124 @@ def cmd_doctor(args):
         sys.exit(1)
 
 
+def cmd_perf(args):
+    """The perf sentry over the card's stage-cost ledger: the trendlines and
+    verdicts against the current budgets; --rebaseline freezes them as the
+    band, --gate replays the ledger's head against the band (rc 1 drift,
+    rc 2 fail closed).  A DRIFT or REGRESSED row names the newest flame
+    capture of its stage beside the ledger."""
+    from ..utils import flameprof
+    from ..utils import perfledger as pl
+
+    dev = resolve_device(args.device)
+    ledger = args.ledger or pl.ledger_path(pl.DEFAULT_CACHE_DIR, dev)
+    captures = os.path.dirname(os.path.abspath(ledger))
+    did_action = False
+    if args.rebaseline:
+        did_action = True
+        doc = pl.write_baseline(args.baseline or None, ledger, window=args.window, tolerance=args.tolerance,
+                                device=dev)
+        if doc is None:
+            _log("perf: rebaseline FAILED — no valid ledger entries to freeze (run a service sweep first)")
+            sys.exit(2)
+        bands = sum(len(v) for v in doc["bands"].values())
+        _log(f"perf: baseline frozen — {bands} band(s), window={doc['window']} tolerance={doc['tolerance']:g}")
+    if args.gate:
+        rc, verdicts = pl.gate_check(args.baseline or None, ledger, log=_log, device=dev)
+        for v in verdicts:
+            if v["verdict"] in ("new", "gone"):
+                print(f"{v['verdict']:<8} {v['circuit']}/{v['stage']}")
+                continue
+            print(f"{v['verdict']:<8} {v['circuit']}/{v['stage']}: head p50 {v['p50_ms']:.1f} ms vs budget "
+                  f"{v['budget_ms']:.1f} ms (band median {v['median_ms']:.1f} ms)")
+            if v["verdict"] == "DRIFT":
+                for cpath, cdoc in flameprof.captures_for(v["circuit"], captures, v["stage"])[:1]:
+                    print(f"       capture: {cpath} (trigger {cdoc.get('trigger')}, entry {cdoc.get('entry_digest')})")
+        drifts = sum(1 for v in verdicts if v["verdict"] == "DRIFT")
+        improved = sum(1 for v in verdicts if v["verdict"] == "IMPROVED")
+        print(f"perf-gate: {'DRIFT' if rc == 1 else 'FAIL CLOSED' if rc else 'ok'} "
+              f"({drifts} drifting stage(s) of {len(verdicts)})")
+        # a head well under its band: the band has gone loose
+        if improved:
+            print(f"perf-gate: {improved} IMPROVED stage(s) — band is stale-loose; freeze the new floor with "
+                  "`zkp2p-tpu-torch perf --rebaseline`")
+        sys.exit(rc)
+    if did_action:
+        return
+    entries, refused = pl.load_entries(ledger, device=dev)
+    if not entries:
+        _log(f"perf: no valid ledger entries for this host (refused: {refused})")
+        sys.exit(1)
+    budgets = pl.derive_budgets(entries, window=args.window, tolerance=args.tolerance)
+    series = {}
+    for e in entries:
+        circuit = str(e.get("circuit", "?"))
+        if args.circuit_filter and circuit != args.circuit_filter:
+            continue
+        for stage, st in e["stages"].items():
+            if args.stage and args.stage not in stage:
+                continue
+            series.setdefault((circuit, stage), []).append(float(st["p50_ms"]))
+    if args.json:
+        print(json.dumps({"budgets": budgets, "series": {f"{c}/{s}": v for (c, s), v in sorted(series.items())},
+                          "refused": refused}, indent=1, sort_keys=True))
+        return
+    marks = "_.-=#"  # low .. high within each stage's own range
+    for (circuit, stage), vals in sorted(series.items()):
+        lo, hi = min(vals), max(vals)
+        span = (hi - lo) or 1.0
+        line = "".join(marks[int((v - lo) / span * (len(marks) - 1))] for v in vals[-48:])
+        b = (budgets.get(circuit) or {}).get(stage)
+        verdict = "no-budget" if b is None else ("REGRESSED" if vals[-1] > b["budget_ms"] else "ok")
+        print(f"{circuit}/{stage:<28} [{line}] last {vals[-1]:.1f} ms "
+              + (f"budget {b['budget_ms']:.1f} ms " if b else "") + f"(n={len(vals)}) {verdict}")
+        if verdict == "REGRESSED":
+            for cpath, cdoc in flameprof.captures_for(circuit, captures, stage)[:1]:
+                print(f"    capture: {cpath} (trigger {cdoc.get('trigger')}, entry {cdoc.get('entry_digest')})")
+    if any(refused.values()):
+        _log(f"perf: refused entries: {refused} (window={args.window} tolerance={args.tolerance:g})")
+
+
+def cmd_flame(args):
+    """An on-demand flame profile: prove_gpu in a loop for --duration
+    seconds under the sampler, after one warm-up proof outside it; the
+    collapsed stacks on stdout, a trigger="manual" capture beside the perf
+    ledger."""
+    from ..utils import flameprof
+
+    dev = resolve_device(args.device)
+    _log(f"flame: arm {flameprof.flame_arm(True, args.hz)}")
+    cs, meta = _circuit(args)
+    try:
+        zk = _load_zkey(args)
+        _check_zkey_matches(zk, cs)
+    except (OSError, SystemExit):
+        # no zkey for this circuit: the dev setup keeps the command
+        # self-contained (the profile's shape matters, not the key's origin)
+        _log(f"flame: no zkey found — running the dev setup on {dev}")
+        dpk, _vk = setup_device(cs, seed="flame-profile", device=dev)
+    else:
+        dpk = _key(args, zk, dev)
+        del zk
+    w, _pub = _witness_for(args, cs, meta)
+
+    def prove():
+        return prove_gpu(dpk, w, device=dev)
+
+    prove()  # the first call's kernel loads and tables are not the steady state
+    sampler, seconds = flameprof.profile_proves(prove, args.duration, hz=args.hz)
+    path = flameprof.write_capture(sampler, args.circuit, "on-demand", "manual", args.cache_dir)
+    body = sampler.result()
+    _log(f"flame: {len(seconds)} prove(s) in {body['duration_s']:.1f}s — {body['samples']} samples over "
+         f"{body['windows']} windows @ {args.hz:g} Hz, sampler self-cost {body['sampler']['self_ms']:.1f} ms; "
+         f"launches {json.dumps(body['gpu_launches'], sort_keys=True)}")
+    _log(f"flame: capture -> {path}" if path else "flame: capture NOT persisted")
+    print(flameprof.collapsed_text(body["stacks"]))
+
+
 def main(argv=None):
+    from ..utils import flameprof, perfledger as pl
+
     ap = argparse.ArgumentParser("zkp2p-tpu-torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--build-dir", default="build",
@@ -645,6 +800,34 @@ def main(argv=None):
                                        "manifest line, to this JSON-lines file")
         s.add_argument("--order-id", type=int, default=1)
         s.add_argument("--claim-id", type=int, default=0)
+
+    def perf_args(s, fleet):
+        # the service's perf sentry and flame settings; a fleet's default
+        # None leaves a worker its own (the service's defaults, below)
+        def dflt(v):
+            return None if fleet else v
+
+        note = f" ({fleet})" if fleet else ""
+        s.add_argument("--no-perf-ledger", action="store_true",
+                       help="turn the perf sentry off: no budgets, no overrun checks, no ledger stamp" + note)
+        s.add_argument("--perf-window", type=int, default=dflt(pl.DEFAULT_WINDOW),
+                       help=f"ledger entries a stage budget's median is taken over (default {pl.DEFAULT_WINDOW})"
+                            + note)
+        s.add_argument("--perf-tolerance", type=float, default=dflt(pl.DEFAULT_TOLERANCE),
+                       help=f"a stage budget's multiple of that median, >= 1 (default {pl.DEFAULT_TOLERANCE:g})"
+                            + note)
+        s.add_argument("--cache-dir", default=dflt(pl.DEFAULT_CACHE_DIR),
+                       help="where the perf ledger and the flame captures live (default <repo>/.bench_cache)"
+                            + note)
+        s.add_argument("--flame", action="store_true",
+                       help="a budget overrun starts a flame capture over the next sweeps" + note)
+        s.add_argument("--flame-hz", type=float, default=dflt(flameprof.DEFAULT_HZ),
+                       help=f"the flame sampler's rate in Hz (default {flameprof.DEFAULT_HZ:g})" + note)
+        s.add_argument("--flame-capture-n", type=int, default=dflt(flameprof.DEFAULT_CAPTURE_N),
+                       help=f"sweeps a triggered capture spans (default {flameprof.DEFAULT_CAPTURE_N})" + note)
+        s.add_argument("--flame-cooldown-s", type=float, default=dflt(flameprof.DEFAULT_COOLDOWN_S),
+                       help=f"least seconds between two triggered captures (default "
+                            f"{flameprof.DEFAULT_COOLDOWN_S:g})" + note)
 
     s = sub.add_parser("setup", help="build the circuit, set it up on the card, write the zkey, vkey and "
                                      "verifier.sol")
@@ -722,6 +905,7 @@ def main(argv=None):
                    help="the tier this worker advertises to its peers: sharded or native (anything else)")
     s.add_argument("--fleet-dir", default="",
                    help="the fleet's heartbeat / control directory (the supervisor sets it; default: solo)")
+    perf_args(s, None)
     s.set_defaults(fn=cmd_service)
 
     s = sub.add_parser("fleet", help="supervise N service workers on one spool (restarts, breaker, drain, "
@@ -769,6 +953,7 @@ def main(argv=None):
                    help="how long an empty backlog must hold before the newest worker is retired")
     s.add_argument("--fleet-scrape-s", type=float, default=2.0,
                    help="the fleet plane's interval between scrapes of the workers' /snapshot")
+    perf_args(s, "appended to each worker's argv; default: the worker's")
     device_arg(s)
     s.set_defaults(fn=cmd_fleet)
 
@@ -796,6 +981,41 @@ def main(argv=None):
     s.add_argument("--no-workload", action="store_true", help="skip the K1 launch")
     s.add_argument("--strict", action="store_true", help="exit 1 when the report has a warning")
     s.set_defaults(fn=cmd_doctor)
+
+    s = sub.add_parser("perf", help="perf sentry: ledger trendlines, stage budgets, the baseline drift gate")
+    s.add_argument("--ledger", default="", help="ledger path (default: the card's, in <repo>/.bench_cache)")
+    s.add_argument("--baseline", default="", help="baseline path (default: PERF_BASELINE_GPU.json at the repo root)")
+    s.add_argument("--circuit", dest="circuit_filter", default="", help="the trendlines of one circuit label only")
+    s.add_argument("--stage", default="", help="a substring the stage names must hold")
+    s.add_argument("--window", type=int, default=pl.DEFAULT_WINDOW,
+                   help="the budgets' trailing window in ledger entries")
+    s.add_argument("--tolerance", type=float, default=pl.DEFAULT_TOLERANCE,
+                   help="the budgets' multiple of the window's median")
+    s.add_argument("--json", action="store_true", help="the budgets, series and refused counts as JSON")
+    s.add_argument("--rebaseline", action="store_true", help="freeze the current budgets as the baseline band")
+    s.add_argument("--gate", action="store_true",
+                   help="replay the ledger's head against the baseline band; rc 1 drift, rc 2 fail closed")
+    device_arg(s)
+    s.set_defaults(fn=cmd_perf)
+
+    s = sub.add_parser("flame", help="a prove loop under the flame sampler: collapsed stacks on stdout and a "
+                                     "capture beside the perf ledger")
+    s.add_argument("--duration", type=float, default=30.0,
+                   help="the prove loop's wall clock in s (at least one proof runs)")
+    s.add_argument("--hz", type=float, default=flameprof.DEFAULT_HZ,
+                   help=f"the sampling rate (default {flameprof.DEFAULT_HZ:g})")
+    s.add_argument("--cache-dir", default=pl.DEFAULT_CACHE_DIR,
+                   help="where the capture is written (default <repo>/.bench_cache)")
+    s.add_argument("--zkey", help="zkey path or chunk glob (default: BUILD_DIR/circuit_final.zkey; none: the dev "
+                                  "setup on the card)")
+    s.add_argument("--no-infer-widths", action="store_true",
+                   help="disable the zkey bit-constraint width inference")
+    s.add_argument("--message", help=argparse.SUPPRESS)
+    s.add_argument("--eml", help=argparse.SUPPRESS)
+    s.add_argument("--order-id", type=int, default=1)
+    s.add_argument("--claim-id", type=int, default=0)
+    device_arg(s)
+    s.set_defaults(fn=cmd_flame)
 
     args = ap.parse_args(argv)
     try:

@@ -24,7 +24,9 @@ Files in `fleet_dir` (default <spool>/.fleet/), replaced atomically:
 
   <wid>.hb     the worker's heartbeat: {pid, ts, worker, fleet, state,
                port (its endpoint's bound port), rss_mb, degraded,
-               slo_window, tier, sched (its last sweep's decisions)}
+               slo_window, tier, sched (its last sweep's decisions), perf
+               (the perf sentry's overruns, checked spans, budgets and the
+               newest flame capture)}
   <wid>.ctl    supervisor -> worker: {"degrade": 1} asks for the soft
                degrade at the worker's next sweep
   status.json  the supervisor's state, rewritten each tick; with the
@@ -40,10 +42,11 @@ Where the port differs from the reference:
     appends `--worker-id <wid> --fleet-id <id> --fleet-dir <dir>
     --metrics-port 0` to each worker's argv (port 0: each worker's
     endpoint on a port the OS chooses, so that N workers never collide;
-    the heartbeat carries the port), and `--sched <arm>` when given one.
-    The workers inherit the supervisor's environment, which nothing here
-    reads.
-  - The heartbeat has no `perf`: the perf sentry is not ported yet.
+    the heartbeat carries the port), `--sched <arm>` when given one, and
+    the perf sentry's and flame sampler's settings given in `perf`
+    (`--no-perf-ledger`, `--perf-window N`, `--cache-dir DIR`, ...,
+    `--flame`, `--flame-hz HZ`, ...).  The workers inherit the supervisor's environment, which
+    nothing here reads.
   - The soft degrade halves the batch and frees nothing else: the port
     has no fixed-base precomputed tables to drop.
   - The policy is keyword arguments whose defaults are the reference's
@@ -189,6 +192,11 @@ def _write_heartbeat(svc, fleet_dir: str, state: Optional[str] = None) -> None:
     sched_hb = getattr(svc, "_sched_hb", None)
     if sched_hb:
         hb["sched"] = dict(sched_hb)
+    # the perf sentry's counters: the fleet plane sums them into the
+    # perf_regression rule's signal, `top` renders them
+    perf_hb = getattr(svc, "_perf_hb", None)
+    if perf_hb:
+        hb["perf"] = dict(perf_hb)
     _atomic_write_json(os.path.join(fleet_dir, hb["worker"] + ".hb"), hb)
 
 
@@ -282,10 +290,19 @@ class WorkerSlot:
     scale_deadline: float = 0.0
 
 
+# the service's perf sentry and flame settings -> the worker's flag (the
+# booleans' flags turn the ledger off and the sampler on)
+PERF_FLAGS = {"perf_ledger": "--no-perf-ledger", "perf_window": "--perf-window", "perf_tolerance": "--perf-tolerance",
+              "cache_dir": "--cache-dir", "flame": "--flame", "flame_hz": "--flame-hz", "flame_capture_n": "--flame-capture-n",
+              "flame_cooldown_s": "--flame-cooldown-s"}
+
+
 class FleetSupervisor:
     """Spawn N workers on one spool and keep them healthy.  `worker_cmd`
     maps a worker id to its argv, to which the supervisor appends the
-    worker's identity flags (and `--sched` when `sched` is given).  With
+    worker's identity flags (`--sched` when `sched` is given, and the flags
+    of the settings in `perf`: perf_ledger, perf_window, perf_tolerance,
+    cache_dir, flame, flame_hz, flame_capture_n, flame_cooldown_s).  With
     workers_max > 0 the fleet autoscales in [max(1, workers_min),
     workers_max] (`workers` clamped into the band), which turns on the
     fleet plane (on a port the OS chooses when none is given).  Exit codes
@@ -313,6 +330,7 @@ class FleetSupervisor:
         scale_up_s: float = 10.0,
         scale_down_s: float = 30.0,
         sched: Optional[str] = None,
+        perf: Optional[Dict] = None,
         log: Callable[[str], None] = lambda m: print(f"[fleet] {m}", flush=True),
     ):
         from ..utils.audit import record_arm
@@ -342,6 +360,11 @@ class FleetSupervisor:
         self._draining = False
         # the workers' scheduler arm (None: their own default)
         self.sched = sched
+        # the workers' perf sentry and flame settings (absent: their defaults)
+        self.perf = dict(perf or {})
+        unknown = set(self.perf) - set(PERF_FLAGS)
+        if unknown:
+            raise ValueError(f"unknown perf settings {sorted(unknown)} (have: {', '.join(PERF_FLAGS)})")
         # autoscaling (pipeline.sched.AutoscalePolicy): workers_max 0 is
         # off, the static fleet
         self.workers_min = workers_min
@@ -382,6 +405,14 @@ class FleetSupervisor:
                                              "--fleet-dir", self.fleet_dir, "--metrics-port", "0"]
         if self.sched is not None:
             argv += ["--sched", self.sched]
+        for name, value in self.perf.items():
+            flag = PERF_FLAGS[name]
+            if name == "perf_ledger":
+                argv += [] if value else [flag]
+            elif name == "flame":
+                argv += [flag] if value else []
+            else:
+                argv += [flag, str(value)]
         return argv
 
     def _spawn(self, slot: WorkerSlot) -> None:
@@ -638,9 +669,12 @@ class FleetSupervisor:
                 "hb_state": hb.get("state"),
                 "degraded": hb.get("degraded", False),
             }
-            # the worker's last scheduler decisions, from its heartbeat
+            # the worker's last scheduler decisions and its perf sentry's
+            # counters, from its heartbeat
             if hb.get("sched"):
                 workers[slot.wid]["sched"] = hb["sched"]
+            if hb.get("perf"):
+                workers[slot.wid]["perf"] = hb["perf"]
         sched_block: Dict = {"autoscale": self.autoscale}
         if self.autoscale:
             sched_block.update({

@@ -39,8 +39,15 @@ nothing reads the environment.  The default prover is
 ``prove_gpu_batch`` on the card.  ``run`` serves the Prometheus endpoint
 when given a port (``utils.metrics``), logs the preflight, and, as a
 fleet worker (``pipeline.fleet``), writes its heartbeat and applies the
-supervisor's soft degrade.  Not ported yet (the reference's defaults
-stand in their place): the perf-ledger sentry and the flame sampler.
+supervisor's soft degrade.
+
+The perf sentry (``utils.perfledger``) checks every span of a terminal
+request against the stage budgets of the card's ledger in `cache_dir`
+(``zkp2p_stage_budget_overruns_total{stage}``; the heartbeat's `perf`
+block), and ``run`` stamps one ledger entry of the run's span costs at
+exit.  With `flame` on, an overrun starts an overrun-triggered capture of
+the flame sampler (``utils.flameprof``) over the next `flame_capture_n`
+sweeps, written beside the ledger.
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 from ..formats.proof_json import dump, proof_to_json, public_to_json
 from ..prover.groth16_gpu import prove_gpu_batch
 from ..snark.groth16 import verify
+from ..utils import flameprof, perfledger
 from ..utils.audit import execution_digest, preflight, sample_device_memory
 from ..utils.device import resolve_device
 from ..utils.faults import FaultInjected, fault_point, faults_arm
@@ -331,6 +339,15 @@ class ProvingService:
         sched_priority_default: str = "bulk",
         worker_tier: str = "",
         amort_points: Optional[Dict[int, float]] = None,
+        circuit: str = "",
+        perf_ledger: bool = True,
+        perf_window: int = perfledger.DEFAULT_WINDOW,
+        perf_tolerance: float = perfledger.DEFAULT_TOLERANCE,
+        flame: bool = False,
+        flame_hz: float = flameprof.DEFAULT_HZ,
+        flame_capture_n: int = flameprof.DEFAULT_CAPTURE_N,
+        flame_cooldown_s: float = flameprof.DEFAULT_COOLDOWN_S,
+        cache_dir: Optional[str] = perfledger.DEFAULT_CACHE_DIR,
     ):
         """witness_fn: payload -> witness (raises on bad input);
         public_fn: witness -> public signals.
@@ -373,7 +390,22 @@ class ProvingService:
         `priority` ("interactive" or "bulk").
         worker_tier: the tier this worker advertises in its heartbeat and
         plans for ("sharded" or "native"; anything else reads as native).
+        circuit: the label of the ledger's entries and the budgets' circuit
+        ("service" when empty).
+        perf_ledger / perf_window / perf_tolerance: the perf sentry (off: no
+        budgets, no checks, no stamp) and its budgets, the trailing window's
+        upper median of a stage's p50 times the tolerance (>= 1).
+        flame / flame_hz / flame_capture_n / flame_cooldown_s: whether an
+        overrun starts a flame capture, its sampling rate, the sweeps it
+        spans and the least seconds between two captures.
+        cache_dir: where the ledger and the captures live (None: nowhere,
+        the sentry then has no budgets and stamps nothing).
         The defaults are the reference's."""
+        if perf_window < 1 or perf_tolerance < 1.0:
+            raise ValueError(f"perf_window {perf_window} must be >= 1 and perf_tolerance {perf_tolerance} >= 1.0")
+        if flame_hz <= 0 or flame_capture_n < 1 or flame_cooldown_s < 0:
+            raise ValueError(f"flame_hz {flame_hz} must be > 0, flame_capture_n {flame_capture_n} >= 1 and "
+                             f"flame_cooldown_s {flame_cooldown_s} >= 0")
         self.cs = cs
         self.dpk = dpk
         self.vk = vk
@@ -409,6 +441,22 @@ class ProvingService:
         self._sched_hb: Optional[Dict] = None
         # set by the governor's soft degrade (pipeline.fleet.apply_soft_degrade)
         self._fleet_degraded = False
+        # the perf sentry: the budget book (loaded at the first terminal
+        # request), the heartbeat's counters, the run's span costs for the
+        # exit stamp
+        self.circuit = circuit or "service"
+        self.perf_ledger = perf_ledger
+        self.perf_window = perf_window
+        self.perf_tolerance = perf_tolerance
+        self.flame = flame
+        self.flame_hz = flame_hz
+        self.flame_capture_n = flame_capture_n
+        self.flame_cooldown_s = flame_cooldown_s
+        self.cache_dir = cache_dir
+        self._perf_book = None
+        self._perf_lock = threading.Lock()
+        self._perf_hb: Optional[Dict] = None
+        self._perf_agg: Dict[str, List[float]] = {}
         # the policy, stamped on every request record
         self.knobs = {
             "batch_size": batch_size, "prefetch": self.prefetch, "stale_claim_s": stale_claim_s,
@@ -416,7 +464,9 @@ class ProvingService:
             "retry_backoff_s": retry_backoff_s, "slo_p95_s": slo_p95_s, "ts_sample_s": ts_sample_s,
             "device": str(self.device), "sched": sched, "sched_amort": sched_amort,
             "sched_target_fill": sched_target_fill, "sched_priority_default": self._priority_default,
-            "worker_tier": worker_tier,
+            "worker_tier": worker_tier, "perf_ledger": perf_ledger, "perf_window": perf_window,
+            "perf_tolerance": perf_tolerance, "flame": flame, "flame_hz": flame_hz,
+            "flame_capture_n": flame_capture_n, "flame_cooldown_s": flame_cooldown_s,
         }
         # per-path rotating sinks; the producer and the consumer thread
         # both emit records, and two sinks for one path would rotate
@@ -584,8 +634,64 @@ class ProvingService:
             anchor = req.t_submit or req.t_claim
             if anchor:
                 default_tracker().observe(time.time() - anchor, ok=(state == "done"))
+            # the perf sentry: this request's spans against the stage budgets
+            try:
+                self._perf_check(req)
+            except Exception:  # noqa: BLE001 — observation never fails a request
+                pass
         else:
             REGISTRY.counter("zkp2p_service_deferred_total").inc()
+
+    def _perf_check(self, req: Request) -> None:
+        """Check one terminal request's spans against the ledger's stage
+        budgets (the book loaded once, then dict lookups).  A span over its
+        budget counts in zkp2p_stage_budget_overruns_total{stage} and, with
+        `flame` on, triggers a capture that names the budget's ledger head;
+        every span also pools into the exit stamp.  The counts ride the
+        heartbeat's `perf` block."""
+        book = self._perf_book
+        if book is None:
+            path = perfledger.ledger_path(self.cache_dir, self.device) if self.perf_ledger else None
+            book = self._perf_book = perfledger.BudgetBook.load(self.circuit, path, window=self.perf_window,
+                                                     tolerance=self.perf_tolerance, perf_ledger=self.perf_ledger,
+                                                     device=self.device)
+            REGISTRY.gauge("zkp2p_perf_budget_stages").set(float(len(book)))
+        if not req.spans:
+            return
+        overruns = checked = 0
+        with self._perf_lock:
+            for sp in req.spans:
+                name, ms = sp.get("name"), sp.get("ms")
+                if not name or ms is None:
+                    continue
+                self._perf_agg.setdefault(name, []).append(float(ms))
+                verdict = book.over(name, ms)
+                if verdict is None:
+                    continue  # no budget for this stage: never counts
+                checked += 1
+                if verdict:
+                    overruns += 1
+                    REGISTRY.counter("zkp2p_stage_budget_overruns_total", {"stage": name}).inc()
+                    if self.flame:
+                        flameprof.controller().trigger(
+                            self.circuit, name, self.cache_dir, entry_digest=book.head_digest(name),
+                            budget_ms=book.budget_ms(name), over_ms=float(ms), hz=self.flame_hz,
+                            capture_n=self.flame_capture_n, cooldown_s=self.flame_cooldown_s)
+            if self._perf_hb is None:
+                self._perf_hb = {"overruns": 0, "checked": 0, "budgets": len(book)}
+            self._perf_hb["overruns"] += overruns
+            self._perf_hb["checked"] += checked
+
+    def _perf_stamp(self) -> Optional[str]:
+        """The exit stamp: one source="service" ledger entry of this run's
+        terminal-request span costs (p50 / p95 a stage), when the ledger is
+        on; returns its path."""
+        with self._perf_lock:
+            agg, self._perf_agg = self._perf_agg, {}
+        stages = {name: st for name, samples in agg.items()
+                  for st in [perfledger.stage_stats(samples)] if st is not None}
+        return perfledger.record("service", self.circuit, stages, run_id=run_id(), perf_ledger=self.perf_ledger,
+                      cache_dir=self.cache_dir, device=self.device)
 
     def _record_deferred(self, spool: str, req: Request, reason: object, batch_index: Optional[int] = None,
                          batch_n: Optional[int] = None) -> None:
@@ -1183,6 +1289,15 @@ class ProvingService:
             # requests after the failure got no witness and no record this
             # sweep: their claims let a later sweep pick them up
             raise producer_error[0]
+        # the flame sweep boundary: a triggered capture spans the next
+        # flame_capture_n sweeps; the finished one's pointer rides the
+        # heartbeat's perf block
+        if flameprof.controller().sweep_tick() is not None:
+            ptr = flameprof.controller().pointer()
+            with self._perf_lock:
+                if self._perf_hb is None:
+                    self._perf_hb = {"overruns": 0, "checked": 0, "budgets": 0}
+                self._perf_hb["capture"] = ptr
         return stats
 
     def _consume(self, spool, ready_q, stats) -> None:
@@ -1310,6 +1425,8 @@ class ProvingService:
         fleet_member_arm(self._worker_id)
         sched_arm(self.sched)
         worker_tier_arm(self.worker_tier)
+        perfledger.perf_arm(self.perf_ledger)
+        flameprof.flame_arm(self.flame, self.flame_hz)
         tag = f"[service {self._worker_id}]" if self._worker_id else "[service]"
         # the preflight: every gate's arm and the digest, logged before the
         # first claim (its warnings too)
@@ -1368,6 +1485,12 @@ class ProvingService:
                 why = "drained"
                 break
         _flush()
+        # the run's span costs: one ledger entry, which later runs' budgets
+        # are derived from
+        try:
+            self._perf_stamp()
+        except Exception:  # noqa: BLE001 — observation only
+            pass
         if hb_stop is not None:
             hb_stop.set()
         # the last heartbeat says why: a deliberate exit, not a hang

@@ -102,7 +102,10 @@ def worker_main(args) -> int:
     svc = ProvingService(cs, dpk, vk, witness_fn, public_fn=lambda w: [w[1]], batch_size=args.batch,
                          prover_fn=prover_fn, stale_claim_s=args.stale_claim_s, retry_backoff_s=0.05, device=device,
                          metrics_port=args.metrics_port, worker_id=args.worker_id, fleet_id=args.fleet_id,
-                         fleet_dir=args.fleet_dir, sched=args.sched)
+                         fleet_dir=args.fleet_dir, sched=args.sched,
+                         # its proves carry the added service time and the
+                         # fault plan: no span of them enters the card's ledger
+                         cache_dir=None)
     install_drain_handlers(svc)
     print(f"[chaos-worker {os.getpid()}] up, sweeping {args.spool}", flush=True)
     # --linger keeps sweeping a spool whose requests have all ended

@@ -538,7 +538,9 @@ def main(argv=None) -> int:
         cs, dpk, vk, witness_fn, public_fn, payload_fn, circuit = world
         svc = ProvingService(cs, dpk, vk, witness_fn, public_fn=public_fn, batch_size=args.batch,
                              prover_fn=lambda key, wits: prove_gpu_batch(key, wits, device=device), device=device,
-                             slo_p95_s=args.objective_s, ts_sample_s=args.ts_sample_s, sched=sched)
+                             slo_p95_s=args.objective_s, ts_sample_s=args.ts_sample_s, sched=sched,
+                             # a load test neither reads budgets from nor adds to the card's perf ledger
+                             cache_dir=None)
         svc._build_kernels()
         sched_arm(sched)
         # the gates armed (and /status answering 200), then the endpoint

@@ -26,9 +26,11 @@ of their own.
 The reference reads the thresholds from its environment; ``fleet_rules``
 takes them as keywords whose defaults are the reference's (burn rate 2.0,
 restarts 3, for 5 s, clear 30 s, heartbeat gap 15 s).  Its
-`perf_regression` rule reads the stage-budget overruns that the perf
-sentry puts in a worker's heartbeat; the port's workers have no sentry
-yet, so that signal is always absent and the rule keeps its state (ok).
+`perf_regression` rule reads the stage-budget overruns that each
+worker's perf sentry (``utils.perfledger`` in the service) puts in its
+heartbeat's `perf` block: the fleet plane sums them over the workers
+that have budgets, and the rule holds while none has (a fresh ledger
+must not page).
 """
 
 from __future__ import annotations

@@ -139,13 +139,15 @@ def _arm_gates() -> None:
     process (or "off"), and each other gate this process has not taken
     yet at its entry point's default (prove_gpu's msm_affine and msm_h,
     prove_gpu_batch's chunk, the service's SLO objective, time-series
-    interval, fleet membership, scheduler arm and worker tier, the
-    supervisor's governor budgets)."""
+    interval, fleet membership, scheduler arm, worker tier, perf ledger
+    and flame sampler, the supervisor's governor budgets)."""
     from ..pipeline.fleet import FleetSupervisor, fleet_member_arm, governor_arm
     from ..pipeline.sched import sched_arm, worker_tier_arm
     from ..pipeline.service import ProvingService
     from ..prover.groth16_gpu import prove_gpu, prove_gpu_batch
     from .faults import faults_arm
+    from .flameprof import flame_arm
+    from .perfledger import perf_arm
     from .slo import slo_arm, timeseries_arm
 
     faults_arm()
@@ -158,6 +160,8 @@ def _arm_gates() -> None:
                 "service_fleet": lambda: fleet_member_arm(_default(svc, "worker_id")),
                 "service_sched": lambda: sched_arm(_default(svc, "sched")),
                 "worker_tier": lambda: worker_tier_arm(_default(svc, "worker_tier")),
+                "perf_ledger": lambda: perf_arm(_default(svc, "perf_ledger")),
+                "flame": lambda: flame_arm(_default(svc, "flame"), _default(svc, "flame_hz")),
                 "fleet_governor": lambda: governor_arm(_default(sup, "rss_soft_mb"), _default(sup, "rss_hard_mb"))}
     for gate, arm in defaults.items():
         if gate not in _arms:

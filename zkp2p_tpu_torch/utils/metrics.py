@@ -82,6 +82,9 @@ METRIC_HELP: Dict[str, str] = {
     "zkp2p_fleet_slo_window_requests": "Samples across every worker's SLO window (sum of window sizes)",
     "zkp2p_fleet_slo_objective_s": "Configured p95 objective the fleet windows are judged against",
     "zkp2p_fleet_backlog": "Open spool requests at the last supervisor scrape (supervisor's own scan)",
+    "zkp2p_stage_budget_overruns_total": "Terminal-request spans over their ledger-derived stage budget, by stage (utils.perfledger)",
+    "zkp2p_perf_budget_stages": "Stage budgets loaded from the perf ledger for this worker's circuit",
+    "zkp2p_flame_captures_total": "Flame-sampler captures written, by trigger (overrun|manual) (utils.flameprof)",
     "zkp2p_sched_batch_size": "Adaptive controller's bulk-lane batch target at the last sweep plan",
     "zkp2p_sched_decisions_total": "Scheduler decisions by kind (batch|shed|lane|scale_up|scale_down)",
     "zkp2p_fleet_workers_target": "Autoscaler's live-worker target after the last evaluation",
